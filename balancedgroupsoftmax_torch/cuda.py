@@ -1,0 +1,143 @@
+"""Build and bind the hand-written CUDA kernels in `csrc/`.
+
+Every `csrc/*.cu` is compiled by its own `nvcc` process (all started together)
+for `sm_90a` into an object, and the objects are linked into one shared
+library with a plain C interface, loaded with `ctypes`. The build happens at
+the first launch, into `_build/` beside this file (listed in `.gitignore`),
+under a name derived from the sources' hash, so an edited source rebuilds.
+Nothing here runs when the module is imported.
+
+No `--use_fast_math`; `-fmad=false` keeps every multiply and add rounded on its
+own, as the plain PyTorch versions compute them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C symbol -> argument types (the last argument of every launcher is the stream)
+SIGNATURES = {
+    "bags_nms_keep": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "bags_nms_keep_gathered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "bags_roi_align_forward": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return str(path)
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels if this source version is not built yet.
+
+    Returns (library path, seconds spent building; 0.0 when it was built)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode() + src.read_bytes())
+    lib = BUILD_DIR / f"libbags_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        staged = Path(tmp) / lib.name
+        subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(staged)],
+            check=True, capture_output=True, text=True,
+        )
+        os.replace(staged, lib)
+    return lib, time.perf_counter() - start
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+class Kernel:
+    """One launcher of the shared library, with its count of launches.
+
+    `launches` rises by one each time the kernel is launched, and nowhere
+    else, so a run can show that its path went through the kernel."""
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(library(), self.symbol)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+def check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
+    """Raise unless `t` is what a kernel takes: contiguous, on the card, of
+    this dtype and shape."""
+    if (
+        t.device.type != "cuda"
+        or t.dtype != dtype
+        or tuple(t.shape) != tuple(shape)
+        or not t.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: the kernel takes a contiguous CUDA {dtype} tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})"
+        )
+
+
+NMS_KEEP = Kernel("bags_nms_keep")
+NMS_KEEP_GATHERED = Kernel("bags_nms_keep_gathered")
+ROI_ALIGN = Kernel("bags_roi_align_forward")
+KERNELS = (NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED)

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need a CUDA device and nvcc and skip without them. On the H100, where
+JAX is not installed, run them without tests/conftest.py (which imports JAX):
+`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`. Keep masks
+and gathered candidates must be equal; RoIAlign does the plain version's f32
+operations in its order, so f32 agrees to 1e-5 and bf16 to one bf16 step
+(2^-7 relative to the largest value).
+
+This file imports nothing of JAX, so it also holds the numpy-built inputs
+that the port's CPU tests share.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from balancedgroupsoftmax_torch import cuda
+from balancedgroupsoftmax_torch.ops import nms as ops_nms
+from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
+
+pytestmark = pytest.mark.cuda
+
+STRIDES = (4, 8, 16, 32)
+IMAGE = (256, 384)
+
+
+def tie_rows(seed, g, k, thr, spread=300):
+    """(G, K, 4) integer boxes, score order = slot order, with exact
+    duplicates (slot 7m + 1 repeats 7m), pairs whose IoU equals `thr` exactly
+    (slots 7m + 2, 7m + 3: 10 x 10 against 10 x 10 thr at one corner) and
+    ~10% invalid slots."""
+    rng = np.random.RandomState(seed)
+    xy = rng.randint(0, spread, (g, k, 2)).astype(np.float32)
+    wh = rng.randint(4, 80, (g, k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    m = (k - 4) // 7 + 1
+    boxes[:, 1::7][:, :m] = boxes[:, 0::7][:, :m]
+    corner = boxes[:, 2::7][:, :m, :2].copy()
+    boxes[:, 2::7][:, :m] = np.concatenate([corner, corner + 9], -1)
+    boxes[:, 3::7][:, :m] = np.concatenate([corner, corner + [9, round(10 * thr) - 1]], -1)
+    valid = rng.rand(g, k) > 0.1
+    return boxes, valid
+
+
+def gathered_case(seed, g=6, k=40, n=100, thr=0.5):
+    """Coordinate planes (G, 4, N), distinct candidate indices (G, K) and
+    validity for the gathered NMS."""
+    rng = np.random.RandomState(seed)
+    boxes, _ = tie_rows(seed, g, n, thr, spread=120)
+    planes = np.ascontiguousarray(boxes.transpose(0, 2, 1))
+    idx = np.stack([rng.permutation(n)[:k] for _ in range(g)]).astype(np.int32)
+    valid = rng.rand(g, k) > 0.15
+    return planes, idx, valid
+
+
+def pyramid(rng, b=2, c=16):
+    return [rng.randn(b, IMAGE[0] // s, IMAGE[1] // s, c).astype(np.float32) for s in STRIDES]
+
+
+def rois_all_levels(rng, b=2, r=64):
+    """Rois of side 6 to 1000 px: every FPN level, some reaching past the image."""
+    side = np.exp(rng.uniform(np.log(6), np.log(1000), (b, r, 2)))
+    x1 = rng.uniform(-10, IMAGE[1], (b, r))
+    y1 = rng.uniform(-10, IMAGE[0], (b, r))
+    return np.stack([x1, y1, x1 + side[..., 0], y1 + side[..., 1]], -1).astype(np.float32)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("k", [60, 1000])
+def test_nms_keep_matches_plain(dev, k):
+    boxes, valid = (torch.from_numpy(x).to(dev) for x in tie_rows(k, 5, k, 0.7))
+    before = cuda.NMS_KEEP.launches
+    keep = ops_nms.nms_keep_batched(boxes, valid, 0.7)
+    assert cuda.NMS_KEEP.launches == before + 1
+    assert torch.equal(keep, ops_nms.nms_keep_reference(boxes, valid, 0.7))
+
+
+def test_nms_keep_gathered_matches_plain(dev):
+    planes, idx, valid = (torch.from_numpy(x).to(dev) for x in gathered_case(3, g=20, k=300, n=1000))
+    keep, cand = ops_nms.nms_keep_gathered(planes, idx, valid, 0.5)
+    ref_keep, ref_cand = ops_nms.nms_keep_gathered_reference(planes, idx, valid, 0.5)
+    assert torch.equal(keep, ref_keep)
+    assert torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_matches_plain(dev, dtype):
+    rng = np.random.RandomState(0)
+    feats = [torch.from_numpy(f).to(dev, dtype) for f in pyramid(rng)]
+    rois = torch.from_numpy(rois_all_levels(rng)).to(dev)
+    out = ops_roi.multilevel_roi_align(feats, rois, STRIDES)
+    ref = ops_roi.multilevel_roi_align_reference(feats, rois, STRIDES).float()
+    limit = 1e-5 if dtype == torch.float32 else 2.0**-7 * ref.abs().max().item()
+    assert out.dtype == dtype
+    assert (out.float() - ref).abs().max().item() <= limit
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    boxes = torch.zeros(2, 8, 4, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        ops_nms.nms_keep_batched(boxes, torch.ones(2, 8, dtype=torch.bool, device=dev), 0.5)
+    feats = [torch.zeros(1, 8, 8, 4, device=dev).permute(0, 2, 1, 3)]  # not contiguous
+    with pytest.raises(ValueError):
+        ops_roi.multilevel_roi_align(feats, torch.zeros(1, 2, 4, device=dev), (4,))
