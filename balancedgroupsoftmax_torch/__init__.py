@@ -2,6 +2,8 @@
 
 The port of the JAX package beside it (JAX on the TPU), which stays the
 reference and which this package never imports; a reference written as
-JAX `path` :line points into it. This slice serves BAGS Faster R-CNN R50-FPN: `apis.init_detector`
-and `models.detector.FasterRCNN.predict`.
+JAX `path` :line points into it. It serves and trains BAGS Faster R-CNN
+R50-FPN on one card: `apis.init_detector` and
+`models.detector.FasterRCNN.predict`; `parallel.train.create_train_state` and
+`make_train_step` over `FasterRCNN.loss`.
 """

@@ -1,9 +1,9 @@
-"""Configuration dataclasses of the inference slice.
+"""Configuration dataclasses of the inference and training slices.
 
-Copies of the fields that Faster R-CNN R50-FPN inference reads from JAX
-`config.py`, with the same names and defaults (the canonical BAGS config
-`configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`). Training fields,
-class-agnostic regression and the input-size field (the port's anchors follow
+Copies of the fields that Faster R-CNN R50-FPN inference and training read
+from JAX `config.py`, with the same names and defaults (the canonical BAGS
+config `configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`).
+Class-agnostic regression and the input-size field (the port's anchors follow
 each batch's shape) come with the slices that read them.
 """
 
@@ -11,6 +11,21 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class AssignerConfig:
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.5
+    min_pos_iou: float = 0.5
+    gt_max_assign_all: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    num: int = 512
+    pos_fraction: float = 0.25
+    add_gt_as_proposals: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,13 +40,28 @@ class AnchorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RPNTrainConfig:
+    assigner: AssignerConfig = AssignerConfig(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3)
+    sampler: SamplerConfig = SamplerConfig(num=256, pos_fraction=0.5, add_gt_as_proposals=False)
+    allowed_border: int = 0
+    pos_weight: float = -1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ProposalConfig:
-    """RPN proposal generation (bg8.py:101-107 at test time)."""
+    """RPN proposal generation (train: bg8.py:78-84, test: :101-107)."""
 
     nms_pre: int = 2000
     nms_post: int = 2000
     max_num: int = 2000
     nms_thr: float = 0.7
+
+
+@dataclasses.dataclass(frozen=True)
+class RCNNTrainConfig:
+    assigner: AssignerConfig = AssignerConfig()
+    sampler: SamplerConfig = SamplerConfig()
+    pos_weight: float = -1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +79,7 @@ class GSConfig:
     """Grouped-softmax head (bg8.py:39-51)."""
 
     num_bins: int = 5
+    others_sample_ratio: float = 8.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +106,7 @@ class RoIExtractorConfig:
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
     depth: int = 50
+    frozen_stages: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +123,26 @@ class DetectorConfig:
     anchors: AnchorConfig = AnchorConfig()
     roi_extractor: RoIExtractorConfig = RoIExtractorConfig()
     bbox_head: BBoxHeadConfig = BBoxHeadConfig()
+    rpn_train: RPNTrainConfig = RPNTrainConfig()
+    rpn_proposal_train: ProposalConfig = ProposalConfig(nms_pre=2000, nms_post=2000, max_num=2000)
     rpn_proposal_test: ProposalConfig = ProposalConfig(
         nms_pre=1000, nms_post=1000, max_num=1000
     )
+    rcnn_train: RCNNTrainConfig = RCNNTrainConfig()
     rcnn_test: RCNNTestConfig = RCNNTestConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization recipe (bg8.py:170-198)."""
+
+    lr: float = 0.01
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    grad_clip_norm: float = 35.0
+    warmup_iters: int = 500
+    warmup_ratio: float = 1.0 / 3.0
+    lr_step_epochs: Tuple[int, ...] = (8, 11)
+    # 0: everything but the frozen backbone stages; 1: only fc_cls (BAGS
+    # phase 2) (tools/train.py:143-158)
+    selectp: int = 0

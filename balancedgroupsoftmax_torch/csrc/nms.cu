@@ -1,16 +1,19 @@
-// Exact greedy NMS keep masks: K1 `bags_nms_keep` and K3 `bags_nms_keep_gathered`.
+// Exact greedy NMS keep masks: K1 `bags_nms_keep`, K3 `bags_nms_keep_gathered`
+// and K4 `bags_nms_keep_tiled`.
 //
 // Replaces (TPU Pallas, JAX package pallas/nms.py):
 //   K1  nms_keep_batched  (:304, via _keep_from_coords :273, _nms_block_kernel :29,
 //       _fixpoint_keep :42) -- RPN NMS at test time, rows of K <= 1000 boxes.
 //   K3  nms_keep_gathered (:371, via _nms_gathered_kernel :331) -- per-(image, class)
 //       candidate gather from coordinate planes fused with the same keep.
+//   K4  nms_keep_tiled    (:213, via _nms_tiled_kernel :102) -- the K1 keep for any
+//       K; the RPN in training, rows of K = 2000.
 //
-// Semantics (both): rows of score-descending boxes with a validity mask; box i
+// Semantics (all three): rows of score-descending boxes with a validity mask; box i
 // suppresses box j when i < j, both are valid and iou(i, j) > thr under the +1
 // pixel convention; a box is kept when it is valid and no kept box suppresses
 // it. Invalid slots neither keep nor suppress. This equals the fixpoint the TPU
-// kernel iterates to.
+// kernels iterate to.
 //
 // Design. Three steps, each a device function below:
 //  1. load a row's boxes (K3: gather them straight from the (G, 4, N) planes
@@ -30,13 +33,24 @@
 // through device memory; the boxes are read once and the keep mask (and K3's
 // candidates) written once.
 //
-// What bounds it on an H100: neither bytes nor FLOPs but latency. The walk is
-// K dependent steps of one warp, at most G of the 132 SMs busy. Shared
+// K4 shares K1's mask kernel and replaces only the walk. The TPU walked
+// 256-box tiles and iterated a fixpoint inside each; here a row's mask (512 KB
+// at K = 2000, more than a block's shared memory) stays in device memory (and
+// in L2: 5 MB for the ten training rows) and one warp walks it 64 boxes at a
+// time. For the chunk of boxes [64 c, 64 c + 64) it loads the chunk's diagonal
+// words (mask[i][c], two per lane), settles the chunk's keeps among
+// themselves with shuffles, starting from word c of the removed set, and then
+// ORs the rows of the boxes it kept into the later words of the removed set:
+// lane l accumulates words c + 1 + l, c + 33 + l, ..., eight row loads in
+// flight at a time. The removed set (ceil(K/64) words) sits in shared memory,
+// so any K works; the walk reads each kept box's row once, coalesced.
+//
+// What bounds them on an H100: neither bytes nor FLOPs but latency. The walks
+// are K dependent steps of one warp, at most G of the 132 SMs busy. Shared
 // memory: a K1 walk block at K = 1000 holds the 128 KB mask row, which caps K
-// near 1500, as K3's fused block at K = 300 (20 KB) is capped; the walk's
-// register set allows K <= 2048. K4's train-time K = 2000 needs a walk that
-// streams the mask from device memory. A K that does not fit makes the
-// launcher return an error.
+// near 1350, as K3's fused block at K = 300 (20 KB) is capped; the register
+// walk allows K <= 2048. A K that does not fit makes the launcher return an
+// error; `kernels.batched_nms_topk` sends K > 1280 to K4.
 //
 // IoU is computed in the JAX formula order with round-to-nearest intrinsics,
 // which the compiler never contracts into FMAs, so a box exactly at the
@@ -202,6 +216,61 @@ nms_walk_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __re
   walk(smem, v, keep + g * k, k);
 }
 
+// K4 step 3: one warp per row walks the mask in device memory, 64 boxes a chunk.
+__global__ void __launch_bounds__(32)
+nms_stream_walk_kernel(const unsigned long long* __restrict__ mask,
+                       const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep, int k) {
+  extern __shared__ unsigned long long removed[];  // ceil(K/64) words
+  const int64_t g = blockIdx.x;
+  const int words = num_words(k);
+  const int lane = threadIdx.x;
+  const unsigned long long* m = mask + g * k * int64_t(words);
+  const uint8_t* v = valid + g * k;
+  for (int w = lane; w < words; w += 32) removed[w] = 0ull;
+  __syncwarp();
+  for (int c = 0; c < words; ++c) {
+    const int i0 = 64 * c;
+    const int n = min(64, k - i0);
+    // the chunk's diagonal words and validity: box i0 + lane and i0 + 32 + lane
+    const bool in0 = lane < n;
+    const bool in1 = lane + 32 < n;
+    const unsigned long long d0 = in0 ? m[int64_t(i0 + lane) * words + c] : 0ull;
+    const unsigned long long d1 = in1 ? m[int64_t(i0 + 32 + lane) * words + c] : 0ull;
+    const unsigned long long vbits =
+        static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in0 && v[i0 + lane])) |
+        (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in1 && v[i0 + 32 + lane]))
+         << 32);
+    // settle the chunk: box b is kept when valid and not yet removed
+    unsigned long long cur = removed[c];
+    unsigned long long kept = 0ull;
+    for (int b = 0; b < n; ++b) {
+      const unsigned long long d = __shfl_sync(0xffffffffu, b < 32 ? d0 : d1, b & 31);
+      if (((vbits & ~cur) >> b) & 1ull) {
+        kept |= 1ull << b;
+        cur |= d;
+      }
+    }
+    if (in0) keep[g * k + i0 + lane] = (kept >> lane) & 1ull;
+    if (in1) keep[g * k + i0 + 32 + lane] = (kept >> (lane + 32)) & 1ull;
+    // OR the kept boxes' rows into the later words of the removed set
+    for (int w = c + 1 + lane; w < words; w += 32) {
+      unsigned long long acc = 0ull;
+      for (int b0 = 0; b0 < n; b0 += 8) {
+        unsigned long long r[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int b = b0 + j;
+          r[j] = (b < n && ((kept >> b) & 1ull)) ? m[int64_t(i0 + b) * words + w] : 0ull;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc |= r[j];
+      }
+      removed[w] |= acc;
+    }
+    __syncwarp();
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -225,6 +294,23 @@ int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void*
   err = allow_smem(nms_walk_kernel, walk_bytes);
   if (err != cudaSuccess) return int(err);
   nms_walk_kernel<<<g, kThreads, walk_bytes, stream>>>(m, valid, keep, k);
+  return int(cudaGetLastError());
+}
+
+// K4: boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool, any K whose
+// row fits the mask kernel's shared memory (K <= ~11000); mask is
+// (G, K, ceil(K/64)) uint64 scratch.
+int bags_nms_keep_tiled(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask,
+                        int g, int k, float thr, cudaStream_t stream) {
+  auto* m = static_cast<unsigned long long*>(mask);
+  cudaError_t err = allow_smem(nms_mask_kernel, row_bytes(k));
+  if (err != cudaSuccess) return int(err);
+  nms_mask_kernel<<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(boxes, valid,
+                                                                                  m, k, thr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const size_t walk_bytes = size_t(num_words(k)) * sizeof(unsigned long long);
+  nms_stream_walk_kernel<<<g, 32, walk_bytes, stream>>>(m, valid, keep, k);
   return int(cudaGetLastError());
 }
 

@@ -39,8 +39,12 @@ _F = ctypes.c_float
 # C symbol -> argument types (the last argument of every launcher is the stream)
 SIGNATURES = {
     "bags_nms_keep": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "bags_nms_keep_tiled": (_P, _P, _P, _P, _I, _I, _F, _P),
     "bags_nms_keep_gathered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "bags_roi_align_forward": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    ),
+    "bags_roi_align_backward": (
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
 }
@@ -140,4 +144,6 @@ def check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
 NMS_KEEP = Kernel("bags_nms_keep")
 NMS_KEEP_GATHERED = Kernel("bags_nms_keep_gathered")
 ROI_ALIGN = Kernel("bags_roi_align_forward")
-KERNELS = (NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED)
+NMS_KEEP_TILED = Kernel("bags_nms_keep_tiled")
+ROI_ALIGN_BACKWARD = Kernel("bags_roi_align_backward")
+KERNELS = (NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD)

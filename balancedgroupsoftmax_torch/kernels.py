@@ -4,8 +4,10 @@ Each function here runs the hand-written CUDA kernel on CUDA tensors and its
 plain PyTorch version on CPU tensors; the choice is made inside the kernel
 wrappers in ops/ from the tensors' device, with no other switch.
 
-- `batched_multilevel_roi_align` -> K2 (ops/roi_align.py)
-- `batched_nms_topk` -> K1 (ops/nms.py `nms_keep_batched`)
+- `batched_multilevel_roi_align` -> K2, and K2b for its gradient
+  (ops/roi_align.py)
+- `batched_nms_topk` -> K1 (ops/nms.py `nms_keep_batched`) for K <= 1280, K4
+  (`nms_keep_tiled`) above
 - `batched_multiclass_nms`, class-specific hard NMS -> K3
   (ops/nms.py `nms_keep_gathered`)
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .ops.nms import nms_keep_batched, nms_keep_gathered
+from .ops.nms import nms_keep_batched, nms_keep_gathered, nms_keep_tiled
 from .ops.roi_align import multilevel_roi_align as batched_multilevel_roi_align  # JAX kernels.py:26
 from .ops.topk import top_k
 
@@ -29,10 +31,13 @@ def batched_nms_topk(
 ):
     """Greedy NMS per row, then the top `max_out` kept (kernels.py:50).
 
+    Rows of up to 1280 boxes (the test-time RPN's 1000) go to K1, longer ones
+    (the training RPN's 2000) to K4: the split of kernels.py:63-74.
+
     Returns (boxes (G, max_out, 4), scores (G, max_out), valid (G, max_out));
     slots beyond the kept boxes are invalid with score 0."""
     k = valid.shape[1]
-    keep = nms_keep_batched(boxes, valid, iou_thr)
+    keep = (nms_keep_batched if k <= 1280 else nms_keep_tiled)(boxes, valid, iou_thr)
     masked = torch.where(keep & valid, scores, torch.full_like(scores, -torch.inf))
     m = min(max_out, k)
     top, idx = top_k(masked, m)

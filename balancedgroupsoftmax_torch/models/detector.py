@@ -1,33 +1,37 @@
-"""Faster R-CNN with the BAGS grouped-softmax head, inference
-(JAX `models/detector.py`: `FasterRCNN` :45,
-`predict` :355, `build_detector` :537).
+"""Faster R-CNN with the BAGS grouped-softmax head, inference and training
+losses (JAX `models/detector.py`: `FasterRCNN` :45, `loss` :138, `_loss_core`
+:169, `predict` :355, `build_detector` :537).
 
-ResNet -> FPN -> RPN proposals (K1) -> multi-level RoIAlign (K2) -> shared-FC
-head -> GS score merge -> per-class NMS (K3). Images enter and detections
-leave in the JAX layout; inside, feature maps are NCHW tensors in
-channels-last memory, so the RoIAlign kernel reads them as NHWC without a
+Inference: ResNet -> FPN -> RPN proposals (K1) -> multi-level RoIAlign (K2)
+-> shared-FC head -> GS score merge -> per-class NMS (K3). Training: the RPN
+loss over sampled anchors, detached proposals (K4 at the training RPN's
+2000 boxes a level), sampled RoI targets, RoIAlign (K2, and K2b for its
+gradient) and the GS (or softmax) and regression losses. Images enter and
+results leave in the JAX layout; inside, feature maps are NCHW tensors in
+channels-last memory, so the RoIAlign kernels read them as NHWC without a
 copy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..config import DetectorConfig
 from ..core.anchors import multilevel_anchors
-from ..gs.head import gs_merge_scores
+from ..core.targets import roi_targets
+from ..gs.head import gs_loss, gs_merge_scores
 from ..gs.partition import GSPartition
 from ..kernels import batched_multiclass_nms, batched_multilevel_roi_align
 from ..ops.boxes import delta2bbox
-from .bbox_head import SharedFCBBoxHead
+from .bbox_head import SharedFCBBoxHead, bbox_head_loss, bbox_reg_loss
 from .fpn import FPN
 from .layers import Conv2d, Linear
 from .resnet import ResNet
-from .rpn import RPNHead, rpn_proposals_batched
+from .rpn import RPNHead, rpn_loss, rpn_proposals_batched
 
 
 class Detections(NamedTuple):
@@ -114,6 +118,59 @@ class FasterRCNN(nn.Module):
             c.finest_scale,
         )
         return self.bbox_head(pooled)
+
+    def loss(
+        self,
+        images: torch.Tensor,  # (B, H, W, 3) normalised, padded bucket
+        gt_boxes: torch.Tensor,  # (B, G, 4)
+        gt_labels: torch.Tensor,  # (B, G) int, 1-based
+        gt_mask: torch.Tensor,  # (B, G) bool
+        img_shapes: torch.Tensor,  # (B, 2) content (h, w) before padding
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The training losses (two_stage.py forward_train parity): the RPN's,
+        then the GS head's per-bin losses (or softmax CE and accuracy) and the
+        box regression. Sampling draws from `generator`."""
+        c = self.cfg
+        feats = self.extract_feats(images)
+        rpn_outs = self.rpn_head(feats)
+        anchors = self._anchors(images)
+        anchors_flat = torch.cat(anchors)
+        anchor_valid = torch.ones(anchors_flat.shape[0], dtype=torch.bool, device=images.device)
+        losses: Dict[str, torch.Tensor] = {}
+        losses["loss_rpn_cls"], losses["loss_rpn_bbox"] = rpn_loss(
+            rpn_outs, anchors_flat, anchor_valid, gt_boxes, gt_mask,
+            (images.shape[1], images.shape[2]), c.rpn_train, generator,
+        )
+        # proposals carry no gradient (two_stage.py treats them as detached)
+        with torch.no_grad():
+            proposals = rpn_proposals_batched(
+                [(cls.detach(), reg.detach()) for cls, reg in rpn_outs],
+                anchors, img_shapes.float(), c.rpn_proposal_train,
+            )
+            t = roi_targets(
+                proposals.boxes, proposals.valid, gt_boxes, gt_labels, gt_mask, c.rcnn_train,
+                generator, c.bbox_head.target_means, c.bbox_head.target_stds,
+            )
+        cls_logits, bbox_deltas = self._bbox_forward(feats, t.rois)
+
+        flat = lambda x: x.reshape(-1, *x.shape[2:])
+        if c.bbox_head.use_gs:
+            losses.update(
+                gs_loss(
+                    flat(cls_logits), flat(t.labels), flat(t.roi_valid), self.partition,
+                    c.bbox_head.gs.others_sample_ratio, generator,
+                )
+            )
+            losses["loss_bbox"] = bbox_reg_loss(
+                flat(bbox_deltas), flat(t.labels), flat(t.bbox_targets), flat(t.bbox_weights)
+            )
+        else:
+            losses["loss_cls"], losses["loss_bbox"], losses["acc"] = bbox_head_loss(
+                flat(cls_logits), flat(bbox_deltas), flat(t.labels), flat(t.label_weights),
+                flat(t.bbox_targets), flat(t.bbox_weights),
+            )
+        return losses
 
     @torch.inference_mode()
     def predict(

@@ -1,5 +1,6 @@
-"""RPN head and test-time proposal generation
-(JAX `models/rpn.py` `RPNHead` :29, `rpn_proposals_batched` :72).
+"""RPN head, proposal generation and the RPN loss
+(JAX `models/rpn.py` `RPNHead` :29, `rpn_proposals_batched` :72,
+`rpn_loss` :181).
 
 Score maps flatten as (H, W, A), matching the location-major anchors of
 core/anchors.py.
@@ -7,15 +8,17 @@ core/anchors.py.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import ProposalConfig
+from ..config import ProposalConfig, RPNTrainConfig
+from ..core.targets import anchor_targets
 from ..kernels import batched_nms_topk
 from ..ops.boxes import delta2bbox
+from ..ops.losses import binary_cross_entropy_with_logits, smooth_l1
 from ..ops.topk import top_k
 from .layers import Conv2d
 
@@ -101,3 +104,27 @@ def rpn_proposals_batched(
         scores=torch.where(out_valid, top, torch.zeros_like(top)),
         valid=out_valid,
     )
+
+
+def rpn_loss(
+    level_outs,  # per level (cls (B, N_l), deltas (B, N_l, 4))
+    anchors_flat: torch.Tensor,  # (N, 4) all levels concatenated
+    anchor_valid: torch.Tensor,  # (N,) bool grid validity
+    gt_boxes: torch.Tensor,  # (B, G, 4)
+    gt_mask: torch.Tensor,  # (B, G) bool
+    img_shape: tuple[int, int],  # padded (H, W) of the batch
+    cfg: RPNTrainConfig,
+    generator: Optional[torch.Generator] = None,
+    beta: float = 1.0 / 9.0,
+):
+    """(loss_cls, loss_bbox): sigmoid BCE and smooth-L1 over the sampled
+    anchors, both averaged over the sampled count (anchor_head.py:162-208)."""
+    t = anchor_targets(anchors_flat, anchor_valid, gt_boxes, gt_mask, img_shape, cfg, generator)
+    cls_logits = torch.cat([c.float() for c, _ in level_outs], dim=1)  # (B, N)
+    deltas = torch.cat([r.float() for _, r in level_outs], dim=1)  # (B, N, 4)
+    num_total = t.num_pos.sum() + t.num_neg.sum()
+    loss_cls = binary_cross_entropy_with_logits(
+        cls_logits, t.labels.float(), weight=t.label_weights, avg_factor=num_total
+    )
+    loss_bbox = smooth_l1(deltas, t.bbox_targets, beta=beta, weight=t.bbox_weights, avg_factor=num_total)
+    return loss_cls, loss_bbox

@@ -12,6 +12,36 @@ import math
 import torch
 
 
+def bbox2delta(
+    proposals: torch.Tensor,  # (..., 4) xyxy
+    gt: torch.Tensor,  # (..., 4) xyxy, same shape
+    means=(0.0, 0.0, 0.0, 0.0),
+    stds=(1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Encode `gt` relative to `proposals` as normalised (dx, dy, dw, dh)
+    (ops/boxes.py:23). Every division is by a tensor, so the card rounds as
+    the CPU does (PyTorch's CUDA division by a number multiplies by its
+    reciprocal)."""
+    proposals = proposals.float()
+    gt = gt.float()
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0] + 1.0
+    ph = proposals[..., 3] - proposals[..., 1] + 1.0
+
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0] + 1.0
+    gh = gt[..., 3] - gt[..., 1] + 1.0
+
+    deltas = torch.stack(
+        [(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw), torch.log(gh / ph)], dim=-1
+    )
+    means = torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means) / stds
+
+
 def delta2bbox(
     rois: torch.Tensor,  # (..., 4) xyxy base boxes
     deltas: torch.Tensor,  # (..., 4 * K) deltas, K per-class sets

@@ -1,9 +1,10 @@
-"""Exact greedy NMS keep masks: kernels K1 and K3 and their plain versions.
+"""Exact greedy NMS keep masks: kernels K1, K3 and K4 and their plain versions.
 
 `nms_keep_batched` (K1) replaces JAX `pallas/nms.py`
 `nms_keep_batched` (:304); `nms_keep_gathered` (K3) replaces its
-`nms_keep_gathered` (:371). Both launch the CUDA kernels of `csrc/nms.cu` on a
-CUDA tensor and run the plain PyTorch version below on a CPU tensor.
+`nms_keep_gathered` (:371); `nms_keep_tiled` (K4) replaces its
+`nms_keep_tiled` (:213). Each launches its CUDA kernel of `csrc/nms.cu` on a
+CUDA tensor and runs the plain PyTorch version below on a CPU tensor.
 
 Semantics (JAX `ops/nms.py` `nms_keep` :33 on presorted
 rows): box i suppresses box j when i < j, both are valid and
@@ -39,20 +40,31 @@ def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float)
         keep = new_keep
 
 
-def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
-    """K1: greedy keep mask per row. boxes (G, K, 4) f32, valid (G, K) bool."""
-    if boxes.device.type == "cpu":
-        return nms_keep_reference(boxes, valid, iou_thr)
+def _launch_keep(kernel: cuda.Kernel, boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
     g, k = valid.shape
     cuda.check(boxes, torch.float32, (g, k, 4), "boxes")
     cuda.check(valid, torch.bool, (g, k), "valid")
     keep = torch.empty(g, k, dtype=torch.bool, device=boxes.device)
     mask = torch.empty(g, k, -(-k // 64), dtype=torch.int64, device=boxes.device)  # scratch
     if g and k:
-        cuda.NMS_KEEP(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), g, k, float(iou_thr)
-        )
+        kernel(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), g, k, float(iou_thr))
     return keep
+
+
+def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """K1: greedy keep mask per row. boxes (G, K, 4) f32, valid (G, K) bool;
+    the walk holds a row's mask in shared memory, so K <= ~1350."""
+    if boxes.device.type == "cpu":
+        return nms_keep_reference(boxes, valid, iou_thr)
+    return _launch_keep(cuda.NMS_KEEP, boxes, valid, iou_thr)
+
+
+def nms_keep_tiled(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """K4: the K1 keep mask for any K (the training RPN's K = 2000); the walk
+    streams each row's mask from device memory."""
+    if boxes.device.type == "cpu":
+        return nms_keep_reference(boxes, valid, iou_thr)
+    return _launch_keep(cuda.NMS_KEEP_TILED, boxes, valid, iou_thr)
 
 
 def nms_keep_gathered_reference(

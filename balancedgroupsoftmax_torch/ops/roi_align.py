@@ -1,8 +1,11 @@
-"""Multi-level RoIAlign forward: kernel K2 and its plain version.
+"""Multi-level RoIAlign: kernel K2, its gradient K2b, and their plain versions.
 
-`multilevel_roi_align` (K2) replaces JAX `pallas/roi_align.py`
-`multilevel_roi_align_pallas` (:511). It launches the CUDA kernel of
-`csrc/roi_align.cu` on CUDA tensors and runs `multilevel_roi_align_reference`
+`multilevel_roi_align` replaces JAX `pallas/roi_align.py`
+`multilevel_roi_align_pallas` (:511) with its custom VJP (:510-537): a
+`torch.autograd.Function` whose forward is K2 and whose backward is K2b, the
+gradient for the features (none for the rois, as in JAX). Each launches its
+CUDA kernel of `csrc/roi_align.cu` on CUDA tensors and runs its plain version
+(`multilevel_roi_align_reference`, `multilevel_roi_align_backward_reference`)
 on CPU tensors.
 
 Semantics (JAX `ops/roi_align.py` `roi_align` :67,
@@ -133,7 +136,46 @@ def multilevel_roi_align_reference(
     return (acc / torch.full_like(acc, sample_num * sample_num)).to(feats[0].dtype)
 
 
-def multilevel_roi_align(
+def multilevel_roi_align_backward_reference(
+    grad: torch.Tensor,  # (B, R, S, S, C)
+    rois: torch.Tensor,  # (B, R, 4)
+    shapes: Sequence[tuple[int, int]],  # per level (H_l, W_l)
+    strides: Sequence[int],
+    out_size: int = 7,
+    sample_num: int = 2,
+    finest_scale: int = 56,
+    dtype: torch.dtype = torch.float32,
+) -> list[torch.Tensor]:
+    """Plain version of K2b: the transpose of K2, per level (B, H_l, W_l, C)
+    in `dtype`. Each sample adds weight * grad / sample_num^2 to the four
+    corners it reads (an `index_add_` over `sample_points`), summed in f32."""
+    b, r = rois.shape[:2]
+    c = grad.shape[-1]
+    index, weight, valid = sample_points(shapes, rois, strides, out_size, sample_num, finest_scale)
+    g = grad.float()
+    g = g / torch.full_like(g, sample_num * sample_num)
+    n = out_size * sample_num
+    g = g[:, :, :, None, :, None].expand(-1, -1, -1, sample_num, -1, sample_num, -1)
+    g = g.reshape(b * r, n, n, c)
+    g = torch.where(valid[..., None], g, torch.zeros((), device=g.device))
+    sizes = [h * w for h, w in shapes]
+    buf = torch.zeros(b * sum(sizes), c, device=grad.device)
+    for q in range(4):
+        buf.index_add_(0, index[q].reshape(-1), (weight[q][..., None] * g).reshape(-1, c))
+    levels = buf.reshape(b, sum(sizes), c).split(sizes, dim=1)
+    return [lv.reshape(b, h, w, c).to(dtype) for lv, (h, w) in zip(levels, shapes)]
+
+
+def _level_args(shapes: Sequence[tuple[int, int]], strides: Sequence[int]):
+    n = len(shapes)
+    return (
+        (ctypes.c_int * n)(*[h for h, _ in shapes]),
+        (ctypes.c_int * n)(*[w for _, w in shapes]),
+        (ctypes.c_float * n)(*[1.0 / s for s in strides]),
+    )
+
+
+def roi_align_forward(
     feats: Sequence[torch.Tensor],  # per level (B, H_l, W_l, C), contiguous
     rois: torch.Tensor,  # (B, R, 4) f32
     strides: Sequence[int],
@@ -163,12 +205,80 @@ def multilevel_roi_align(
         _DTYPE_CODES[dtype],
         n,
         (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
-        (ctypes.c_int * n)(*[f.shape[1] for f in feats]),
-        (ctypes.c_int * n)(*[f.shape[2] for f in feats]),
-        (ctypes.c_float * n)(*[1.0 / s for s in strides]),
+        *_level_args([(f.shape[1], f.shape[2]) for f in feats], strides),
         rois.data_ptr(),
         levels.data_ptr(),
         out.data_ptr(),
         b, r, c, out_size, sample_num,
     )
     return out
+
+
+def roi_align_backward(
+    grad: torch.Tensor,  # (B, R, S, S, C) f32 or bf16
+    rois: torch.Tensor,  # (B, R, 4) f32
+    shapes: Sequence[tuple[int, int]],  # per level (H_l, W_l)
+    strides: Sequence[int],
+    out_size: int = 7,
+    sample_num: int = 2,
+    finest_scale: int = 56,
+    dtype: torch.dtype = torch.float32,
+) -> list[torch.Tensor]:
+    """K2b: the features' gradient, per level (B, H_l, W_l, C) in `dtype`,
+    accumulated in one zeroed f32 buffer that holds level after level."""
+    if rois.device.type == "cpu":
+        return multilevel_roi_align_backward_reference(
+            grad, rois, shapes, strides, out_size, sample_num, finest_scale, dtype
+        )
+    b, r = rois.shape[:2]
+    c = grad.shape[-1]
+    if grad.dtype not in _DTYPE_CODES:
+        raise ValueError(f"roi_align backward takes an f32 or bf16 gradient, got {grad.dtype}")
+    if len(shapes) != len(strides) or not 1 <= len(shapes) <= 8:
+        raise ValueError(f"{len(shapes)} feature levels and {len(strides)} strides")
+    cuda.check(grad, grad.dtype, (b, r, out_size, out_size, c), "grad")
+    cuda.check(rois, torch.float32, (b, r, 4), "rois")
+    sizes = [b * h * w * c for h, w in shapes]
+    buf = torch.zeros(sum(sizes), dtype=torch.float32, device=rois.device)
+    if grad.numel():
+        cuda.ROI_ALIGN_BACKWARD(
+            _DTYPE_CODES[grad.dtype],
+            len(shapes),
+            *_level_args(shapes, strides),
+            rois.data_ptr(),
+            map_roi_levels(rois, len(shapes), finest_scale).data_ptr(),
+            grad.data_ptr(),
+            buf.data_ptr(),
+            b, r, c, out_size, sample_num,
+        )
+    return [lv.view(b, h, w, c).to(dtype) for lv, (h, w) in zip(buf.split(sizes), shapes)]
+
+
+class _RoIAlign(torch.autograd.Function):
+    """K2 forward, K2b backward; the rois get no gradient."""
+
+    @staticmethod
+    def forward(ctx, rois, strides, out_size, sample_num, finest_scale, *feats):
+        ctx.save_for_backward(rois)
+        ctx.args = (tuple((f.shape[1], f.shape[2]) for f in feats), strides, out_size, sample_num, finest_scale)
+        ctx.dtype = feats[0].dtype
+        return roi_align_forward(feats, rois, strides, out_size, sample_num, finest_scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        grads = roi_align_backward(grad.contiguous(), rois, *ctx.args, dtype=ctx.dtype)
+        return (None, None, None, None, None, *grads)
+
+
+def multilevel_roi_align(
+    feats: Sequence[torch.Tensor],  # per level (B, H_l, W_l, C), contiguous
+    rois: torch.Tensor,  # (B, R, 4) f32
+    strides: Sequence[int],
+    out_size: int = 7,
+    sample_num: int = 2,
+    finest_scale: int = 56,
+) -> torch.Tensor:
+    """(B, R, S, S, C) pooled features, each roi on its routed level; K2
+    forward, K2b for the features' gradient."""
+    return _RoIAlign.apply(rois, tuple(strides), out_size, sample_num, finest_scale, *feats)

@@ -6,14 +6,25 @@
 Phases, each timed, any failure ending the run with a non-zero exit:
 1. build the CUDA kernels of balancedgroupsoftmax_torch/csrc with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, and time both;
+   shapes its path gives it, and time both: K1-K3 at inference's, K4 (the
+   training RPN's NMS) and K2b (the RoIAlign gradient) at training's;
 3. run BAGS Faster R-CNN R50-FPN (gs_faster_rcnn_r50_fpn_lvis: 1231 classes,
    800 x 1344, bf16, batch 2, seeded random weights and synthetic partition)
-   through `init_detector` and `predict`, check that every kernel was
-   launched and that the detections are well formed, and profile one
-   `predict` (device time by kernel, idle share);
+   through `init_detector` and `predict`, check that K1-K3 were launched and
+   that the detections are well formed, and profile one `predict` (device
+   time by kernel, idle share);
 4. run the same model in f32 on a small image on the card and on the CPU
-   (the plain versions) and compare the detections.
+   (the plain versions) and compare the detections;
+5. train the same model (bf16 compute, f32 parameters, batch 2 at 800 x
+   1344, 20 synthetic gt boxes an image through the training pipeline)
+   through `create_train_state` and `make_train_step`: a warm-up step and
+   timed steps of full training (selectp=0), checking that the losses are
+   finite, that K4 and K2b were launched and that the parameters moved;
+   profile one step; then one BAGS phase-2 step (selectp=1), which must
+   move fc_cls alone;
+6. take one small f32 training step on the card and on the CPU from the
+   same weights and batch, sampling made deterministic by the
+   configuration, and compare the loss dicts.
 
 It prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -39,6 +50,9 @@ SAMPLE_OPS = 12
 MAIN_BATCH = 2
 MAIN_SIZE = (800, 1344)
 TIMED_PREDICTS = 3
+TIMED_STEPS = 3
+TRAIN_ROIS = 512  # rcnn_train sampler num: RoIs per image in training
+TRAIN_GTS = 20
 
 
 def log(msg: str) -> None:
@@ -207,6 +221,81 @@ def check_k3(torch, ops_nms, dev):
     )
 
 
+def check_k4(torch, ops_nms, dev):
+    """K4 at the training RPN's shape (5 levels x 2 images, 2000 boxes a
+    row) and at a K that is no multiple of 64."""
+    g, k = 5 * MAIN_BATCH, 2000
+    gen = torch.Generator().manual_seed(6)
+    for kk in (k, 1337):
+        boxes, valid = tie_boxes(gen, g, kk, 0.7, dev)
+        keep = ops_nms.nms_keep_tiled(boxes, valid, 0.7)
+        ref = ops_nms.nms_keep_reference(boxes, valid, 0.7)
+        torch.cuda.synchronize()
+        if not torch.equal(keep, ref):
+            raise AssertionError(f"K4 keep at K={kk} differs in {(keep != ref).sum().item()} slots")
+        log(f"  K4 K={kk}: keep equal to the plain version ({int(keep.sum())} kept of {int(valid.sum())})")
+    boxes, valid = tie_boxes(gen, g, k, 0.7, dev)
+    nbytes = boxes.numel() * 4 + valid.numel() * 2
+    b_ms, b_by = bound(nbytes, valid_pairs(valid) * IOU_OPS)
+    return dict(
+        name="nms_keep_tiled",
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/nms.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/nms.py:213",
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: ops_nms.nms_keep_tiled(boxes, valid, 0.7), 50),
+        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_reference(boxes, valid, 0.7), 3),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+        shape=f"G={g} K={k}",
+    )
+
+
+def check_k2b(torch, ops_roi, dev):
+    """K2b at the training head's shape: 512 rois an image on the 800 x 1344
+    pyramid, C=256, 7 x 7, sample_num 2."""
+    gen = torch.Generator().manual_seed(7)
+    rois = main_rois(torch, dev, gen, TRAIN_ROIS)
+    strides = (4, 8, 16, 32)
+    h, w = MAIN_SIZE
+    shapes = [(-(-h // s), -(-w // s)) for s in strides]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        grad = torch.randn(MAIN_BATCH, TRAIN_ROIS, 7, 7, 256, generator=gen).to(dev, dtype)
+        out = ops_roi.roi_align_backward(grad, rois, shapes, strides, dtype=dtype)
+        ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, dtype=dtype)
+        torch.cuda.synchronize()
+        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+        top = max(r.float().abs().max().item() for r in ref)
+        # atomics sum in another order than index_add_: f32 within 1e-5 of
+        # the largest value, bf16 within one bf16 step (2^-7) of it
+        limit = (1e-5 if dtype == torch.float32 else 2.0**-7) * top
+        log(f"  K2b {dtype}: max |kernel - plain| = {err:.3e} (limit {limit:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"K2b {dtype}: max abs err {err} above {limit}")
+        results[dtype] = (grad, err)
+    grad, err = results[torch.bfloat16]
+    pyramid_elems = MAIN_BATCH * sum(a * b for a, b in shapes) * 256
+    nbytes = grad.numel() * 2 + rois.numel() * 4 + pyramid_elems * 2
+    b_ms, b_by = bound(nbytes, grad.numel() * 4 * SAMPLE_OPS)
+    return dict(
+        name="roi_align_backward",
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/roi_align.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/roi_align.py:569",
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: ops_roi.roi_align_backward(grad, rois, shapes, strides, dtype=torch.bfloat16), 20),
+        plain_ms=cuda_time_ms(
+            lambda: ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, dtype=torch.bfloat16), 3
+        ),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+        shape=f"B={MAIN_BATCH} R={TRAIN_ROIS} S=7 C=256 bf16, f32 err {results[torch.float32][1]:.3e}",
+    )
+
+
 def check_detections(torch, det, num_classes: int, size) -> None:
     b, m = det.scores.shape
     if det.boxes.shape != (b, m, 4) or det.labels.shape != (b, m) or det.valid.shape != (b, m):
@@ -264,23 +353,24 @@ def run_main_path(torch, bgs, dev):
     log(f"  first predict {first_s:.2f} s; then {ms:.3f} ms per batch of {MAIN_BATCH}, "
         f"{MAIN_BATCH / ms * 1e3:.2f} images/s, peak memory {peak:.2f} GiB ({card_line()})")
     log(f"  launches over {TIMED_PREDICTS + 1} predicts: {launches}")
-    for sym, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{sym} was not launched on the main path")
+    for sym in ("bags_nms_keep", "bags_roi_align_forward", "bags_nms_keep_gathered"):
+        if launches[sym] == 0:
+            raise AssertionError(f"{sym} was not launched on the predict path")
     check_detections(torch, det, model.cfg.bbox_head.num_classes, MAIN_SIZE)
     log(f"  detections: {int(det.valid.sum())} valid, top score {det.scores[0, 0].item():.6f}")
-    profile_predict(torch, model, (images, img_shapes, scale_factors))
+    profile_device(torch, "predict", lambda: model.predict(images, img_shapes, scale_factors))
     return launches, model
 
 
-def profile_predict(torch, model, inputs, top: int = 12) -> None:
-    """Device time of one predict by kernel, from torch.profiler: where the
-    time goes, and the share of the wall time the device is idle."""
+def profile_device(torch, label: str, fn, top: int = 12) -> None:
+    """Device time of one call of `fn` by kernel, from torch.profiler: where
+    the time goes, the share of the wall time the device is idle, and the
+    port's own kernels wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.predict(*inputs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     self_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -289,13 +379,16 @@ def profile_predict(torch, model, inputs, top: int = 12) -> None:
         key=self_us, reverse=True,
     )
     if not rows:
-        log(f"  profiled predict: wall {wall_ms:.3f} ms; the profiler recorded no device time (not measured)")
+        log(f"  profiled {label}: wall {wall_ms:.3f} ms; the profiler recorded no device time (not measured)")
         return
     busy_ms = sum(self_us(e) for e in rows) / 1e3
-    log(f"  profiled predict: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    log(f"  profiled {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, profiler on)")
     for e in rows[:top]:
         log(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+    for e in rows[top:]:
+        if "nms_" in e.key or "roi_align" in e.key:
+            log(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]} (rank {rows.index(e) + 1})")
 
 
 def compare_small(torch, model) -> None:
@@ -338,6 +431,163 @@ def compare_small(torch, model) -> None:
         raise AssertionError("card and CPU detections disagree")
 
 
+def gt_labels(rng, partition, n: int):
+    """`n` labels in 1..1230, each from a random one of the four foreground
+    bins, so every bin of the GS loss has foreground."""
+    import numpy as np
+
+    bins = rng.randint(1, partition.num_bins, n)
+    return np.array([rng.choice(np.flatnonzero(partition.label2bin == b)) for b in bins], np.int32)
+
+
+def train_batch(seed: int, partition, size=(427, 640)):
+    """A batch through the training pipeline: random images of `size`
+    resized into the landscape bucket, TRAIN_GTS random gt boxes an image,
+    random flips."""
+    import numpy as np
+
+    from balancedgroupsoftmax_torch.data.pipeline import collate, preprocess_image
+
+    rng = np.random.RandomState(seed)
+    samples = []
+    for _ in range(MAIN_BATCH):
+        img = rng.randint(0, 255, (*size, 3), np.uint8)
+        xy = rng.uniform(0, 0.8, (TRAIN_GTS, 2)) * size[::-1]
+        wh = rng.uniform(0.05, 0.4, (TRAIN_GTS, 2)) * size[::-1]
+        boxes = np.concatenate([xy, np.minimum(xy + wh, np.array(size[::-1]) - 1)], 1).astype(np.float32)
+        labels = gt_labels(rng, partition, TRAIN_GTS)
+        samples.append(preprocess_image(img, boxes, labels, train=True, rng=rng))
+    return collate(samples)
+
+
+def run_train_path(torch, bgs, dev):
+    """Full training steps of gs_faster_rcnn_r50 at 800 x 1344, batch 2."""
+    from balancedgroupsoftmax_torch import cuda
+    from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
+    from balancedgroupsoftmax_torch.zoo import TRAIN_CONFIGS
+
+    model = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
+    batch = train_batch(8, model.partition)
+    if tuple(batch["images"].shape[1:3]) != MAIN_SIZE or int(batch["gt_mask"].sum()) != MAIN_BATCH * TRAIN_GTS:
+        raise AssertionError(f"training batch {batch['images'].shape}, {int(batch['gt_mask'].sum())} gts")
+    # loading the batch is set-up: the timed steps start from the card
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    state = create_train_state(model, TrainConfig(selectp=0))
+    step = make_train_step(state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items()}
+
+    for k in cuda.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = step(batch, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = sum(step_ms) / TIMED_STEPS
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    log(f"  first step {first_s:.2f} s; then {ms:.3f} ms per step of {MAIN_BATCH} images "
+        f"(steps {', '.join(f'{t:.3f}' for t in step_ms)} ms), {MAIN_BATCH / ms * 1e3:.2f} images/s, "
+        f"peak memory {peak:.2f} GiB ({card_line()})")
+    log(f"  launches over {TIMED_STEPS + 1} steps: {launches}")
+    log("  losses: " + ", ".join(f"{k} {v.item():.5f}" for k, v in metrics.items()))
+    for sym in ("bags_nms_keep_tiled", "bags_roi_align_forward", "bags_roi_align_backward"):
+        if launches[sym] == 0:
+            raise AssertionError(f"{sym} was not launched on the training path")
+    if not all(torch.isfinite(v).item() for v in metrics.values()):
+        raise AssertionError(f"a loss is not finite: {metrics}")
+    moved = {n for n, p in named.items() if not torch.equal(p.detach(), before[n])}
+    trainable = {n for n, p in named.items() if p.requires_grad}
+    if moved - trainable or not all(any(n.startswith(m) for n in moved) for m in ("backbone", "neck", "rpn_head", "bbox_head")):
+        raise AssertionError(f"selectp=0 moved {len(moved)} tensors of {len(trainable)} trainable")
+    log(f"  selectp=0 moved {len(moved)} of {len(trainable)} trainable tensors, no frozen one")
+    profile_device(torch, "train step", lambda: step(batch, gen))
+
+    state = create_train_state(model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])  # selectp=1
+    before = {n: p.detach().clone() for n, p in named.items()}
+    step1 = make_train_step(state)
+    t0 = time.perf_counter()
+    metrics = step1(batch, gen)
+    torch.cuda.synchronize()
+    moved = sorted(n for n, p in named.items() if not torch.equal(p.detach(), before[n]))
+    if moved != ["bbox_head.fc_cls.bias", "bbox_head.fc_cls.weight"]:
+        raise AssertionError(f"selectp=1 moved {moved}")
+    log(f"  selectp=1 step {(time.perf_counter() - t0) * 1e3:.3f} ms moved only {moved}, "
+        f"loss {metrics['loss'].item():.5f}")
+    return launches, model
+
+
+def compare_small_train(torch, model) -> None:
+    """One f32 training step of the main path's model, 1231 classes, on two
+    256 x 384 images, on the card (kernels, K4 included: the RPN still takes
+    2000 boxes a level) and on the CPU (plain versions), from the same
+    weights. Sampling is made deterministic by the configuration, as in
+    tests/test_torch_train_step.py: every anchor and every RoI candidate is
+    sampled and the GS others' budget covers them all. The loss dicts must
+    agree to 1e-3 relative: convolutions sum in other orders (TF32 off), and
+    a proposal whose IoU with another lies within rounding of the NMS
+    threshold may be kept on one side only, which moves an averaged loss by
+    about one part in the 216 RoIs."""
+    import dataclasses
+
+    import numpy as np
+
+    from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.models.detector import build_detector
+    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
+
+    dev = next(model.parameters()).device
+    cfg = model.cfg
+    num_anchors = 3 * sum(-(-256 // s) * -(-384 // s) for s in cfg.anchors.strides)
+    take_all = lambda sc, num: dataclasses.replace(sc, sampler=dataclasses.replace(sc.sampler, num=num, pos_fraction=1.0))
+    cfg = dataclasses.replace(
+        cfg,
+        rpn_train=take_all(cfg.rpn_train, num_anchors),
+        rpn_proposal_train=dataclasses.replace(cfg.rpn_proposal_train, nms_post=100, max_num=100),
+        rcnn_train=take_all(cfg.rcnn_train, 100 + 8),
+        bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
+    )
+    weights = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(9)
+    xy = torch.rand(MAIN_BATCH, 8, 2, generator=gen) * torch.tensor([300.0, 200.0])
+    wh = 16 + torch.rand(MAIN_BATCH, 8, 2, generator=gen) * 120
+    rng = np.random.RandomState(9)
+    batch = dict(
+        images=torch.randn(MAIN_BATCH, 256, 384, 3, generator=gen),
+        gt_boxes=torch.cat([xy, torch.minimum(xy + wh, torch.tensor([383.0, 255.0]))], -1).floor(),
+        gt_labels=torch.from_numpy(np.stack([gt_labels(rng, model.partition, 8) for _ in range(MAIN_BATCH)])),
+        gt_mask=torch.ones(MAIN_BATCH, 8, dtype=torch.bool),
+        img_shapes=torch.tensor([[256.0, 384.0]] * MAIN_BATCH),
+    )
+
+    out = {}
+    allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in (dev, torch.device("cpu")):
+            m = build_detector(cfg, model.partition, torch.float32)
+            m.load_state_dict(weights)
+            m.to(device)
+            step = make_train_step(create_train_state(m, TrainConfig(selectp=0)))
+            out[device.type] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    worst = max(abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-6) for k in out["cpu"])
+    log(f"  small f32 train step, card vs CPU: max relative loss difference {worst:.3e} over {sorted(out['cpu'])}")
+    if not (sorted(out["cuda"]) == sorted(out["cpu"]) and worst <= 1e-3):
+        raise AssertionError(f"card and CPU losses disagree: {out}")
+
+
 def main() -> int:
     import torch
 
@@ -362,7 +612,13 @@ def main() -> int:
     log(f"phase build: nvcc {build_s:.1f} s, wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    rows = [check_k1(torch, ops_nms, dev), check_k2(torch, ops_roi, dev), check_k3(torch, ops_nms, dev)]
+    rows = [
+        check_k1(torch, ops_nms, dev),
+        check_k2(torch, ops_roi, dev),
+        check_k3(torch, ops_nms, dev),
+        check_k4(torch, ops_nms, dev),
+        check_k2b(torch, ops_roi, dev),
+    ]
     for r in rows:
         log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -375,11 +631,28 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_small(torch, model)
     log(f"phase small-input card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    del model
 
-    symbols = {"nms_keep": "bags_nms_keep", "roi_align_forward": "bags_roi_align_forward",
-               "nms_keep_gathered": "bags_nms_keep_gathered"}
+    t0 = time.perf_counter()
+    train_launches, train_model = run_train_path(torch, bgs, dev)
+    log(f"phase training path: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_train(torch, train_model)
+    log(f"phase small training step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    # each kernel's launches on the path that runs it: predict for K1-K3,
+    # the selectp=0 training steps for K4 and K2b
+    symbols = {
+        "nms_keep": (launches, "bags_nms_keep"),
+        "roi_align_forward": (launches, "bags_roi_align_forward"),
+        "nms_keep_gathered": (launches, "bags_nms_keep_gathered"),
+        "nms_keep_tiled": (train_launches, "bags_nms_keep_tiled"),
+        "roi_align_backward": (train_launches, "bags_roi_align_backward"),
+    }
     for r in rows:
-        r["launches"] = launches[symbols[r["name"]]]
+        counts, sym = symbols[r["name"]]
+        r["launches"] = counts[sym]
         del r["shape"]
     print(json.dumps({"kernels": rows}))
     print(card_line())

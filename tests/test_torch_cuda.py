@@ -5,7 +5,9 @@ JAX is not installed, run them without tests/conftest.py (which imports JAX):
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`. Keep masks
 and gathered candidates must be equal; RoIAlign does the plain version's f32
 operations in its order, so f32 agrees to 1e-5 and bf16 to one bf16 step
-(2^-7 relative to the largest value).
+(2^-7 relative to the largest value). Its gradient (K2b) sums with atomics,
+in an order that changes from run to run, so f32 agrees to 1e-5 relative to
+the largest value and bf16 to one bf16 step.
 
 This file imports nothing of JAX, so it also holds the numpy-built inputs
 that the port's CPU tests share.
@@ -82,6 +84,27 @@ def test_nms_keep_matches_plain(dev, k):
     assert torch.equal(keep, ops_nms.nms_keep_reference(boxes, valid, 0.7))
 
 
+@pytest.mark.parametrize("k", [1337, 2000])
+def test_nms_keep_tiled_matches_plain(dev, k):
+    boxes, valid = (torch.from_numpy(x).to(dev) for x in tie_rows(k, 10, k, 0.7, spread=600))
+    before = cuda.NMS_KEEP_TILED.launches
+    keep = ops_nms.nms_keep_tiled(boxes, valid, 0.7)
+    assert cuda.NMS_KEEP_TILED.launches == before + 1
+    assert torch.equal(keep, ops_nms.nms_keep_reference(boxes, valid, 0.7))
+
+
+def test_batched_nms_topk_sends_long_rows_to_k4(dev):
+    from balancedgroupsoftmax_torch.kernels import batched_nms_topk
+
+    for k, kernel in ((1000, cuda.NMS_KEEP), (2000, cuda.NMS_KEEP_TILED)):
+        boxes, valid = (torch.from_numpy(x).to(dev) for x in tie_rows(k, 4, k, 0.7, spread=600))
+        scores = torch.linspace(1, 0, k, device=dev).expand(4, -1).contiguous()
+        before = [kk.launches for kk in cuda.KERNELS]
+        batched_nms_topk(boxes, scores, valid, 0.7, 100)
+        after = [kk.launches for kk in cuda.KERNELS]
+        assert [a - b for a, b in zip(after, before)] == [int(kk is kernel) for kk in cuda.KERNELS]
+
+
 def test_nms_keep_gathered_matches_plain(dev):
     planes, idx, valid = (torch.from_numpy(x).to(dev) for x in gathered_case(3, g=20, k=300, n=1000))
     keep, cand = ops_nms.nms_keep_gathered(planes, idx, valid, 0.5)
@@ -102,6 +125,24 @@ def test_roi_align_matches_plain(dev, dtype):
     assert (out.float() - ref).abs().max().item() <= limit
 
 
+@pytest.mark.parametrize("dtype,out_size", [(torch.float32, 7), (torch.bfloat16, 7), (torch.float32, 14)])
+def test_roi_align_backward_matches_plain(dev, dtype, out_size):
+    rng = np.random.RandomState(1)
+    feats = [torch.from_numpy(f).to(dev, dtype).requires_grad_() for f in pyramid(rng)]
+    rois = torch.from_numpy(rois_all_levels(rng)).to(dev)
+    grad = torch.from_numpy(rng.randn(*rois.shape[:2], out_size, out_size, 16).astype(np.float32)).to(dev, dtype)
+    before = cuda.ROI_ALIGN_BACKWARD.launches
+    ops_roi.multilevel_roi_align(feats, rois, STRIDES, out_size).backward(grad)
+    assert cuda.ROI_ALIGN_BACKWARD.launches == before + 1
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, STRIDES, out_size, dtype=dtype)
+    for f, r in zip(feats, ref):
+        r = r.float()
+        limit = (1e-5 if dtype == torch.float32 else 2.0**-7) * r.abs().max().item()
+        assert f.grad.dtype == dtype and f.grad.shape == r.shape
+        assert (f.grad.float() - r).abs().max().item() <= limit
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     boxes = torch.zeros(2, 8, 4, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
@@ -109,3 +150,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     feats = [torch.zeros(1, 8, 8, 4, device=dev).permute(0, 2, 1, 3)]  # not contiguous
     with pytest.raises(ValueError):
         ops_roi.multilevel_roi_align(feats, torch.zeros(1, 2, 4, device=dev), (4,))
+    with pytest.raises(ValueError):
+        ops_nms.nms_keep_tiled(boxes, torch.ones(2, 8, dtype=torch.bool, device=dev), 0.5)
+    with pytest.raises(ValueError):  # a gradient of the wrong shape
+        ops_roi.roi_align_backward(torch.zeros(1, 2, 7, 7, 5, device=dev), torch.zeros(1, 3, 4, device=dev), [(8, 8)], (4,))
