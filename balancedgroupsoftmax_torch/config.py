@@ -1,16 +1,16 @@
-"""Configuration dataclasses of the inference and training slices.
+"""Configuration dataclasses of the ported slices.
 
-Copies of the fields that Faster R-CNN R50-FPN inference and training read
-from JAX `config.py`, with the same names and defaults (the canonical BAGS
-config `configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`).
-Class-agnostic regression and the input-size field (the port's anchors follow
-each batch's shape) come with the slices that read them.
+Copies of the fields that Faster R-CNN and Cascade R-CNN R50-FPN inference
+and training read from JAX `config.py`, with the same names and defaults
+(the canonical BAGS config `configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`).
+The input-size field is not copied: the port's anchors follow each batch's
+shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +91,7 @@ class BBoxHeadConfig:
     num_classes: int = 1231  # 1230 fg + 1 bg
     target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
     target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
+    reg_class_agnostic: bool = False
     use_gs: bool = False
     gs: GSConfig = GSConfig()
 
@@ -117,12 +118,28 @@ class FPNConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """Cascade R-CNN staging: per-stage target stds tighten and assigner IoU
+    thresholds rise; every stage's head regresses class-agnostically."""
+
+    num_stages: int = 3
+    stage_loss_weights: Tuple[float, ...] = (1.0, 0.5, 0.25)
+    stage_pos_ious: Tuple[float, ...] = (0.5, 0.6, 0.7)
+    stage_target_stds: Tuple[Tuple[float, ...], ...] = (
+        (0.1, 0.1, 0.2, 0.2),
+        (0.05, 0.05, 0.1, 0.1),
+        (0.033, 0.033, 0.067, 0.067),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     backbone: BackboneConfig = BackboneConfig()
     fpn: FPNConfig = FPNConfig()
     anchors: AnchorConfig = AnchorConfig()
     roi_extractor: RoIExtractorConfig = RoIExtractorConfig()
     bbox_head: BBoxHeadConfig = BBoxHeadConfig()
+    cascade: Optional[CascadeConfig] = None
     rpn_train: RPNTrainConfig = RPNTrainConfig()
     rpn_proposal_train: ProposalConfig = ProposalConfig(nms_pre=2000, nms_post=2000, max_num=2000)
     rpn_proposal_test: ProposalConfig = ProposalConfig(
@@ -144,5 +161,6 @@ class TrainConfig:
     warmup_ratio: float = 1.0 / 3.0
     lr_step_epochs: Tuple[int, ...] = (8, 11)
     # 0: everything but the frozen backbone stages; 1: only fc_cls (BAGS
-    # phase 2) (tools/train.py:143-158)
+    # phase 2); 2: the whole bbox head; 3: every cascade stage's fc_cls
+    # (tools/train.py:143-158)
     selectp: int = 0

@@ -1,8 +1,9 @@
 """Weights of the JAX detector -> the port's `state_dict`.
 
 `params_from_flax` reads the flax variables of
-the JAX `models/detector.py` `FasterRCNN` as a tree of dicts of
-arrays ({"params": ..., "batch_stats": ...}; anything `np.asarray` reads) and
+the JAX `models/detector.py` `FasterRCNN` or `models/cascade.py`
+`CascadeRCNN` (whose stage heads `bbox_head_{i}` become `bbox_heads.{i}`) as
+a tree of dicts of arrays ({"params": ..., "batch_stats": ...}; anything `np.asarray` reads) and
 returns the tensors of `models.detector.FasterRCNN` under their names: conv
 kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), and the frozen
 BatchNorm statistics into the running buffers. `utils/checkpoint.py:119-196`
@@ -61,8 +62,13 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         conv(f"neck.{kind}.{i}", node)
     for name, node in params["rpn_head"].items():
         conv(f"rpn_head.{name}", node)
-    for name, node in params["bbox_head"].items():
-        m = re.fullmatch(r"shared_fc(\d+)", name)
-        dense(f"bbox_head.shared_fcs.{m[1]}" if m else f"bbox_head.{name}", node)
+    for key, head in params.items():
+        stage = re.fullmatch(r"bbox_head(?:_(\d+))?", key)
+        if stage is None:
+            continue
+        dst = "bbox_head" if stage[1] is None else f"bbox_heads.{stage[1]}"
+        for name, node in head.items():
+            m = re.fullmatch(r"shared_fc(\d+)", name)
+            dense(f"{dst}.shared_fcs.{m[1]}" if m else f"{dst}.{name}", node)
 
     return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in sd.items()}

@@ -1,5 +1,5 @@
-// Exact greedy NMS keep masks: K1 `bags_nms_keep`, K3 `bags_nms_keep_gathered`
-// and K4 `bags_nms_keep_tiled`.
+// Exact greedy NMS keep masks: K1 `bags_nms_keep`, K3 `bags_nms_keep_gathered`,
+// K4 `bags_nms_keep_tiled` and K5 `bags_nms_keep_coords`.
 //
 // Replaces (TPU Pallas, JAX package pallas/nms.py):
 //   K1  nms_keep_batched  (:304, via _keep_from_coords :273, _nms_block_kernel :29,
@@ -8,8 +8,11 @@
 //       candidate gather from coordinate planes fused with the same keep.
 //   K4  nms_keep_tiled    (:213, via _nms_tiled_kernel :102) -- the K1 keep for any
 //       K; the RPN in training, rows of K = 2000.
+//   K5  nms_keep_batched_coords (:316, via _keep_from_coords :273) -- the K1 keep on
+//       (G, 4, K) coordinate planes; the class-agnostic multiclass NMS, G = B * 300
+//       (image, class) rows of K = 300 candidates that K6 (gather.cu) gathered.
 //
-// Semantics (all three): rows of score-descending boxes with a validity mask; box i
+// Semantics (all four): rows of score-descending boxes with a validity mask; box i
 // suppresses box j when i < j, both are valid and iou(i, j) > thr under the +1
 // pixel convention; a box is kept when it is valid and no kept box suppresses
 // it. Invalid slots neither keep nor suppress. This equals the fixpoint the TPU
@@ -31,7 +34,10 @@
 // (ceil(K/64) row blocks) x G, into a (G, K, ceil(K/64)) mask in device memory
 // that the walk kernel copies into shared memory. Only that mask goes
 // through device memory; the boxes are read once and the keep mask (and K3's
-// candidates) written once.
+// candidates) written once. K5 is K1 with another box loader: step 1 reads a
+// row's four coordinate planes (coalesced, where K1 reads 16-byte boxes), and
+// steps 2 and 3 are K1's kernels. Its mask pass has ceil(K/64) = 5 row blocks
+// for each of the 600 rows, which fill the card as K3's 600 blocks do.
 //
 // K4 shares K1's mask kernel and replaces only the walk. The TPU walked
 // 256-box tiles and iterated a fixpoint inside each; here a row's mask (512 KB
@@ -100,16 +106,22 @@ __device__ Row carve_row(void* at, int k) {
 
 size_t row_bytes(int k) { return size_t(k) * (5 * sizeof(float) + 1); }
 
-// Step 1 (whole block). kGather=false: src is boxes (G, K, 4). kGather=true:
-// src is planes (G, 4, N); idx (G, K) picks the candidates and cand (G, 4, K)
-// receives them (0 for an index outside [0, N)).
-template <bool kGather>
+// Step 1 (whole block). With kGather, idx (G, K) picks the candidates from the
+// planes and cand (G, 4, K) receives them (0 for an index outside [0, N)).
+// How step 1 finds a row's boxes.
+enum class Src {
+  kRows,    // K1, K4: src is boxes (G, K, 4)
+  kPlanes,  // K5: src is coordinate planes (G, 4, K)
+  kGather,  // K3: src is planes (G, 4, N), gathered through idx
+};
+
+template <Src kSrc>
 __device__ void load_row(Row r, const float* __restrict__ src, const int32_t* __restrict__ idx,
                          const uint8_t* __restrict__ valid, float* __restrict__ cand, int64_t g,
                          int k, int n) {
   for (int i = threadIdx.x; i < k; i += blockDim.x) {
     float c[4];
-    if (kGather) {
+    if constexpr (kSrc == Src::kGather) {
       const int j = idx[g * k + i];
       const bool in = j >= 0 && j < n;
 #pragma unroll
@@ -117,6 +129,9 @@ __device__ void load_row(Row r, const float* __restrict__ src, const int32_t* __
         c[q] = in ? src[(g * 4 + q) * n + j] : 0.0f;
         cand[(g * 4 + q) * k + i] = c[q];
       }
+    } else if constexpr (kSrc == Src::kPlanes) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[q] = src[(g * 4 + q) * k + i];
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) c[q] = src[(g * k + i) * 4 + q];
@@ -182,27 +197,29 @@ nms_gathered_kernel(const float* __restrict__ planes, const int32_t* __restrict_
   const int64_t g = blockIdx.x;
   unsigned long long* mask = smem;
   Row r = carve_row(mask + size_t(k) * num_words(k), k);
-  load_row<true>(r, planes, idx, valid, cand, g, k, n);
+  load_row<Src::kGather>(r, planes, idx, valid, cand, g, k, n);
   __syncthreads();
   build_mask(r, k, 0, k, thr, mask);
   __syncthreads();
   walk(mask, r.v, keep + g * k, k);
 }
 
-// K1 step 2: block (rb, g) makes the mask words of rows [64 rb, 64 rb + 64) of row g.
+// K1/K4/K5 step 2: block (rb, g) makes the mask words of rows [64 rb, 64 rb + 64)
+// of row g.
+template <Src kSrc>
 __global__ void __launch_bounds__(kMaskThreads)
 nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
                 unsigned long long* __restrict__ mask, int k, float thr) {
   extern __shared__ unsigned long long smem[];
   const int64_t g = blockIdx.y;
   Row r = carve_row(smem, k);
-  load_row<false>(r, boxes, nullptr, valid, nullptr, g, k, 0);
+  load_row<kSrc>(r, boxes, nullptr, valid, nullptr, g, k, 0);
   __syncthreads();
   const int i_begin = 64 * blockIdx.x;
   build_mask(r, k, i_begin, min(i_begin + 64, k), thr, mask + g * k * num_words(k));
 }
 
-// K1 step 3: one block per row copies the row's mask into shared memory, then walks.
+// K1/K5 step 3: one block per row copies the row's mask into shared memory, then walks.
 __global__ void __launch_bounds__(kThreads)
 nms_walk_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ valid,
                 uint8_t* __restrict__ keep, int k) {
@@ -276,18 +293,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-}  // namespace
-
-extern "C" {
-
-// boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool; mask is
-// (G, K, ceil(K/64)) uint64 scratch.
-int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g,
-                  int k, float thr, cudaStream_t stream) {
+// K1 and K5: the mask pass, then the walk with the row's mask in shared memory.
+template <Src kSrc>
+int keep_in_smem(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g,
+                 int k, float thr, cudaStream_t stream) {
   if (num_words(k) > kMaxWords) return int(cudaErrorInvalidValue);
   auto* m = static_cast<unsigned long long*>(mask);
-  nms_mask_kernel<<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(boxes, valid,
-                                                                                  m, k, thr);
+  nms_mask_kernel<kSrc><<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(
+      boxes, valid, m, k, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const size_t walk_bytes = size_t(k) * num_words(k) * sizeof(unsigned long long) + k;
@@ -297,16 +310,34 @@ int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void*
   return int(cudaGetLastError());
 }
 
+}  // namespace
+
+extern "C" {
+
+// boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool; mask is
+// (G, K, ceil(K/64)) uint64 scratch.
+int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g,
+                  int k, float thr, cudaStream_t stream) {
+  return keep_in_smem<Src::kRows>(boxes, valid, keep, mask, g, k, thr, stream);
+}
+
+// K5: coords (G, 4, K) f32, valid (G, K) bool -> keep (G, K) bool; mask is
+// (G, K, ceil(K/64)) uint64 scratch.
+int bags_nms_keep_coords(const float* coords, const uint8_t* valid, uint8_t* keep, void* mask,
+                         int g, int k, float thr, cudaStream_t stream) {
+  return keep_in_smem<Src::kPlanes>(coords, valid, keep, mask, g, k, thr, stream);
+}
+
 // K4: boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool, any K whose
 // row fits the mask kernel's shared memory (K <= ~11000); mask is
 // (G, K, ceil(K/64)) uint64 scratch.
 int bags_nms_keep_tiled(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask,
                         int g, int k, float thr, cudaStream_t stream) {
   auto* m = static_cast<unsigned long long*>(mask);
-  cudaError_t err = allow_smem(nms_mask_kernel, row_bytes(k));
+  cudaError_t err = allow_smem(nms_mask_kernel<Src::kRows>, row_bytes(k));
   if (err != cudaSuccess) return int(err);
-  nms_mask_kernel<<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(boxes, valid,
-                                                                                  m, k, thr);
+  nms_mask_kernel<Src::kRows><<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(
+      boxes, valid, m, k, thr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const size_t walk_bytes = size_t(num_words(k)) * sizeof(unsigned long long);

@@ -41,6 +41,8 @@ SIGNATURES = {
     "bags_nms_keep": (_P, _P, _P, _P, _I, _I, _F, _P),
     "bags_nms_keep_tiled": (_P, _P, _P, _P, _I, _I, _F, _P),
     "bags_nms_keep_gathered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "bags_nms_keep_coords": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "bags_gather_lanes": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bags_roi_align_forward": (
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
@@ -146,4 +148,6 @@ NMS_KEEP_GATHERED = Kernel("bags_nms_keep_gathered")
 ROI_ALIGN = Kernel("bags_roi_align_forward")
 NMS_KEEP_TILED = Kernel("bags_nms_keep_tiled")
 ROI_ALIGN_BACKWARD = Kernel("bags_roi_align_backward")
-KERNELS = (NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD)
+NMS_KEEP_COORDS = Kernel("bags_nms_keep_coords")
+GATHER_LANES = Kernel("bags_gather_lanes")
+KERNELS = (NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD, NMS_KEEP_COORDS, GATHER_LANES)

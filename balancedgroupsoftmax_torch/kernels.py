@@ -9,7 +9,8 @@ wrappers in ops/ from the tensors' device, with no other switch.
 - `batched_nms_topk` -> K1 (ops/nms.py `nms_keep_batched`) for K <= 1280, K4
   (`nms_keep_tiled`) above
 - `batched_multiclass_nms`, class-specific hard NMS -> K3
-  (ops/nms.py `nms_keep_gathered`)
+  (ops/nms.py `nms_keep_gathered`); class-agnostic hard NMS -> K6
+  (ops/gather.py `gather_lanes`), then K5 (ops/nms.py `nms_keep_batched_coords`)
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .ops.nms import nms_keep_batched, nms_keep_gathered, nms_keep_tiled
+from .ops.gather import gather_lanes
+from .ops.nms import nms_keep_batched, nms_keep_batched_coords, nms_keep_gathered, nms_keep_tiled
 from .ops.roi_align import multilevel_roi_align as batched_multilevel_roi_align  # JAX kernels.py:26
 from .ops.topk import top_k
 
@@ -50,7 +52,7 @@ def batched_nms_topk(
 
 
 def batched_multiclass_nms(
-    boxes: torch.Tensor,  # (B, N, C * 4) class-specific boxes
+    boxes: torch.Tensor,  # (B, N, C * 4) class-specific or (B, N, 4) class-agnostic boxes
     scores: torch.Tensor,  # (B, N, C), column 0 background
     valid: torch.Tensor,  # (B, N) bool
     score_thr: float,
@@ -70,13 +72,14 @@ def batched_multiclass_nms(
     Returns (boxes (B, M, 4), scores (B, M), labels (B, M) int32 0-based
     foreground class, valid (B, M) bool), M = max_per_img, by score.
 
-    Only the class-specific hard-NMS branch is ported; soft-NMS and
-    class-agnostic boxes raise NotImplementedError."""
+    Class-specific boxes go through K3, which gathers each class's
+    candidates from its own coordinate planes. Class-agnostic boxes form
+    one (4, N) plane per image, which K6 gathers from for all of the
+    image's classes and K5 then suppresses within (kernels.py:170-184).
+    Soft-NMS is not ported and raises NotImplementedError."""
     if nms_type != "nms":
         raise NotImplementedError(f"nms_type={nms_type!r} is not ported yet")
     b, n, c = scores.shape
-    if boxes.shape[-1] == 4:
-        raise NotImplementedError("class-agnostic multiclass NMS is not ported yet")
     num_fg = c - 1
     k = min(candidates_per_class, n)
 
@@ -94,15 +97,19 @@ def batched_multiclass_nms(
 
     top_scores, top_idx = top_k(masked, k)  # (B, num_fg, K)
     cand_valid = torch.isfinite(top_scores)
-    # (B, C, 4, N) coordinate planes of the selected classes (bg is class 0)
-    planes = boxes.reshape(b, n, c, 4).permute(0, 2, 3, 1)
-    planes = torch.gather(planes, 1, (classes + 1)[..., None, None].expand(-1, -1, 4, n))
-    keep, cand = nms_keep_gathered(
-        planes.reshape(b * num_fg, 4, n).contiguous(),
-        top_idx.reshape(b * num_fg, k).to(torch.int32),
-        cand_valid.reshape(b * num_fg, k),
-        iou_thr,
-    )
+    cand_idx = top_idx.reshape(b * num_fg, k).to(torch.int32)
+    flat_valid = cand_valid.reshape(b * num_fg, k)
+    if boxes.shape[-1] == 4:
+        # one shared (4, N) plane per image, never replicated per class
+        cand = gather_lanes(boxes.float().transpose(1, 2).contiguous(), cand_idx, groups_per_plane=num_fg)
+        keep = nms_keep_batched_coords(cand, flat_valid, iou_thr)
+    else:
+        # (B, C, 4, N) coordinate planes of the selected classes (bg is class 0)
+        planes = boxes.reshape(b, n, c, 4).permute(0, 2, 3, 1)
+        planes = torch.gather(planes, 1, (classes + 1)[..., None, None].expand(-1, -1, 4, n))
+        keep, cand = nms_keep_gathered(
+            planes.reshape(b * num_fg, 4, n).contiguous(), cand_idx, flat_valid, iou_thr
+        )
     keep = keep.reshape(b, num_fg, k)
     cand = cand.reshape(b, num_fg, 4, k)
 

@@ -1,7 +1,9 @@
 """Shared-FC bbox head and its losses (JAX `models/bbox_head.py`
 `SharedFCBBoxHead` :26, `bbox_reg_loss` :69, `bbox_head_loss` :91): two
 shared FCs, then fc_cls and fc_reg. The GS variant widens fc_cls to
-num_classes + num_bins logits. Regression is class-specific.
+num_classes + num_bins logits. Regression is class-specific (4 deltas per
+class), or one set of 4 deltas with `reg_class_agnostic` (the cascade's
+stage heads).
 
 RoI features enter channels-last, (..., S, S, C), and flatten in H-W-C order
 as in the JAX head, so `shared_fc0` is the flax kernel transposed."""
@@ -27,10 +29,10 @@ class SharedFCBBoxHead(nn.Module):
             in_dim = cfg.fc_out_channels
         num_logits = cfg.num_classes + (cfg.gs.num_bins if cfg.use_gs else 0)
         self.fc_cls = Linear(in_dim, num_logits)
-        self.fc_reg = Linear(in_dim, 4 * cfg.num_classes)  # class-specific regression
+        self.fc_reg = Linear(in_dim, 4 if cfg.reg_class_agnostic else 4 * cfg.num_classes)
 
     def forward(self, roi_feats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(..., S, S, C) -> (cls_logits (..., L), bbox_deltas (..., 4K))."""
+        """(..., S, S, C) -> (cls_logits (..., L), bbox_deltas (..., 4K or 4))."""
         x = roi_feats.flatten(-3)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
@@ -38,18 +40,22 @@ class SharedFCBBoxHead(nn.Module):
 
 
 def bbox_reg_loss(
-    bbox_deltas: torch.Tensor,  # (N, 4C)
+    bbox_deltas: torch.Tensor,  # (N, 4C), or (N, 4) class-agnostic
     labels: torch.Tensor,  # (N,) int
     bbox_targets: torch.Tensor,  # (N, 4)
     bbox_weights: torch.Tensor,  # (N, 4)
     beta: float = 1.0,
+    reg_class_agnostic: bool = False,
 ) -> torch.Tensor:
-    """Smooth-L1 on each roi's target-class deltas, averaged over all rois
-    (bbox_head.py:113-131)."""
+    """Smooth-L1 on each roi's target-class deltas (or its only deltas,
+    class-agnostic), averaged over all rois (bbox_head.py:113-131)."""
     n = bbox_deltas.shape[0]
-    d = bbox_deltas.float().reshape(n, -1, 4)
-    idx = labels.long().clamp(0, d.shape[1] - 1)[:, None, None].expand(-1, 1, 4)
-    pos_deltas = torch.gather(d, 1, idx)[:, 0]
+    if reg_class_agnostic:
+        pos_deltas = bbox_deltas.float()
+    else:
+        d = bbox_deltas.float().reshape(n, -1, 4)
+        idx = labels.long().clamp(0, d.shape[1] - 1)[:, None, None].expand(-1, 1, 4)
+        pos_deltas = torch.gather(d, 1, idx)[:, 0]
     return smooth_l1(pos_deltas, bbox_targets, beta=beta, weight=bbox_weights, avg_factor=n)
 
 

@@ -1,6 +1,6 @@
 """Faster R-CNN with the BAGS grouped-softmax head, inference and training
 losses (JAX `models/detector.py`: `FasterRCNN` :45, `loss` :138, `_loss_core`
-:169, `predict` :355, `build_detector` :537).
+:169, `predict` :355, `build_detector` :537, `build_model` :543).
 
 Inference: ResNet -> FPN -> RPN proposals (K1) -> multi-level RoIAlign (K2)
 -> shared-FC head -> GS score merge -> per-class NMS (K3). Training: the RPN
@@ -55,8 +55,11 @@ class FasterRCNN(nn.Module):
         self.backbone = ResNet(cfg.backbone.depth)
         self.neck = FPN(cfg.fpn.in_channels, cfg.fpn.out_channels, cfg.fpn.num_outs)
         self.rpn_head = RPNHead(cfg.fpn.out_channels, cfg.anchors.num_base_anchors)
-        self.bbox_head = SharedFCBBoxHead(cfg.bbox_head)
+        self._init_roi_heads()
         self._anchor_cache: dict = {}
+
+    def _init_roi_heads(self) -> None:
+        self.bbox_head = SharedFCBBoxHead(self.cfg.bbox_head)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "FasterRCNN":
@@ -65,13 +68,9 @@ class FasterRCNN(nn.Module):
         normal(0.01) RPN and fc_cls, xavier-uniform shared FCs, normal(0.001)
         fc_reg, zero biases) and identity BatchNorm statistics."""
         gen = torch.Generator().manual_seed(seed)
-        special = {
-            self.rpn_head.rpn_conv: 0.01,
-            self.rpn_head.rpn_cls: 0.01,
-            self.rpn_head.rpn_reg: 0.01,
-            self.bbox_head.fc_cls: 0.01,
-            self.bbox_head.fc_reg: 0.001,
-        }
+        special = {self.rpn_head.rpn_conv: 0.01, self.rpn_head.rpn_cls: 0.01, self.rpn_head.rpn_reg: 0.01}
+        for head in (m for m in self.modules() if isinstance(m, SharedFCBBoxHead)):
+            special.update({head.fc_cls: 0.01, head.fc_reg: 0.001})
         for m in self.modules():
             if not isinstance(m, (Conv2d, Linear)):
                 continue
@@ -107,9 +106,10 @@ class FasterRCNN(nn.Module):
             self._anchor_cache[key] = [torch.from_numpy(a).to(images.device) for a in per_level]
         return self._anchor_cache[key]
 
-    def _bbox_forward(self, feats, rois: torch.Tensor):
+    def _pool(self, feats, rois: torch.Tensor) -> torch.Tensor:
+        """RoIAlign (K2) of rois (B, R, 4) -> (B, R, S, S, C)."""
         c = self.cfg.roi_extractor
-        pooled = batched_multilevel_roi_align(
+        return batched_multilevel_roi_align(
             [f.permute(0, 2, 3, 1) for f in feats[: len(c.featmap_strides)]],
             rois,
             c.featmap_strides,
@@ -117,20 +117,13 @@ class FasterRCNN(nn.Module):
             c.sample_num,
             c.finest_scale,
         )
-        return self.bbox_head(pooled)
 
-    def loss(
-        self,
-        images: torch.Tensor,  # (B, H, W, 3) normalised, padded bucket
-        gt_boxes: torch.Tensor,  # (B, G, 4)
-        gt_labels: torch.Tensor,  # (B, G) int, 1-based
-        gt_mask: torch.Tensor,  # (B, G) bool
-        img_shapes: torch.Tensor,  # (B, 2) content (h, w) before padding
-        generator: Optional[torch.Generator] = None,
-    ) -> Dict[str, torch.Tensor]:
-        """The training losses (two_stage.py forward_train parity): the RPN's,
-        then the GS head's per-bin losses (or softmax CE and accuracy) and the
-        box regression. Sampling draws from `generator`."""
+    def _bbox_forward(self, feats, rois: torch.Tensor):
+        return self.bbox_head(self._pool(feats, rois))
+
+    def _rpn_train(self, images, gt_boxes, gt_mask, img_shapes, generator):
+        """The RPN's losses and the detached training proposals:
+        (feats, losses, proposals)."""
         c = self.cfg
         feats = self.extract_feats(images)
         rpn_outs = self.rpn_head(feats)
@@ -148,6 +141,23 @@ class FasterRCNN(nn.Module):
                 [(cls.detach(), reg.detach()) for cls, reg in rpn_outs],
                 anchors, img_shapes.float(), c.rpn_proposal_train,
             )
+        return feats, losses, proposals
+
+    def loss(
+        self,
+        images: torch.Tensor,  # (B, H, W, 3) normalised, padded bucket
+        gt_boxes: torch.Tensor,  # (B, G, 4)
+        gt_labels: torch.Tensor,  # (B, G) int, 1-based
+        gt_mask: torch.Tensor,  # (B, G) bool
+        img_shapes: torch.Tensor,  # (B, 2) content (h, w) before padding
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The training losses (two_stage.py forward_train parity): the RPN's,
+        then the GS head's per-bin losses (or softmax CE and accuracy) and the
+        box regression. Sampling draws from `generator`."""
+        c = self.cfg
+        feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
+        with torch.no_grad():
             t = roi_targets(
                 proposals.boxes, proposals.valid, gt_boxes, gt_labels, gt_mask, c.rcnn_train,
                 generator, c.bbox_head.target_means, c.bbox_head.target_stds,
@@ -204,17 +214,16 @@ class FasterRCNN(nn.Module):
         )
         if rescale:
             boxes = boxes / scale_factors.float()[:, None, None]
-        det = batched_multiclass_nms(
-            boxes,
-            scores,
-            proposals.valid,
-            c.rcnn_test.score_thr,
-            c.rcnn_test.nms_iou_thr,
-            c.rcnn_test.max_per_img,
-            candidates_per_class=c.rcnn_test.nms_candidates_per_class,
-            nms_type=c.rcnn_test.nms_type,
+        return self._multiclass_nms(boxes, scores, proposals.valid)
+
+    def _multiclass_nms(self, boxes, scores, valid) -> Detections:
+        t = self.cfg.rcnn_test
+        return Detections(
+            *batched_multiclass_nms(
+                boxes, scores, valid, t.score_thr, t.nms_iou_thr, t.max_per_img,
+                candidates_per_class=t.nms_candidates_per_class, nms_type=t.nms_type,
+            )
         )
-        return Detections(*det)
 
 
 def build_detector(
@@ -223,3 +232,19 @@ def build_detector(
     if cfg.bbox_head.use_gs and partition is None:
         raise ValueError("GS head requires a GSPartition")
     return FasterRCNN(cfg, partition=partition, dtype=dtype)
+
+
+def build_model(
+    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32
+) -> FasterRCNN:
+    """The detector family `cfg` names (JAX `detector.py:543`): Cascade
+    R-CNN when `cfg.cascade` is set, else Faster R-CNN. Both have `loss`
+    and `predict` alike. HTC and the detector variants are not ported."""
+    for name in ("htc", "variant"):
+        if getattr(cfg, name, None) is not None:
+            raise NotImplementedError(f"{name} detectors are not ported yet")
+    if cfg.cascade is not None:
+        from .cascade import build_cascade
+
+        return build_cascade(cfg, partition=partition, dtype=dtype)
+    return build_detector(cfg, partition=partition, dtype=dtype)

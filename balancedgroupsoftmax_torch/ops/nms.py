@@ -1,9 +1,10 @@
-"""Exact greedy NMS keep masks: kernels K1, K3 and K4 and their plain versions.
+"""Exact greedy NMS keep masks: kernels K1, K3, K4 and K5 and their plain versions.
 
 `nms_keep_batched` (K1) replaces JAX `pallas/nms.py`
 `nms_keep_batched` (:304); `nms_keep_gathered` (K3) replaces its
 `nms_keep_gathered` (:371); `nms_keep_tiled` (K4) replaces its
-`nms_keep_tiled` (:213). Each launches its CUDA kernel of `csrc/nms.cu` on a
+`nms_keep_tiled` (:213); `nms_keep_batched_coords` (K5) replaces its
+`nms_keep_batched_coords` (:316). Each launches its CUDA kernel of `csrc/nms.cu` on a
 CUDA tensor and runs the plain PyTorch version below on a CPU tensor.
 
 Semantics (JAX `ops/nms.py` `nms_keep` :33 on presorted
@@ -40,9 +41,11 @@ def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float)
         keep = new_keep
 
 
-def _launch_keep(kernel: cuda.Kernel, boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+def _launch_keep(
+    kernel: cuda.Kernel, boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float, layout: str = "rows"
+) -> torch.Tensor:
     g, k = valid.shape
-    cuda.check(boxes, torch.float32, (g, k, 4), "boxes")
+    cuda.check(boxes, torch.float32, (g, k, 4) if layout == "rows" else (g, 4, k), "boxes")
     cuda.check(valid, torch.bool, (g, k), "valid")
     keep = torch.empty(g, k, dtype=torch.bool, device=boxes.device)
     mask = torch.empty(g, k, -(-k // 64), dtype=torch.int64, device=boxes.device)  # scratch
@@ -65,6 +68,15 @@ def nms_keep_tiled(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> 
     if boxes.device.type == "cpu":
         return nms_keep_reference(boxes, valid, iou_thr)
     return _launch_keep(cuda.NMS_KEEP_TILED, boxes, valid, iou_thr)
+
+
+def nms_keep_batched_coords(coords: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """K5: the K1 keep mask of coordinate planes, coords (G, 4, K) f32 (rows
+    x1, y1, x2, y2; columns in score order), valid (G, K) bool; K <= ~1350
+    as for K1. Its plain version is K1's on the transposed boxes."""
+    if coords.device.type == "cpu":
+        return nms_keep_reference(coords.transpose(1, 2), valid, iou_thr)
+    return _launch_keep(cuda.NMS_KEEP_COORDS, coords, valid, iou_thr, layout="planes")
 
 
 def nms_keep_gathered_reference(

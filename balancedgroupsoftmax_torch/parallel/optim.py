@@ -36,8 +36,10 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float
 def trainable_mask(model: nn.Module, selectp: int = 0, frozen_stages: int = 1) -> Dict[str, bool]:
     """Parameter name -> trains (tools/train.py:143-158): selectp 0 trains
     everything but the stem and the first `frozen_stages` ResNet stages; 1
-    only fc_cls (the BAGS phase 2). The other values are not ported yet."""
-    if selectp not in (0, 1):
+    only fc_cls (the BAGS phase 2); 2 the whole bbox head (every stage's, in
+    a cascade); 3 every cascade stage's fc_cls. 4 (the mask head) is not
+    ported yet."""
+    if selectp not in (0, 1, 2, 3):
         raise NotImplementedError(f"selectp={selectp} is not ported yet")
     frozen = set()
     if frozen_stages >= 0:
@@ -45,8 +47,10 @@ def trainable_mask(model: nn.Module, selectp: int = 0, frozen_stages: int = 1) -
     frozen |= {f"layer{s}" for s in range(1, frozen_stages + 1)}
 
     def decide(name: str) -> bool:
-        if selectp == 1:
+        if selectp in (1, 3):
             return "fc_cls" in name
+        if selectp == 2:
+            return name.startswith("bbox_head")
         parts = name.split(".")
         return not (parts[0] == "backbone" and parts[1] in frozen)
 

@@ -7,7 +7,9 @@ Phases, each timed, any failure ending the run with a non-zero exit:
 1. build the CUDA kernels of balancedgroupsoftmax_torch/csrc with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, and time both: K1-K3 at inference's, K4 (the
-   training RPN's NMS) and K2b (the RoIAlign gradient) at training's;
+   training RPN's NMS) and K2b (the RoIAlign gradient) at training's, K5 and
+   K6 (the class-agnostic multiclass NMS) on inputs with exact ties and
+   out-of-range indices at the cascade's shapes;
 3. run BAGS Faster R-CNN R50-FPN (gs_faster_rcnn_r50_fpn_lvis: 1231 classes,
    800 x 1344, bf16, batch 2, seeded random weights and synthetic partition)
    through `init_detector` and `predict`, check that K1-K3 were launched and
@@ -24,7 +26,13 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    move fc_cls alone;
 6. take one small f32 training step on the card and on the CPU from the
    same weights and batch, sampling made deterministic by the
-   configuration, and compare the loss dicts.
+   configuration, and compare the loss dicts;
+7-10. the same four phases for BAGS Cascade R-CNN R50-FPN
+   (cascade_rcnn_r50_fpn_lvis with GS heads, built through `build_model`):
+   `predict` must launch K1, K2 (once a stage), K6 and K5 and not K3; K5
+   and K6 are held to their plain versions again, and timed, on the inputs
+   that predict gave them; the BAGS phase-2 step (selectp=3) must move the
+   three stages' fc_cls alone.
 
 It prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -48,6 +56,7 @@ IOU_OPS = 17
 SAMPLE_OPS = 12
 
 MAIN_BATCH = 2
+MAX_PER_IMG = 300  # rcnn_test: the class cap of the multiclass NMS
 MAIN_SIZE = (800, 1344)
 TIMED_PREDICTS = 3
 TIMED_STEPS = 3
@@ -126,6 +135,93 @@ def check_k1(torch, ops_nms, dev):
         bound_by=b_by,
         library_ms=None,
         shape=f"G={g} K={k} kept={int(keep.sum())}",
+    )
+
+
+def check_k5_ties(torch, ops_nms, dev) -> None:
+    """K5 at the cascade's shape (2 images x 300 classes, 300 candidates) on
+    rows with duplicates, exact-threshold pairs and invalid slots."""
+    g, k = MAX_PER_IMG * MAIN_BATCH, 300
+    for thr in (0.5, 0.7):
+        boxes, valid = tie_boxes(torch.Generator().manual_seed(10), g, k, thr, dev)
+        coords = boxes.transpose(1, 2).contiguous()
+        keep = ops_nms.nms_keep_batched_coords(coords, valid, thr)
+        ref = ops_nms.nms_keep_reference(boxes, valid, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(keep, ref):
+            raise AssertionError(f"K5 keep at thr {thr} differs in {(keep != ref).sum().item()} slots")
+        log(f"  K5 ties thr={thr}: keep equal to the plain version ({int(keep.sum())} kept of {int(valid.sum())})")
+
+
+def check_k6_ties(torch, ops_gather, dev) -> None:
+    """K6 at the cascade's shape: two (4, 1000) planes of f32 values that
+    bf16 cannot hold, 300 groups each, some indices outside [0, N)."""
+    gen = torch.Generator().manual_seed(11)
+    n, k = 1000, 300
+    planes = (torch.rand(MAIN_BATCH, 4, n, generator=gen) * 1333 + 2.0**-13).to(dev)
+    idx = torch.randint(-5, n + 5, (MAIN_BATCH * MAX_PER_IMG, k), generator=gen, dtype=torch.int32).to(dev)
+    out = ops_gather.gather_lanes(planes, idx, MAX_PER_IMG)
+    ref = ops_gather.gather_lanes_reference(planes, idx, MAX_PER_IMG)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("K6 is not bit-equal to the plain gather")
+    log(f"  K6: bit-equal to the plain version ({int(((idx < 0) | (idx >= n)).sum())} indices outside the plane)")
+
+
+def check_k5(torch, ops_nms, coords, valid, thr):
+    """K5 on the inputs the cascade's predict gave it."""
+    keep = ops_nms.nms_keep_batched_coords(coords, valid, thr)
+    ref = ops_nms.nms_keep_reference(coords.transpose(1, 2), valid, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, ref):
+        raise AssertionError(f"K5 keep on the path's data differs in {(keep != ref).sum().item()} slots")
+    g, k = valid.shape
+    nbytes = coords.numel() * 4 + valid.numel() * 2
+    b_ms, b_by = bound(nbytes, valid_pairs(valid) * IOU_OPS)
+    return dict(
+        name="nms_keep_batched_coords",
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/nms.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/nms.py:316",
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: ops_nms.nms_keep_batched_coords(coords, valid, thr), 50),
+        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_reference(coords.transpose(1, 2), valid, thr), 3),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+        shape=f"G={g} K={k} valid={int(valid.sum())} pairs={valid_pairs(valid)} kept={int(keep.sum())}",
+    )
+
+
+def check_k6(torch, ops_gather, planes, idx, groups_per_plane):
+    """K6 on the inputs the cascade's predict gave it; `torch.gather` on the
+    plane expanded over its groups computes the same function."""
+    out = ops_gather.gather_lanes(planes, idx, groups_per_plane)
+    ref = ops_gather.gather_lanes_reference(planes, idx, groups_per_plane)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("K6 on the path's data is not bit-equal to the plain gather")
+    p, r, n = planes.shape
+    g, k = idx.shape
+    src = planes[:, None].expand(p, groups_per_plane, r, n)
+    index = idx.long().view(p, groups_per_plane, 1, k).expand(p, groups_per_plane, r, k)
+    lib = torch.gather(src, 3, index).reshape(g, r, k)
+    if not torch.equal(lib, out):
+        raise AssertionError("torch.gather disagrees with K6")
+    nbytes = out.numel() * 4 + idx.numel() * 4 + planes.numel() * 4
+    b_ms, b_by = bound(nbytes, 0)
+    return dict(
+        name="gather_lanes",
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/gather.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/gather.py:59",
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: ops_gather.gather_lanes(planes, idx, groups_per_plane), 50),
+        plain_ms=cuda_time_ms(lambda: ops_gather.gather_lanes_reference(planes, idx, groups_per_plane), 10),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=cuda_time_ms(lambda: torch.gather(src, 3, index), 50),
+        shape=f"P={p} R={r} N={n} G={g} K={k}",
     )
 
 
@@ -323,13 +419,14 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def run_main_path(torch, bgs, dev):
+def run_predicts(torch, model, per_predict: dict):
+    """A first `predict` and TIMED_PREDICTS timed ones at the main shape, with
+    the kernels' counts set to 0 just before and read just after; each
+    kernel of `per_predict` must have launched that many times a predict
+    (None: at least once). Returns the counts and the inputs."""
     from balancedgroupsoftmax_torch import cuda
 
-    t0 = time.perf_counter()
-    detector = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0)
-    model = detector.model
-    log(f"  model built on the card in {time.perf_counter() - t0:.1f} s")
+    dev = next(model.parameters()).device
     gen = torch.Generator().manual_seed(4)
     images = torch.randn(MAIN_BATCH, *MAIN_SIZE, 3, generator=gen).to(dev)
     img_shapes = torch.tensor([MAIN_SIZE] * MAIN_BATCH, dtype=torch.float32, device=dev)
@@ -353,13 +450,82 @@ def run_main_path(torch, bgs, dev):
     log(f"  first predict {first_s:.2f} s; then {ms:.3f} ms per batch of {MAIN_BATCH}, "
         f"{MAIN_BATCH / ms * 1e3:.2f} images/s, peak memory {peak:.2f} GiB ({card_line()})")
     log(f"  launches over {TIMED_PREDICTS + 1} predicts: {launches}")
-    for sym in ("bags_nms_keep", "bags_roi_align_forward", "bags_nms_keep_gathered"):
-        if launches[sym] == 0:
-            raise AssertionError(f"{sym} was not launched on the predict path")
+    for sym, each in per_predict.items():
+        ok = launches[sym] > 0 if each is None else launches[sym] == each * (TIMED_PREDICTS + 1)
+        if not ok:
+            raise AssertionError(f"{sym} launched {launches[sym]} times, not {each} a predict")
     check_detections(torch, det, model.cfg.bbox_head.num_classes, MAIN_SIZE)
     log(f"  detections: {int(det.valid.sum())} valid, top score {det.scores[0, 0].item():.6f}")
-    profile_device(torch, "predict", lambda: model.predict(images, img_shapes, scale_factors))
+    return launches, (images, img_shapes, scale_factors)
+
+
+def run_main_path(torch, bgs, dev):
+    t0 = time.perf_counter()
+    detector = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0)
+    model = detector.model
+    log(f"  model built on the card in {time.perf_counter() - t0:.1f} s")
+    launches, inputs = run_predicts(
+        torch, model, {"bags_nms_keep": None, "bags_roi_align_forward": None, "bags_nms_keep_gathered": None}
+    )
+    profile_device(torch, "predict", lambda: model.predict(*inputs))
     return launches, model
+
+
+def cascade_model(torch, dev):
+    """gs_cascade_rcnn_r50 (1231 classes, GS heads in three stages) in bf16
+    on the card, through `build_model`, with seeded weights."""
+    from balancedgroupsoftmax_torch import zoo
+    from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    cfg = zoo.cascade_rcnn_r50_fpn_lvis(use_gs=True)
+    model = build_model(cfg, synthetic_partition(cfg.bbox_head.num_classes), torch.bfloat16)
+    return model.init_weights(0).to(dev).eval()
+
+
+def run_cascade_path(torch, dev):
+    """Cascade predicts at the main shape: K1 once, K2 once a stage, K6 and
+    K5 once, K3 never. Then K5 and K6 against their plain versions on the
+    inputs one more predict gave them."""
+    from balancedgroupsoftmax_torch import kernels
+    from balancedgroupsoftmax_torch.ops import gather as ops_gather
+    from balancedgroupsoftmax_torch.ops import nms as ops_nms
+
+    t0 = time.perf_counter()
+    model = cascade_model(torch, dev)
+    log(f"  cascade built on the card in {time.perf_counter() - t0:.1f} s")
+    stages = len(model.bbox_heads)
+    launches, inputs = run_predicts(
+        torch, model,
+        {"bags_nms_keep": 1, "bags_roi_align_forward": stages, "bags_gather_lanes": 1,
+         "bags_nms_keep_coords": 1, "bags_nms_keep_gathered": 0},
+    )
+    profile_device(torch, "cascade predict", lambda: model.predict(*inputs))
+
+    # record what the class-agnostic multiclass NMS hands K6 and K5
+    seen = {}
+    wrapped = {}
+    for name in ("gather_lanes", "nms_keep_batched_coords"):
+        fn = getattr(kernels, name)
+
+        def record(*args, _name=name, _fn=fn, **kw):
+            seen[_name] = (args, kw)
+            return _fn(*args, **kw)
+
+        wrapped[name] = fn
+        setattr(kernels, name, record)
+    try:
+        model.predict(*inputs)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(kernels, name, fn)
+    (planes, idx), kw6 = seen["gather_lanes"]
+    (coords, valid, thr), _ = seen["nms_keep_batched_coords"]
+    rows = [
+        check_k5(torch, ops_nms, coords, valid, thr),
+        check_k6(torch, ops_gather, planes, idx, kw6["groups_per_plane"]),
+    ]
+    return launches, model, rows
 
 
 def profile_device(torch, label: str, fn, top: int = 12) -> None:
@@ -387,7 +553,7 @@ def profile_device(torch, label: str, fn, top: int = 12) -> None:
     for e in rows[:top]:
         log(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     for e in rows[top:]:
-        if "nms_" in e.key or "roi_align" in e.key:
+        if "nms_" in e.key or "roi_align" in e.key or "gather_lanes" in e.key:
             log(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]} (rank {rows.index(e) + 1})")
 
 
@@ -397,12 +563,12 @@ def compare_small(torch, model) -> None:
     two, so near-tied scores may swap places; the check asks that the score
     lists agree to 1e-4 and that 95% of the card's detections are found on
     the CPU with the same label and boxes within 1e-2 pixels."""
-    from balancedgroupsoftmax_torch.models.detector import build_detector
+    from balancedgroupsoftmax_torch.models.detector import build_model
 
     dev = next(model.parameters()).device
-    cpu_model = build_detector(model.cfg, model.partition, torch.float32).eval()
+    cpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
     cpu_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
-    gpu_model = build_detector(model.cfg, model.partition, torch.float32).eval()
+    gpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model.to(dev)
     gen = torch.Generator().manual_seed(5)
@@ -460,14 +626,17 @@ def train_batch(seed: int, partition, size=(427, 640)):
     return collate(samples)
 
 
-def run_train_path(torch, bgs, dev):
-    """Full training steps of gs_faster_rcnn_r50 at 800 x 1344, batch 2."""
+def run_train_path(torch, model, phase2):
+    """Full training steps of `model` (bf16, on the card) at 800 x 1344,
+    batch 2, then one BAGS phase-2 step with the TrainConfig `phase2`, which
+    must move the fc_cls tensors alone. Each step launches K4 once, and K2
+    and K2b once a stage."""
     from balancedgroupsoftmax_torch import cuda
     from balancedgroupsoftmax_torch.config import TrainConfig
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
-    from balancedgroupsoftmax_torch.zoo import TRAIN_CONFIGS
 
-    model = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
+    dev = next(model.parameters()).device
+    stages = model.cfg.cascade.num_stages if model.cfg.cascade else 1
     batch = train_batch(8, model.partition)
     if tuple(batch["images"].shape[1:3]) != MAIN_SIZE or int(batch["gt_mask"].sum()) != MAIN_BATCH * TRAIN_GTS:
         raise AssertionError(f"training batch {batch['images'].shape}, {int(batch['gt_mask'].sum())} gts")
@@ -501,9 +670,10 @@ def run_train_path(torch, bgs, dev):
         f"peak memory {peak:.2f} GiB ({card_line()})")
     log(f"  launches over {TIMED_STEPS + 1} steps: {launches}")
     log("  losses: " + ", ".join(f"{k} {v.item():.5f}" for k, v in metrics.items()))
-    for sym in ("bags_nms_keep_tiled", "bags_roi_align_forward", "bags_roi_align_backward"):
-        if launches[sym] == 0:
-            raise AssertionError(f"{sym} was not launched on the training path")
+    steps = TIMED_STEPS + 1
+    for sym, each in (("bags_nms_keep_tiled", 1), ("bags_roi_align_forward", stages), ("bags_roi_align_backward", stages)):
+        if launches[sym] != each * steps:
+            raise AssertionError(f"{sym} launched {launches[sym]} times in {steps} steps, not {each} a step")
     if not all(torch.isfinite(v).item() for v in metrics.values()):
         raise AssertionError(f"a loss is not finite: {metrics}")
     moved = {n for n, p in named.items() if not torch.equal(p.detach(), before[n])}
@@ -513,18 +683,18 @@ def run_train_path(torch, bgs, dev):
     log(f"  selectp=0 moved {len(moved)} of {len(trainable)} trainable tensors, no frozen one")
     profile_device(torch, "train step", lambda: step(batch, gen))
 
-    state = create_train_state(model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])  # selectp=1
+    state = create_train_state(model, phase2)
     before = {n: p.detach().clone() for n, p in named.items()}
     step1 = make_train_step(state)
     t0 = time.perf_counter()
     metrics = step1(batch, gen)
     torch.cuda.synchronize()
     moved = sorted(n for n, p in named.items() if not torch.equal(p.detach(), before[n]))
-    if moved != ["bbox_head.fc_cls.bias", "bbox_head.fc_cls.weight"]:
-        raise AssertionError(f"selectp=1 moved {moved}")
-    log(f"  selectp=1 step {(time.perf_counter() - t0) * 1e3:.3f} ms moved only {moved}, "
+    if moved != sorted(n for n in named if "fc_cls" in n):
+        raise AssertionError(f"selectp={phase2.selectp} moved {moved}")
+    log(f"  selectp={phase2.selectp} step {(time.perf_counter() - t0) * 1e3:.3f} ms moved only {moved}, "
         f"loss {metrics['loss'].item():.5f}")
-    return launches, model
+    return launches
 
 
 def compare_small_train(torch, model) -> None:
@@ -543,18 +713,20 @@ def compare_small_train(torch, model) -> None:
     import numpy as np
 
     from balancedgroupsoftmax_torch.config import TrainConfig
-    from balancedgroupsoftmax_torch.models.detector import build_detector
+    from balancedgroupsoftmax_torch.models.detector import build_model
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
 
     dev = next(model.parameters()).device
     cfg = model.cfg
+    stages = model.cfg.cascade.num_stages if model.cfg.cascade else 1
     num_anchors = 3 * sum(-(-256 // s) * -(-384 // s) for s in cfg.anchors.strides)
     take_all = lambda sc, num: dataclasses.replace(sc, sampler=dataclasses.replace(sc.sampler, num=num, pos_fraction=1.0))
     cfg = dataclasses.replace(
         cfg,
         rpn_train=take_all(cfg.rpn_train, num_anchors),
         rpn_proposal_train=dataclasses.replace(cfg.rpn_proposal_train, nms_post=100, max_num=100),
-        rcnn_train=take_all(cfg.rcnn_train, 100 + 8),
+        # the 100 proposals and the 8 gt boxes, which each later stage adds again
+        rcnn_train=take_all(cfg.rcnn_train, 100 + 8 * stages),
         bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
     )
     weights = {k: v.float().cpu() for k, v in model.state_dict().items()}
@@ -574,18 +746,24 @@ def compare_small_train(torch, model) -> None:
     allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for device in (dev, torch.device("cpu")):
-            m = build_detector(cfg, model.partition, torch.float32)
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = build_model(cfg, model.partition, torch.float32)
             m.load_state_dict(weights)
             m.to(device)
             step = make_train_step(create_train_state(m, TrainConfig(selectp=0)))
-            out[device.type] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
+            out[name] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
-    worst = max(abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-6) for k in out["cpu"])
+    worst = max(abs(out["card"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-6) for k in out["cpu"])
     log(f"  small f32 train step, card vs CPU: max relative loss difference {worst:.3e} over {sorted(out['cpu'])}")
-    if not (sorted(out["cuda"]) == sorted(out["cpu"]) and worst <= 1e-3):
+    if not (sorted(out["card"]) == sorted(out["cpu"]) and worst <= 1e-3):
         raise AssertionError(f"card and CPU losses disagree: {out}")
+
+
+def log_row(r: dict) -> None:
+    lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+    log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib}")
 
 
 def main() -> int:
@@ -598,8 +776,10 @@ def main() -> int:
     try:
         from balancedgroupsoftmax_torch import apis as bgs
         from balancedgroupsoftmax_torch import cuda
+        from balancedgroupsoftmax_torch.ops import gather as ops_gather
         from balancedgroupsoftmax_torch.ops import nms as ops_nms
         from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
+        from balancedgroupsoftmax_torch.zoo import TRAIN_CONFIGS
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 1
@@ -619,9 +799,10 @@ def main() -> int:
         check_k4(torch, ops_nms, dev),
         check_k2b(torch, ops_roi, dev),
     ]
+    check_k5_ties(torch, ops_nms, dev)
+    check_k6_ties(torch, ops_gather, dev)
     for r in rows:
-        log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        log_row(r)
     log(f"phase kernels vs plain: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -634,21 +815,45 @@ def main() -> int:
     del model
 
     t0 = time.perf_counter()
-    train_launches, train_model = run_train_path(torch, bgs, dev)
+    train_model = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
+    train_launches = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
     log(f"phase training path: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     compare_small_train(torch, train_model)
     log(f"phase small training step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    del train_model
 
-    # each kernel's launches on the path that runs it: predict for K1-K3,
-    # the selectp=0 training steps for K4 and K2b
+    t0 = time.perf_counter()
+    cascade_launches, cascade, cascade_rows = run_cascade_path(torch, dev)
+    for r in cascade_rows:
+        log_row(r)
+    rows += cascade_rows
+    log(f"phase cascade serving: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small(torch, cascade)
+    log(f"phase small cascade predict card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_train_path(torch, cascade, TRAIN_CONFIGS["gs_cascade_rcnn_r50_fpn_lvis"])
+    log(f"phase cascade training: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_train(torch, cascade)
+    log(f"phase small cascade training step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    # each kernel's launches on the path that runs it: the Faster R-CNN
+    # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
+    # cascade's predicts for K5 and K6
     symbols = {
         "nms_keep": (launches, "bags_nms_keep"),
         "roi_align_forward": (launches, "bags_roi_align_forward"),
         "nms_keep_gathered": (launches, "bags_nms_keep_gathered"),
         "nms_keep_tiled": (train_launches, "bags_nms_keep_tiled"),
         "roi_align_backward": (train_launches, "bags_roi_align_backward"),
+        "nms_keep_batched_coords": (cascade_launches, "bags_nms_keep_coords"),
+        "gather_lanes": (cascade_launches, "bags_gather_lanes"),
     }
     for r in rows:
         counts, sym = symbols[r["name"]]

@@ -3,7 +3,7 @@
 These need a CUDA device and nvcc and skip without them. On the H100, where
 JAX is not installed, run them without tests/conftest.py (which imports JAX):
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`. Keep masks
-and gathered candidates must be equal; RoIAlign does the plain version's f32
+and gathered candidates (K3, K6) must be equal; RoIAlign does the plain version's f32
 operations in its order, so f32 agrees to 1e-5 and bf16 to one bf16 step
 (2^-7 relative to the largest value). Its gradient (K2b) sums with atomics,
 in an order that changes from run to run, so f32 agrees to 1e-5 relative to
@@ -54,6 +54,16 @@ def gathered_case(seed, g=6, k=40, n=100, thr=0.5):
     idx = np.stack([rng.permutation(n)[:k] for _ in range(g)]).astype(np.int32)
     valid = rng.rand(g, k) > 0.15
     return planes, idx, valid
+
+
+def lane_gather_case(seed, p=2, groups_per_plane=8, k=30, n=100, r=4):
+    """Planes (P, R, N) of f32 values with full 24-bit mantissas (no bf16
+    holds them) and indices (G, K), G = P * groups_per_plane, in [0, N)."""
+    rng = np.random.RandomState(seed)
+    planes = (rng.uniform(-1, 1, (p, r, n)) * 1000).astype(np.float32)
+    planes += np.float32(2.0**-13)  # sets low mantissa bits of every value
+    idx = rng.randint(0, n, (p * groups_per_plane, k)).astype(np.int32)
+    return planes, idx
 
 
 def pyramid(rng, b=2, c=16):
@@ -113,6 +123,32 @@ def test_nms_keep_gathered_matches_plain(dev):
     assert torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32))
 
 
+@pytest.mark.parametrize("k", [300, 1000])
+def test_nms_keep_coords_matches_plain(dev, k):
+    boxes, valid = tie_rows(k + 1, 600 if k == 300 else 7, k, 0.5)
+    coords = torch.from_numpy(np.ascontiguousarray(boxes.transpose(0, 2, 1))).to(dev)
+    valid = torch.from_numpy(valid).to(dev)
+    before = cuda.NMS_KEEP_COORDS.launches
+    keep = ops_nms.nms_keep_batched_coords(coords, valid, 0.5)
+    assert cuda.NMS_KEEP_COORDS.launches == before + 1
+    assert torch.equal(keep, ops_nms.nms_keep_reference(coords.transpose(1, 2), valid, 0.5))
+
+
+@pytest.mark.parametrize("groups_per_plane,k,n", [(300, 300, 1000), (1, 77, 50), (3, 4, 5)])
+def test_gather_lanes_is_bit_equal_to_plain(dev, groups_per_plane, k, n):
+    from balancedgroupsoftmax_torch.ops import gather as ops_gather
+
+    planes, idx = lane_gather_case(k, 2, groups_per_plane, k, n)
+    idx[0, :3] = [-1, n, n + 7]  # outside [0, N): 0
+    planes, idx = torch.from_numpy(planes).to(dev), torch.from_numpy(idx).to(dev)
+    before = cuda.GATHER_LANES.launches
+    out = ops_gather.gather_lanes(planes, idx, groups_per_plane)
+    assert cuda.GATHER_LANES.launches == before + 1
+    ref = ops_gather.gather_lanes_reference(planes, idx, groups_per_plane)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert (out[0, :, :3] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_roi_align_matches_plain(dev, dtype):
     rng = np.random.RandomState(0)
@@ -154,3 +190,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops_nms.nms_keep_tiled(boxes, torch.ones(2, 8, dtype=torch.bool, device=dev), 0.5)
     with pytest.raises(ValueError):  # a gradient of the wrong shape
         ops_roi.roi_align_backward(torch.zeros(1, 2, 7, 7, 5, device=dev), torch.zeros(1, 3, 4, device=dev), [(8, 8)], (4,))
+    with pytest.raises(ValueError):  # (G, K, 4) boxes where K5 takes (G, 4, K) planes
+        ops_nms.nms_keep_batched_coords(torch.zeros(2, 8, 4, device=dev), torch.ones(2, 8, dtype=torch.bool, device=dev), 0.5)
+    from balancedgroupsoftmax_torch.ops import gather as ops_gather
+
+    with pytest.raises(ValueError):  # int64 indices
+        ops_gather.gather_lanes(torch.zeros(1, 4, 8, device=dev), torch.zeros(2, 3, dtype=torch.int64, device=dev), 2)

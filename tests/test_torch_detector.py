@@ -34,11 +34,12 @@ COUNTS = np.array([0, 5, 50, 500, 5000, 7, 70, 700, 7000])
 
 
 def to_port(cls, obj):
-    """The port's config dataclass `cls` with the values of the JAX `obj`."""
+    """The port's config dataclass `cls` with the values of the JAX `obj`;
+    a nested JAX dataclass becomes the port's class of the same name."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(obj, f.name)
-        kw[f.name] = to_port(type(f.default), v) if dataclasses.is_dataclass(v) else v
+        kw[f.name] = to_port(getattr(tconfig, type(v).__name__), v) if dataclasses.is_dataclass(v) else v
     return cls(**kw)
 
 

@@ -70,5 +70,5 @@ def test_unported_branches_raise():
     boxes, scores, valid = (torch.from_numpy(x) for x in detection_case(0, c=5))
     with pytest.raises(NotImplementedError):
         tkernels.batched_multiclass_nms(boxes, scores, valid, 0.0, 0.5, 10, nms_type="soft_nms")
-    with pytest.raises(NotImplementedError):
-        tkernels.batched_multiclass_nms(boxes[..., :4], scores, valid, 0.0, 0.5, 10)
+    with pytest.raises(NotImplementedError):  # class-agnostic boxes too
+        tkernels.batched_multiclass_nms(boxes[..., :4], scores, valid, 0.0, 0.5, 10, nms_type="soft_nms")
