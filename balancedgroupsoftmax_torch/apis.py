@@ -21,6 +21,7 @@ from .models.detector import FasterRCNN, build_detector
 BUILDERS = {
     "faster_rcnn_r50": zoo.faster_rcnn_r50_fpn_lvis,
     "gs_faster_rcnn_r50": zoo.gs_faster_rcnn_r50_fpn_lvis,
+    "faster_rcnn_x101": zoo.faster_rcnn_x101_64x4d_fpn_lvis,
 }
 
 

@@ -1,8 +1,9 @@
 """Configuration dataclasses of the ported slices.
 
-Copies of the fields that Faster R-CNN and Cascade R-CNN R50-FPN inference
-and training read from JAX `config.py`, with the same names and defaults
-(the canonical BAGS config `configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`).
+Copies of the fields that Faster R-CNN and Cascade R-CNN inference and
+training and HTC inference read from JAX `config.py`, with the same names and
+defaults (the canonical BAGS config
+`configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`).
 The input-size field is not copied: the port's anchors follow each batch's
 shape.
 """
@@ -108,6 +109,17 @@ class RoIExtractorConfig:
 class BackboneConfig:
     depth: int = 50
     frozen_stages: int = 1
+    # ResNeXt: grouped 3x3 convolutions, width rule of resnext.py
+    groups: int = 1
+    base_width: int = 4
+    # stages whose 3x3 is a deformable convolution (HTC-DCN: c3-c5)
+    dcn_stages: Tuple[bool, ...] = (False, False, False, False)
+    # DCN v2 (modulated); the shipped top-line config is v1
+    dcn_modulated: bool = False
+    # deform-conv groups; None follows `groups` (both 64 in the shipped X101)
+    dcn_groups: Optional[int] = None
+    # >0: offsets clamped to +-dcn_shift_window cells; 0: the exact bilinear gather
+    dcn_shift_window: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +127,16 @@ class FPNConfig:
     in_channels: Tuple[int, ...] = (256, 512, 1024, 2048)
     out_channels: int = 256
     num_outs: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskHeadConfig:
+    num_convs: int = 4
+    in_channels: int = 256
+    conv_out_channels: int = 256
+    num_classes: int = 1231
+    mask_size: int = 28
+    class_agnostic: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,13 +155,28 @@ class CascadeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HTCConfig:
+    """Hybrid Task Cascade extras (htc.py:13-33)."""
+
+    semantic_num_classes: int = 183
+    semantic_loss_weight: float = 0.2
+    semantic_ignore_label: int = 255
+    fusion_level: int = 1  # stride-8 FPN level
+    semantic_fusion: Tuple[str, ...] = ("bbox", "mask")
+    interleaved: bool = True
+    mask_info_flow: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     backbone: BackboneConfig = BackboneConfig()
     fpn: FPNConfig = FPNConfig()
     anchors: AnchorConfig = AnchorConfig()
     roi_extractor: RoIExtractorConfig = RoIExtractorConfig()
     bbox_head: BBoxHeadConfig = BBoxHeadConfig()
+    mask_head: Optional[MaskHeadConfig] = None
     cascade: Optional[CascadeConfig] = None
+    htc: Optional[HTCConfig] = None
     rpn_train: RPNTrainConfig = RPNTrainConfig()
     rpn_proposal_train: ProposalConfig = ProposalConfig(nms_pre=2000, nms_post=2000, max_num=2000)
     rpn_proposal_test: ProposalConfig = ProposalConfig(

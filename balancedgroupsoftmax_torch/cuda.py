@@ -49,6 +49,9 @@ SIGNATURES = {
     "bags_roi_align_backward": (
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
+    "bags_deform_conv_forward": (
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 
@@ -150,4 +153,8 @@ NMS_KEEP_TILED = Kernel("bags_nms_keep_tiled")
 ROI_ALIGN_BACKWARD = Kernel("bags_roi_align_backward")
 NMS_KEEP_COORDS = Kernel("bags_nms_keep_coords")
 GATHER_LANES = Kernel("bags_gather_lanes")
-KERNELS = (NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD, NMS_KEEP_COORDS, GATHER_LANES)
+DEFORM_CONV = Kernel("bags_deform_conv_forward")
+KERNELS = (
+    NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD, NMS_KEEP_COORDS, GATHER_LANES,
+    DEFORM_CONV,
+)

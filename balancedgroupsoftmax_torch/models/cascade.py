@@ -45,14 +45,16 @@ class CascadeRCNN(FasterRCNN):
             max_shape=(img_shapes[:, 0, None, None], img_shapes[:, 1, None, None]),
         )
 
-    def _run_stages(self, feats, rois, img_shapes):
-        """Pool and score with each stage, refining the rois between stages.
-        Returns the last stage's rois, the class scores of the stage-averaged
-        logits (B, R, C) and the last stage's deltas."""
+    def _run_stages(self, feats, rois, img_shapes, pool=None):
+        """Pool (with `pool(feats, rois)`, RoIAlign by default) and score with
+        each stage, refining the rois between stages. Returns the last
+        stage's rois, the class scores of the stage-averaged logits (B, R, C)
+        and the last stage's deltas."""
         c = self.cfg
+        pool = pool or self._pool
         logits = []
         for i, head in enumerate(self.bbox_heads):
-            cls_logits, deltas = head(self._pool(feats, rois))
+            cls_logits, deltas = head(pool(feats, rois))
             logits.append(cls_logits.float())
             if i < len(self.bbox_heads) - 1:
                 rois = self._decode(rois, deltas, c.cascade.stage_target_stds[i], img_shapes)
@@ -65,13 +67,13 @@ class CascadeRCNN(FasterRCNN):
             scores = torch.softmax(avg, dim=-1)
         return rois, scores, deltas
 
-    def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True) -> Detections:
+    def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True, pool=None) -> Detections:
         c = self.cfg
         img_shapes = img_shapes.float()
         proposals = rpn_proposals_batched(
             self.rpn_head(feats), self._anchors(images), img_shapes, c.rpn_proposal_test
         )
-        rois, scores, deltas = self._run_stages(feats, proposals.boxes, img_shapes)
+        rois, scores, deltas = self._run_stages(feats, proposals.boxes, img_shapes, pool)
         boxes = self._decode(rois, deltas, c.cascade.stage_target_stds[-1], img_shapes)
         if rescale:
             boxes = boxes / scale_factors.float()[:, None, None]

@@ -27,9 +27,10 @@ from ..gs.head import gs_loss, gs_merge_scores
 from ..gs.partition import GSPartition
 from ..kernels import batched_multiclass_nms, batched_multilevel_roi_align
 from ..ops.boxes import delta2bbox
+from ..ops.deform_conv import DeformConv
 from .bbox_head import SharedFCBBoxHead, bbox_head_loss, bbox_reg_loss
 from .fpn import FPN
-from .layers import Conv2d, Linear
+from .layers import Conv2d, ConvTranspose2d, Linear
 from .resnet import ResNet
 from .rpn import RPNHead, rpn_loss, rpn_proposals_batched
 
@@ -52,7 +53,11 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         self.partition = partition
         self.dtype = dtype
-        self.backbone = ResNet(cfg.backbone.depth)
+        bb = cfg.backbone
+        self.backbone = ResNet(
+            bb.depth, bb.groups, bb.base_width, bb.dcn_stages, bb.dcn_modulated,
+            bb.dcn_groups or 0, bb.dcn_shift_window,
+        )
         self.neck = FPN(cfg.fpn.in_channels, cfg.fpn.out_channels, cfg.fpn.num_outs)
         self.rpn_head = RPNHead(cfg.fpn.out_channels, cfg.anchors.num_base_anchors)
         self._init_roi_heads()
@@ -61,30 +66,41 @@ class FasterRCNN(nn.Module):
     def _init_roi_heads(self) -> None:
         self.bbox_head = SharedFCBBoxHead(self.cfg.bbox_head)
 
+    def _init_special(self) -> dict:
+        """Layers whose JAX initialiser is not the default: layer -> ("normal",
+        std), ("he", None) for he-normal (variance 2 / fan_in), or ("zeros",
+        None)."""
+        special = {m: ("normal", 0.01) for m in (self.rpn_head.rpn_conv, self.rpn_head.rpn_cls, self.rpn_head.rpn_reg)}
+        for head in (m for m in self.modules() if isinstance(m, SharedFCBBoxHead)):
+            special.update({head.fc_cls: ("normal", 0.01), head.fc_reg: ("normal", 0.001)})
+        for dcn in (m for m in self.modules() if isinstance(m, DeformConv)):
+            special.update({dcn: ("he", None), dcn.conv_offset: ("zeros", None)})
+        return special
+
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "FasterRCNN":
         """Seeded random weights, drawn on the CPU so every device gets the
         same ones: the JAX initialisers' distributions (lecun-normal convs,
         normal(0.01) RPN and fc_cls, xavier-uniform shared FCs, normal(0.001)
-        fc_reg, zero biases) and identity BatchNorm statistics."""
+        fc_reg, he-normal deformable convs, zero DCN offset convs, zero
+        biases) and identity BatchNorm statistics."""
         gen = torch.Generator().manual_seed(seed)
-        special = {self.rpn_head.rpn_conv: 0.01, self.rpn_head.rpn_cls: 0.01, self.rpn_head.rpn_reg: 0.01}
-        for head in (m for m in self.modules() if isinstance(m, SharedFCBBoxHead)):
-            special.update({head.fc_cls: 0.01, head.fc_reg: 0.001})
+        special = self._init_special()
         for m in self.modules():
-            if not isinstance(m, (Conv2d, Linear)):
+            if not isinstance(m, (Conv2d, ConvTranspose2d, Linear, DeformConv)):
                 continue
-            w = torch.empty(m.weight.shape)
-            if m in special:
-                w.normal_(0.0, special[m], generator=gen)
-            elif isinstance(m, Linear):
+            w = torch.zeros(m.weight.shape)
+            kind, std = special.get(m, ("xavier" if isinstance(m, Linear) else "lecun", None))
+            fan_in = m.weight.shape[0] * m.weight[0, 0].numel() if isinstance(m, ConvTranspose2d) else m.weight[0].numel()
+            if kind == "normal":
+                w.normal_(0.0, std, generator=gen)
+            elif kind == "xavier":
                 a = math.sqrt(6.0 / (m.in_features + m.out_features))
                 w.uniform_(-a, a, generator=gen)
-            else:
-                fan_in = m.weight[0].numel()
-                w.normal_(0.0, math.sqrt(1.0 / fan_in), generator=gen)
+            elif kind in ("lecun", "he"):
+                w.normal_(0.0, math.sqrt((1.0 if kind == "lecun" else 2.0) / fan_in), generator=gen)
             m.weight.copy_(w)
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         return self
 
@@ -106,14 +122,14 @@ class FasterRCNN(nn.Module):
             self._anchor_cache[key] = [torch.from_numpy(a).to(images.device) for a in per_level]
         return self._anchor_cache[key]
 
-    def _pool(self, feats, rois: torch.Tensor) -> torch.Tensor:
+    def _pool(self, feats, rois: torch.Tensor, out_size: Optional[int] = None) -> torch.Tensor:
         """RoIAlign (K2) of rois (B, R, 4) -> (B, R, S, S, C)."""
         c = self.cfg.roi_extractor
         return batched_multilevel_roi_align(
             [f.permute(0, 2, 3, 1) for f in feats[: len(c.featmap_strides)]],
             rois,
             c.featmap_strides,
-            c.out_size,
+            out_size or c.out_size,
             c.sample_num,
             c.finest_scale,
         )
@@ -237,12 +253,16 @@ def build_detector(
 def build_model(
     cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32
 ) -> FasterRCNN:
-    """The detector family `cfg` names (JAX `detector.py:543`): Cascade
-    R-CNN when `cfg.cascade` is set, else Faster R-CNN. Both have `loss`
-    and `predict` alike. HTC and the detector variants are not ported."""
-    for name in ("htc", "variant"):
-        if getattr(cfg, name, None) is not None:
-            raise NotImplementedError(f"{name} detectors are not ported yet")
+    """The detector family `cfg` names (JAX `detector.py:543`): HTC when
+    `cfg.htc` is set, else Cascade R-CNN when `cfg.cascade` is, else Faster
+    R-CNN. All have `predict` alike, and Faster and Cascade R-CNN `loss`
+    (HTC's is not ported yet). The detector variants are not ported."""
+    if getattr(cfg, "variant", None) is not None:
+        raise NotImplementedError("variant detectors are not ported yet")
+    if cfg.htc is not None:
+        from .htc import build_htc
+
+        return build_htc(cfg, partition=partition, dtype=dtype)
     if cfg.cascade is not None:
         from .cascade import build_cascade
 

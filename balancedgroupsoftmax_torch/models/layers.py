@@ -19,6 +19,12 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+
+
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))

@@ -1,9 +1,12 @@
-"""ResNet backbone for inference (JAX `models/resnet.py`).
+"""ResNet / ResNeXt backbone (JAX `models/resnet.py`).
 
 Torchvision-style bottlenecks (stride on the 3x3, style='pytorch') with
 BatchNorm frozen at its running statistics, as every reference config runs it
-(norm_eval=True). Tensors are NCHW; the detector keeps them in channels-last
-memory.
+(norm_eval=True). With groups > 1 the 3x3 is grouped and the block's width
+follows ResNeXt's rule (`Bottleneck` :68-75); the stages of `dcn_stages` make
+it a deformable convolution (ops/deform_conv.py, kernel K7), grouped by
+`dcn_groups` or else by `groups`. Tensors are NCHW; the detector keeps them in
+channels-last memory.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.deform_conv import DeformConv
 from .layers import Conv2d
 
 ARCH_SETTINGS = {
@@ -42,14 +46,31 @@ class FrozenBatchNorm(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1):
+    def __init__(
+        self,
+        in_ch: int,
+        planes: int,
+        stride: int = 1,
+        groups: int = 1,
+        base_width: int = 4,
+        use_dcn: bool = False,
+        dcn_modulated: bool = False,
+        dcn_groups: int = 0,
+        dcn_shift_window: int = 0,
+    ):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = Conv2d(in_ch, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = Conv2d(planes, out_ch, 1, bias=False)
+        width = planes if groups == 1 else int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2d(in_ch, width, 1, bias=False)
+        self.bn1 = FrozenBatchNorm(width)
+        if use_dcn:
+            self.conv2 = DeformConv(
+                width, width, 3, stride, 1, dcn_modulated, dcn_groups or groups, dcn_shift_window
+            )
+        else:
+            self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, groups=groups, bias=False)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False)
         self.bn3 = FrozenBatchNorm(out_ch)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
@@ -66,7 +87,16 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    def __init__(self, depth: int = 50):
+    def __init__(
+        self,
+        depth: int = 50,
+        groups: int = 1,
+        base_width: int = 4,
+        dcn_stages: tuple = (False, False, False, False),
+        dcn_modulated: bool = False,
+        dcn_groups: int = 0,
+        dcn_shift_window: int = 0,
+    ):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -75,7 +105,13 @@ class ResNet(nn.Module):
             planes = 64 * 2**stage
             blocks = []
             for b in range(num_blocks):
-                blocks.append(Bottleneck(in_ch, planes, (1 if stage == 0 else 2) if b == 0 else 1))
+                stride = (1 if stage == 0 else 2) if b == 0 else 1
+                blocks.append(
+                    Bottleneck(
+                        in_ch, planes, stride, groups, base_width, dcn_stages[stage],
+                        dcn_modulated, dcn_groups, dcn_shift_window,
+                    )
+                )
                 in_ch = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
 

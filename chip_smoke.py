@@ -32,7 +32,20 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    `predict` must launch K1, K2 (once a stage), K6 and K5 and not K3; K5
    and K6 are held to their plain versions again, and timed, on the inputs
    that predict gave them; the BAGS phase-2 step (selectp=3) must move the
-   three stages' fc_cls alone.
+   three stages' fc_cls alone;
+11. serve BAGS HTC X101-64x4d with deformable conv c3-c5
+   (htc_x101_64x4d_fpn_lvis(use_gs=True, dcn=True): 1231 classes, D = 4,
+   bf16, 800 x 1344, batch 2, offset convs given seeded non-zero weights)
+   through `build_model` and `predict_with_masks`, which must launch K7 30
+   times, K2 8 times, K1, K6 and K5 once and K3 never a call; check the
+   detections and that the masks are probabilities; profile one call; then
+   hold K7 against its plain version, and time it, on the inputs that one
+   call gave each of the 30 deformable layers;
+12. run a reduced HTC-DCN (depth 50, the same widths) in f32 on a small
+   image on the card and on the CPU and compare detections and masks.
+
+Phase 2 also holds K7 against its plain version on edge cases: the clamp,
+the border bands, D = 0, stride 2 and v2 with a mask, in f32 and bf16.
 
 It prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -50,10 +63,13 @@ from pathlib import Path
 # published H100 SXM peaks (NVIDIA data sheet), against which bounds are stated
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 # f32 operations of one IoU-above-threshold test (ops/boxes.py order)
 IOU_OPS = 17
 # f32 operations of one RoIAlign sample: 4 weights, 4 products, 3 adds, 1 add to the bin sum
 SAMPLE_OPS = 12
+# f32 operations of one deformable-conv sample and channel: the blend's 4 products and 3 adds
+DCN_SAMPLE_OPS = 7
 
 MAIN_BATCH = 2
 MAX_PER_IMG = 300  # rcnn_test: the class cap of the multiclass NMS
@@ -419,13 +435,15 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def run_predicts(torch, model, per_predict: dict):
-    """A first `predict` and TIMED_PREDICTS timed ones at the main shape, with
-    the kernels' counts set to 0 just before and read just after; each
-    kernel of `per_predict` must have launched that many times a predict
-    (None: at least once). Returns the counts and the inputs."""
+def run_predicts(torch, model, per_predict: dict, call=None):
+    """A first `predict` (or `call`, e.g. `predict_with_masks`) and
+    TIMED_PREDICTS timed ones at the main shape, with the kernels' counts set
+    to 0 just before and read just after; each kernel of `per_predict` must
+    have launched that many times a predict (None: at least once). Returns
+    the counts and the inputs."""
     from balancedgroupsoftmax_torch import cuda
 
+    call = call or model.predict
     dev = next(model.parameters()).device
     gen = torch.Generator().manual_seed(4)
     images = torch.randn(MAIN_BATCH, *MAIN_SIZE, 3, generator=gen).to(dev)
@@ -436,12 +454,12 @@ def run_predicts(torch, model, per_predict: dict):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    det = model.predict(images, img_shapes, scale_factors)
+    out = call(images, img_shapes, scale_factors)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(TIMED_PREDICTS):
-        det = model.predict(images, img_shapes, scale_factors)
+        out = call(images, img_shapes, scale_factors)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / TIMED_PREDICTS * 1e3
     launches = {k.symbol: k.launches for k in cuda.KERNELS}
@@ -454,8 +472,18 @@ def run_predicts(torch, model, per_predict: dict):
         ok = launches[sym] > 0 if each is None else launches[sym] == each * (TIMED_PREDICTS + 1)
         if not ok:
             raise AssertionError(f"{sym} launched {launches[sym]} times, not {each} a predict")
+    det, masks = out if isinstance(out, tuple) and len(out) == 2 else (out, None)
     check_detections(torch, det, model.cfg.bbox_head.num_classes, MAIN_SIZE)
     log(f"  detections: {int(det.valid.sum())} valid, top score {det.scores[0, 0].item():.6f}")
+    if masks is not None:
+        size = model.cfg.mask_head.mask_size
+        if masks.shape != (*det.scores.shape, size, size):
+            raise AssertionError(f"masks of shape {tuple(masks.shape)}")
+        m = masks[det.valid].float()
+        if not (torch.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()):
+            raise AssertionError("masks are not finite probabilities")
+        log(f"  masks {tuple(masks.shape)} {masks.dtype}: in [{m.min().item():.4f}, {m.max().item():.4f}], "
+            f"mean {m.mean().item():.4f}")
     return launches, (images, img_shapes, scale_factors)
 
 
@@ -528,10 +556,10 @@ def run_cascade_path(torch, dev):
     return launches, model, rows
 
 
-def profile_device(torch, label: str, fn, top: int = 12) -> None:
+def profile_device(torch, label: str, fn, top: int = 12) -> dict:
     """Device time of one call of `fn` by kernel, from torch.profiler: where
     the time goes, the share of the wall time the device is idle, and the
-    port's own kernels wherever they rank."""
+    port's own kernels wherever they rank. Returns {kernel: (ms, count)}."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -546,15 +574,16 @@ def profile_device(torch, label: str, fn, top: int = 12) -> None:
     )
     if not rows:
         log(f"  profiled {label}: wall {wall_ms:.3f} ms; the profiler recorded no device time (not measured)")
-        return
+        return {}
     busy_ms = sum(self_us(e) for e in rows) / 1e3
     log(f"  profiled {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, profiler on)")
     for e in rows[:top]:
         log(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     for e in rows[top:]:
-        if "nms_" in e.key or "roi_align" in e.key or "gather_lanes" in e.key:
+        if any(k in e.key for k in ("nms_", "roi_align", "gather_lanes", "deform_conv")):
             log(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]} (rank {rows.index(e) + 1})")
+    return {e.key: (self_us(e) / 1e3, e.count) for e in rows}
 
 
 def compare_small(torch, model) -> None:
@@ -760,6 +789,271 @@ def compare_small_train(torch, model) -> None:
         raise AssertionError(f"card and CPU losses disagree: {out}")
 
 
+def dcn_bound(torch, x, offsets, weight, mask, out) -> tuple[float, str]:
+    """K7's least time: the bytes it must move (x, offsets, mask and weight
+    read once, out written once) at HBM rate, against the bilinear sampling
+    (DCN_SAMPLE_OPS f32 operations a sample and channel, on the CUDA cores)
+    plus the grouped contraction (2 operations a multiply-add, at the tensor
+    cores' dense rate for bf16 inputs, the CUDA cores' for f32)."""
+    b, ho, wo, c_out = out.shape
+    _, c_g, kh, kw = weight.shape
+    taps = kh * kw
+    nbytes = sum(t.numel() * t.element_size() for t in (x, offsets, weight, out) + ((mask,) if mask is not None else ()))
+    sample_ops = b * ho * wo * taps * x.shape[-1] * DCN_SAMPLE_OPS
+    mac_ops = 2 * b * ho * wo * c_out * taps * c_g
+    t_ops = sample_ops / F32_FLOP_PER_S + mac_ops / (BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def k7_err(torch, ops_dcn, args) -> tuple[float, float]:
+    """K7 against its plain version on the same inputs: (max |kernel - plain|,
+    its limit). The samples are the same f32 operations in the same order;
+    the contraction sums in another order, so f32 agrees within 1e-5 of the
+    largest |output| and bf16 within one bf16 step (2^-7) of it."""
+    out = ops_dcn.deform_conv2d(*args)
+    ref = ops_dcn.deform_conv2d_reference(*args).float()
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    limit = (1e-5 if args[0].dtype == torch.float32 else 2.0**-7) * ref.abs().max().item()
+    if not (out.dtype == args[0].dtype and out.shape == ref.shape and err <= limit):
+        raise AssertionError(f"K7 {args[0].dtype} {tuple(args[0].shape)}: max abs err {err} above {limit}")
+    return err, limit
+
+
+def dcn_case(torch, gen, b, h, w, c_in, c_out, groups, stride, modulated, scale, dev, dtype):
+    """K7 inputs with offsets of std `scale` cells, a quarter of them whole
+    numbers, and samples placed in the (-1, 0) and (H - 1, H) border bands."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(b, h, w, c_in, generator=gen)
+    off = torch.randn(b, ho, wo, 18, generator=gen) * scale
+    whole = torch.rand(off.shape, generator=gen) < 0.25
+    off[whole] = off[whole].round()
+    off[:, 0, :, 0] = 0.5  # tap (0, 0) of the first row samples at y = -0.5
+    off[:, :, 0, 1] = 0.25  # ... and of the first column at x = -0.75
+    off[:, -1, :, 16] = h - 0.5 - ((ho - 1) * stride + 1)  # tap (2, 2) of the last row at y = H - 0.5
+    off[:, :, -1, 17] = w - 0.5 - ((wo - 1) * stride + 1)
+    weight = torch.randn(c_out, c_in // groups, 3, 3, generator=gen) / (9 * c_in / groups) ** 0.5
+    mask = torch.rand(b, ho, wo, 9, generator=gen).to(dev) if modulated else None
+    return x.to(dev, dtype), off.to(dev), weight.to(dev, dtype), mask
+
+
+def check_k7_edges(torch, ops_dcn, dev) -> None:
+    """K7 against its plain version on edge cases, in f32 and bf16: the
+    clamp (offsets of std 3 cells at D = 4), the border bands, D = 0, stride
+    2, and v2 with a mask and output groups narrower than the input ones."""
+    from balancedgroupsoftmax_torch import cuda
+
+    gen = torch.Generator().manual_seed(13)
+    cases = [
+        ("clamp D=4 c3 groups", dict(h=40, w=56, c_in=512, c_out=512, groups=64, stride=1, modulated=False, scale=3.0), 4),
+        ("D=0 stride 2 c4 groups", dict(h=41, w=57, c_in=1024, c_out=1024, groups=64, stride=2, modulated=False, scale=2.5), 0),
+        ("D=0 c5 groups", dict(h=13, w=21, c_in=2048, c_out=2048, groups=64, stride=1, modulated=False, scale=2.0), 0),
+        ("v2 mask D=4", dict(h=33, w=27, c_in=256, c_out=192, groups=8, stride=1, modulated=True, scale=2.5), 4),
+        ("v2 mask D=0 stride 2", dict(h=33, w=27, c_in=64, c_out=64, groups=1, stride=2, modulated=True, scale=2.5), 0),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, kw, window in cases:
+            stride = kw["stride"]
+            x, off, weight, mask = dcn_case(torch, gen, 2, kw["h"], kw["w"], kw["c_in"], kw["c_out"], kw["groups"],
+                                            stride, kw["modulated"], kw["scale"], dev, dtype)
+            before = cuda.DEFORM_CONV.launches
+            err, limit = k7_err(torch, ops_dcn, (x, off, weight, mask, stride, 1, kw["groups"], window))
+            if cuda.DEFORM_CONV.launches != before + 1:
+                raise AssertionError(f"K7 {label}: the wrapper did not launch the kernel")
+            log(f"  K7 {label} {str(dtype)[6:]}: max |kernel - plain| = {err:.3e} (limit {limit:.3e}), "
+                f"{(off.abs() > 4).float().mean().item():.3f} of offsets beyond +-4")
+
+
+def spread_offsets(torch, model, images, target: float = 2.0) -> None:
+    """Seeded, non-zero weights for every `conv_offset` (the JAX initialiser
+    zeroes them, which would make K7 a plain grouped conv), scaled so that
+    each layer's offsets have a standard deviation of `target` cells on
+    `images`: mostly fractional, spread over a few cells, about 5% beyond
+    +-4. One backbone pass: a hook before each offset conv draws its weights,
+    measures what they give and rescales them before the layer runs."""
+    from balancedgroupsoftmax_torch.ops.deform_conv import DeformConv
+
+    gen = torch.Generator().manual_seed(12)
+
+    def calibrate(mod, inputs):
+        x = inputs[0]
+        mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen))
+        mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen) * 0.5)
+        std = mod._conv_forward(x, mod.weight.to(x.dtype), None).float().std().item()
+        mod.weight.mul_(target / std)
+
+    hooks = [m.conv_offset.register_forward_pre_hook(calibrate) for m in model.modules() if isinstance(m, DeformConv)]
+    try:
+        with torch.no_grad():
+            model.extract_feats(images)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def capture_dcn(torch, fn) -> list:
+    """The arguments of every K7 call that `fn()` makes, in order."""
+    from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
+
+    seen = []
+    wrapped = ops_dcn.deform_conv2d
+
+    def record(*args):
+        seen.append(args)
+        return wrapped(*args)
+
+    ops_dcn.deform_conv2d = record
+    try:
+        fn()
+    finally:
+        ops_dcn.deform_conv2d = wrapped
+    return seen
+
+
+def check_k7_path(torch, ops_dcn, layers: list):
+    """K7 on the inputs that one HTC predict gave each of its 30 deformable
+    layers: held against its plain version in bf16 (the path's dtype) at
+    every layer, and in f32 at a stride-2 c3, a middle c4 and a c5 layer;
+    timed by CUDA events at every layer (the sum is K7's time a predict),
+    with the plain version beside it and its bound; the profiler's device
+    time at the three named layers. Prints the offsets' spread at one layer
+    of each stage."""
+    names = [f"c3.{i}" for i in range(4)] + [f"c4.{i}" for i in range(23)] + [f"c5.{i}" for i in range(3)]
+    if len(layers) != len(names):
+        raise AssertionError(f"predict made {len(layers)} K7 calls, not {len(names)}")
+    shown = {"c3.0": "stride-2 c3", "c4.11": "middle c4", "c5.1": "c5"}
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by={"bytes": 0, "operations": 0})
+    worst = 0.0
+    for name, args in zip(names, layers):
+        x, off, weight, mask, stride, pad, groups, window = args
+        err, _ = k7_err(torch, ops_dcn, args)
+        worst = max(worst, err)
+        ms = cuda_time_ms(lambda: ops_dcn.deform_conv2d(*args), 10)
+        plain_ms = cuda_time_ms(lambda: ops_dcn.deform_conv2d_reference(*args), 1)
+        out = ops_dcn.deform_conv2d(*args)
+        b_ms, b_by = dcn_bound(torch, x, off, weight, mask, out)
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+        total["by"][b_by] += 1
+        if name in shown:
+            f32 = (x.float(), off, weight.float(), mask, stride, pad, groups, window)
+            err32, lim32 = k7_err(torch, ops_dcn, f32)
+            prof = profile_device(torch, f"K7 x10 at {name}", lambda: [ops_dcn.deform_conv2d(*args) for _ in range(10)], top=3)
+            k7 = [v for k, v in prof.items() if "deform_conv" in k]
+            dev_ms = sum(v[0] for v in k7) / max(sum(v[1] for v in k7), 1)  # per launch the profiler kept
+            d = off.abs()
+            log(f"  K7 {shown[name]} ({name}): x {tuple(x.shape)} -> {tuple(out.shape)}, groups {groups}, "
+                f"stride {stride}: {ms:.4f} ms by events, {dev_ms:.4f} ms device, plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.5f} ms ({b_by}); bf16 err {err:.3e}, f32 err {err32:.3e} (limit {lim32:.3e}); "
+                f"offsets: std {off.std().item():.3f}, median |d| {d.median().item():.3f}, "
+                f"{(d > window).float().mean().item():.4f} beyond +-{window}")
+    log(f"  K7 over the 30 layers of one predict: {total['ms']:.4f} ms by events, plain {total['plain_ms']:.3f} ms, "
+        f"bound {total['bound_ms']:.5f} ms ({total['by']['bytes']} layers bound by bytes, "
+        f"{total['by']['operations']} by operations), max bf16 err {worst:.3e}")
+    return dict(
+        name="deform_conv_forward",
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/deform_conv.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/deform_conv.py:501",
+        max_abs_err=worst,
+        ms=total["ms"],
+        plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"],
+        bound_by="bytes" if total["by"]["bytes"] >= total["by"]["operations"] else "operations",
+        library_ms=None,
+        shape="the 30 deformable layers of one HTC X101 predict, bf16, summed",
+    )
+
+
+def htc_model(torch, dev, cfg=None):
+    """gs HTC X101-64x4d DCN c3-c5 (D = 4, 1231 classes) in bf16 on the
+    card, through `build_model`, with seeded weights."""
+    from balancedgroupsoftmax_torch import zoo
+    from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    cfg = cfg or zoo.htc_x101_64x4d_fpn_lvis(use_gs=True, dcn=True)
+    model = build_model(cfg, synthetic_partition(cfg.bbox_head.num_classes), torch.bfloat16)
+    return model.init_weights(0).to(dev).eval()
+
+
+def run_htc_path(torch, dev):
+    """HTC-DCN serving at the main shape: `predict_with_masks`, with K7 30
+    times, K2 8 times (three stages and the masks, each over the FPN and the
+    semantic feature), K1, K6 and K5 once and K3 never a call. Then K7
+    against its plain version, and timed, on the inputs one more predict gave
+    each deformable layer."""
+    from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
+
+    t0 = time.perf_counter()
+    model = htc_model(torch, dev)
+    gen = torch.Generator().manual_seed(4)
+    spread_offsets(torch, model, torch.randn(MAIN_BATCH, *MAIN_SIZE, 3, generator=gen).to(dev))
+    log(f"  HTC X101-DCN built on the card, offsets spread, in {time.perf_counter() - t0:.1f} s")
+    launches, inputs = run_predicts(
+        torch, model,
+        {"bags_deform_conv_forward": 30, "bags_roi_align_forward": 8, "bags_nms_keep": 1,
+         "bags_gather_lanes": 1, "bags_nms_keep_coords": 1, "bags_nms_keep_gathered": 0},
+        call=model.predict_with_masks,
+    )
+    prof = profile_device(torch, "HTC predict_with_masks", lambda: model.predict_with_masks(*inputs), top=15)
+    k7 = [v for k, v in prof.items() if "deform_conv" in k]
+    if k7:
+        log(f"  K7 in the profiled predict: {sum(v[0] for v in k7):.4f} ms device over {sum(v[1] for v in k7)} launches")
+    layers = capture_dcn(torch, lambda: model.predict_with_masks(*inputs))
+    row = check_k7_path(torch, ops_dcn, layers)
+    del layers
+    return launches, model, row
+
+
+def compare_small_htc(torch, model) -> None:
+    """HTC-DCN in f32 on a 256 x 384 image, on a reduced ResNeXt (depth 50,
+    the X101's widths, 64 groups, deformable c3-c5 at D = 4, offsets spread
+    as on the main path): the card (kernels) against the CPU (plain
+    versions), as `compare_small` does for the detections; for the
+    detections found alike, the masks must agree within 1e-3."""
+    import dataclasses
+
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    dev = next(model.parameters()).device
+    cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(model.cfg.backbone, depth=50))
+    gen = torch.Generator().manual_seed(5)
+    images = torch.randn(1, 256, 384, 3, generator=gen)
+    shapes = torch.tensor([[256.0, 384.0]])
+    sf = torch.ones(1)
+    cpu_model = build_model(cfg, model.partition, torch.float32).init_weights(0).eval()
+    spread_offsets(torch, cpu_model, images)
+    gpu_model = build_model(cfg, model.partition, torch.float32).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(dev)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        g, gm = gpu_model.predict_with_masks(images.to(dev), shapes.to(dev), sf.to(dev))
+        g, gm = [t.cpu() for t in g], gm.cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    c, cm = cpu_model.predict_with_masks(images, shapes, sf)
+    score_err = (g[1] - c[1]).abs().max().item()
+    gb, gl, gv = g[0][0], g[2][0], g[3][0]
+    cb, cl, cv = c[0][0], c[2][0], c[3][0]
+    matched, mask_err = 0, 0.0
+    for i in torch.nonzero(gv).flatten().tolist():
+        same = cv & (cl == gl[i]) & ((cb - gb[i]).abs().amax(dim=-1) <= 1e-2)
+        if bool(same.any()):
+            matched += 1
+            j = int(torch.nonzero(same)[0])
+            mask_err = max(mask_err, (gm[0, i] - cm[0, j]).abs().max().item())
+    total = int(gv.sum())
+    log(f"  small HTC-DCN input, card vs CPU: max score diff {score_err:.3e}, {matched}/{total} detections "
+        f"matched, max mask diff over them {mask_err:.3e}")
+    if not (score_err <= 1e-4 and total > 0 and matched >= 0.95 * total and mask_err <= 1e-3):
+        raise AssertionError("card and CPU detections or masks disagree")
+
+
 def log_row(r: dict) -> None:
     lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
     log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
@@ -776,6 +1070,7 @@ def main() -> int:
     try:
         from balancedgroupsoftmax_torch import apis as bgs
         from balancedgroupsoftmax_torch import cuda
+        from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
         from balancedgroupsoftmax_torch.ops import gather as ops_gather
         from balancedgroupsoftmax_torch.ops import nms as ops_nms
         from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
@@ -801,6 +1096,7 @@ def main() -> int:
     ]
     check_k5_ties(torch, ops_nms, dev)
     check_k6_ties(torch, ops_gather, dev)
+    check_k7_edges(torch, ops_dcn, dev)
     for r in rows:
         log_row(r)
     log(f"phase kernels vs plain: wall {time.perf_counter() - t0:.1f} s")
@@ -842,10 +1138,22 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_small_train(torch, cascade)
     log(f"phase small cascade training step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    del cascade
+
+    t0 = time.perf_counter()
+    htc_launches, htc, htc_row = run_htc_path(torch, dev)
+    log_row(htc_row)
+    rows.append(htc_row)
+    log(f"phase HTC-DCN serving: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_htc(torch, htc)
+    log(f"phase small HTC-DCN predict_with_masks card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    del htc
 
     # each kernel's launches on the path that runs it: the Faster R-CNN
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
-    # cascade's predicts for K5 and K6
+    # cascade's predicts for K5 and K6, the HTC's for K7
     symbols = {
         "nms_keep": (launches, "bags_nms_keep"),
         "roi_align_forward": (launches, "bags_roi_align_forward"),
@@ -854,6 +1162,7 @@ def main() -> int:
         "roi_align_backward": (train_launches, "bags_roi_align_backward"),
         "nms_keep_batched_coords": (cascade_launches, "bags_nms_keep_coords"),
         "gather_lanes": (cascade_launches, "bags_gather_lanes"),
+        "deform_conv_forward": (htc_launches, "bags_deform_conv_forward"),
     }
     for r in rows:
         counts, sym = symbols[r["name"]]

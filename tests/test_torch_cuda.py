@@ -5,7 +5,9 @@ JAX is not installed, run them without tests/conftest.py (which imports JAX):
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`. Keep masks
 and gathered candidates (K3, K6) must be equal; RoIAlign does the plain version's f32
 operations in its order, so f32 agrees to 1e-5 and bf16 to one bf16 step
-(2^-7 relative to the largest value). Its gradient (K2b) sums with atomics,
+(2^-7 relative to the largest value). The deformable conv (K7) samples with
+the plain version's f32 operations in its order but contracts in another, so
+f32 agrees to 1e-5 of the largest |output| and bf16 to one bf16 step of it. Its gradient (K2b) sums with atomics,
 in an order that changes from run to run, so f32 agrees to 1e-5 relative to
 the largest value and bf16 to one bf16 step.
 
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from balancedgroupsoftmax_torch import cuda
+from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
 from balancedgroupsoftmax_torch.ops import nms as ops_nms
 from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
 
@@ -64,6 +67,26 @@ def lane_gather_case(seed, p=2, groups_per_plane=8, k=30, n=100, r=4):
     planes += np.float32(2.0**-13)  # sets low mantissa bits of every value
     idx = rng.randint(0, n, (p * groups_per_plane, k)).astype(np.int32)
     return planes, idx
+
+
+def deform_case(seed, c_in, c_out, groups, stride, window, modulated, b=2, hw=(11, 13)):
+    """Inputs of a 3 x 3 deformable convolution with padding 1: x (B, H, W,
+    C_in), offsets (B, Ho, Wo, 18) with about a quarter integers, about a
+    tenth beyond +-4 and samples in the (-1, 0) and (H - 1, H) border bands,
+    the weight (C_out, C_in / groups, 3, 3) and a v2 mask (B, Ho, Wo, 9)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = rng.randn(b, h, w, c_in).astype(np.float32)
+    off = rng.randn(b, ho, wo, 18) * 2.5
+    whole = rng.rand(*off.shape) < 0.25
+    off[whole] = np.round(off[whole])
+    off[:, 0, 0, 0:2] = [0.5, 0.25]  # tap (0, 0) of output (0, 0) samples at (-0.5, -0.75)
+    # tap (2, 2) of the last output samples at (H - 0.5, W - 0.5)
+    off[:, -1, -1, 16:18] = [h - 0.5 - ((ho - 1) * stride + 1), w - 0.5 - ((wo - 1) * stride + 1)]
+    weight = rng.randn(c_out, c_in // groups, 3, 3) / np.sqrt(9 * c_in / groups)
+    mask = rng.rand(b, ho, wo, 9)
+    return x, off.astype(np.float32), weight.astype(np.float32), mask.astype(np.float32)
 
 
 def pyramid(rng, b=2, c=16):
@@ -196,3 +219,43 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
     with pytest.raises(ValueError):  # int64 indices
         ops_gather.gather_lanes(torch.zeros(1, 4, 8, device=dev), torch.zeros(2, 3, dtype=torch.int64, device=dev), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "window,stride,groups,c_in,c_out,modulated",
+    [
+        (4, 2, 64, 512, 512, False),  # the X101's first c3 block: groups of 8
+        (4, 1, 64, 1024, 1024, False),  # c4: groups of 16
+        (4, 1, 64, 2048, 2048, False),  # c5: groups of 32
+        (0, 1, 8, 128, 128, False),  # no clamp
+        (0, 2, 4, 32, 24, True),  # v2, output groups narrower than input ones
+        (4, 1, 1, 16, 16, True),
+    ],
+)
+def test_deform_conv_matches_plain(dev, dtype, window, stride, groups, c_in, c_out, modulated):
+    x, off, weight, mask = deform_case(c_in + stride, c_in, c_out, groups, stride, window, modulated, hw=(23, 37))
+    x, weight = (torch.from_numpy(a).to(dev, dtype) for a in (x, weight))
+    off = torch.from_numpy(off).to(dev)
+    mask = torch.from_numpy(mask).to(dev) if modulated else None
+    before = cuda.DEFORM_CONV.launches
+    out = ops_dcn.deform_conv2d(x, off, weight, mask, stride, 1, groups, window)
+    assert cuda.DEFORM_CONV.launches == before + 1
+    ref = ops_dcn.deform_conv2d_reference(x, off, weight, mask, stride, 1, groups, window).float()
+    top = ref.abs().max().item()
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2.0**-7) * top
+
+
+def test_deform_conv_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 8, 8, 16, device=dev)
+    off = torch.zeros(1, 8, 8, 18, device=dev)
+    w = torch.zeros(16, 4, 3, 3, device=dev)
+    with pytest.raises(ValueError):  # weight in another dtype than x
+        ops_dcn.deform_conv2d(x, off, w.bfloat16(), None, 1, 1, 4, 4)
+    with pytest.raises(ValueError):  # offsets of another shape than the output's
+        ops_dcn.deform_conv2d(x, off[:, :4], w, None, 1, 1, 4, 4)
+    with pytest.raises(ValueError):  # x not contiguous
+        ops_dcn.deform_conv2d(x.transpose(1, 2), off, w, None, 1, 1, 4, 4)
+    with pytest.raises(ValueError):  # groups that do not split the channels
+        ops_dcn.deform_conv2d(x, off, w, None, 1, 1, 3, 4)

@@ -237,8 +237,11 @@ def test_lr_schedule_matches_jax():
 
 
 def test_zoo_train_configs_match_jax():
-    # the JAX zoo returns the GS cascade's recipe from its use_gs argument
-    jax_configs = {"gs_cascade_rcnn_r50_fpn_lvis": lambda: jzoo.cascade_rcnn_r50_fpn_lvis(use_gs=True)}
+    # the JAX zoo returns the GS cascade's and GS HTC's recipes from their use_gs argument
+    jax_configs = {
+        "gs_cascade_rcnn_r50_fpn_lvis": lambda: jzoo.cascade_rcnn_r50_fpn_lvis(use_gs=True),
+        "gs_htc_x101_64x4d_fpn_lvis": lambda: jzoo.htc_x101_64x4d_fpn_lvis(use_gs=True),
+    }
     assert {"cascade_rcnn_r50_fpn_lvis", "gs_cascade_rcnn_r50_fpn_lvis"} <= set(tzoo.TRAIN_CONFIGS)
     for name, cfg in tzoo.TRAIN_CONFIGS.items():
         jax_zoo_entry = jax_configs.get(name) or getattr(jzoo, name)
