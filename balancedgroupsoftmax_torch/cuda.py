@@ -52,6 +52,8 @@ SIGNATURES = {
     "bags_deform_conv_forward": (
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "bags_fused_bottleneck": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "bags_fused_layer": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -154,7 +156,9 @@ ROI_ALIGN_BACKWARD = Kernel("bags_roi_align_backward")
 NMS_KEEP_COORDS = Kernel("bags_nms_keep_coords")
 GATHER_LANES = Kernel("bags_gather_lanes")
 DEFORM_CONV = Kernel("bags_deform_conv_forward")
+FUSED_BOTTLENECK = Kernel("bags_fused_bottleneck")
+FUSED_LAYER = Kernel("bags_fused_layer")
 KERNELS = (
     NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD, NMS_KEEP_COORDS, GATHER_LANES,
-    DEFORM_CONV,
+    DEFORM_CONV, FUSED_BOTTLENECK, FUSED_LAYER,
 )

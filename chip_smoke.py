@@ -44,6 +44,18 @@ Phases, each timed, any failure ending the run with a non-zero exit:
 12. run a reduced HTC-DCN (depth 50, the same widths) in f32 on a small
    image on the card and on the CPU and compare detections and masks.
 
+Between the Faster R-CNN and the cascade phases, "fused bottlenecks (K8,
+K9)": a seeded R50 (FrozenBN scales and variances in [0.5, 2]) runs once in
+bf16 at 800 x 1344, batch 2, and the input and output of each of its four
+runs of stride-1 blocks (3, 3, 5, 2 blocks) are captured; one pass over the
+runs launches `fused_layer` (K9) once a run and `fused_bottleneck` (K8) once
+a block, and must count K9 4 and K8 13 launches; each K8 output is held to
+its plain version on the same input, each K9 output to the K8 chain (bit for
+bit), to the plain chain and to the captured module output, again in f32 at
+256 x 384;
+K8, K9, the plain versions and the unfused module chain are timed. As in the
+JAX package, neither kernel is wired into `predict`.
+
 Phase 2 also holds K7 against its plain version on edge cases: the clamp,
 the border bands, D = 0, stride 2 and v2 with a mask, in f32 and bf16.
 
@@ -967,6 +979,233 @@ def check_k7_path(torch, ops_dcn, layers: list):
     )
 
 
+FUSED_SMALL = (256, 384)  # the f32 check's image
+FUSED_MODULE_TOL = {"bfloat16": 2.0**-4, "float32": 1e-4}
+
+
+def fused_backbone(torch, dev):
+    """The port's ResNet-50 on the card with seeded convolutions (std
+    1/sqrt(fan_in)) and FrozenBatchNorms whose scales and variances lie in
+    [0.5, 2] and whose shifts and means are N(0, 0.2): at init the fold would
+    only multiply by 1/sqrt(1 + eps). Parameters in f32; it computes in the
+    dtype of its input, as the detector's backbone does."""
+    from balancedgroupsoftmax_torch.models.resnet import FrozenBatchNorm, ResNet
+
+    gen = torch.Generator().manual_seed(14)
+    net = ResNet(depth=50)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / m.weight[0].numel() ** 0.5)
+            elif isinstance(m, FrozenBatchNorm):
+                m.weight.uniform_(0.5, 2.0, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+    return net.to(dev).eval()
+
+
+def capture_runs(torch, net, runs, size, dtype):
+    """One backbone pass on a seeded (2, 3, *size) image in `dtype`: the NCHW
+    input of each stride-1 run's first block and the output of its last."""
+    gen = torch.Generator().manual_seed(15)
+    dev = next(net.parameters()).device
+    images = torch.randn(MAIN_BATCH, 3, *size, generator=gen).to(dev, dtype)
+    seen, hooks = {}, []
+    for i, run in enumerate(runs):
+        hooks.append(run[0].register_forward_pre_hook(lambda m, a, i=i: seen.__setitem__((i, 0), a[0])))
+        hooks.append(run[-1].register_forward_hook(lambda m, a, o, i=i: seen.__setitem__((i, 1), o)))
+    try:
+        with torch.no_grad():
+            net(images.contiguous(memory_format=torch.channels_last))
+    finally:
+        for h in hooks:
+            h.remove()
+    return [(seen[(i, 0)], seen[(i, 1)]) for i in range(len(runs))]
+
+
+def fused_bound(torch, x, blocks, out) -> tuple[float, str]:
+    """The least time of blocks chained on x (NHWC): x read once, out written
+    once and the weights read once, at HBM rate, against 2 operations a
+    multiply-add of the four products at the tensor cores' dense bf16 rate
+    (the CUDA cores' for f32)."""
+    b, h, w, _ = x.shape
+    es = x.element_size()
+    wbytes = sum(t.numel() * (es if i % 2 == 0 else 4) for p in blocks for i, t in enumerate(p) if t is not None)
+    macs = b * h * w * sum(p.w1.numel() + p.w2.numel() + p.w3.numel() + (p.wd.numel() if p.wd is not None else 0)
+                           for p in blocks)
+    t_bytes = (x.numel() * es + out.numel() * es + wbytes) / HBM_BYTES_PER_S
+    t_ops = 2 * macs / (BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def fused_pass(torch, ops_fb, xs, folded):
+    """The fused path over the four runs: `fused_layer` once a run (K9) and
+    `fused_bottleneck` block by block (K8). Returns the K9 outputs and, per
+    run, the row-padded inputs and outputs of each K8 call."""
+    k9, k8 = [], []
+    for x, ps in zip(xs, folded):
+        k9.append(ops_fb.fused_layer(x, ps))
+        chain = [ops_fb.pad_rows(x)]
+        for p in ps:
+            chain.append(ops_fb.fused_bottleneck(chain[-1], p))
+        k8.append(chain)
+    return k9, k8
+
+
+def check_fused_runs(torch, ops_fb, caps, folded, k9, k8, dtype) -> dict:
+    """Each K8 output against `fused_bottleneck_reference` on the same input:
+    the same roundings with sums in another order. In f32 they agree within
+    1e-5 of the largest |output|. In bf16 within two bf16 steps (2 x 2^-7) of
+    it: y3 is rounded, then y3 + identity is rounded again, so a y3 that
+    rounds one step apart can land two steps apart. Each K9 output must
+    equal the K8 chain's bit for bit (the same tile body, and each output's
+    sums run in one order whatever the tiling), and is held to the plain
+    chain within those steps once a block in bf16 (1e-5 in f32): a block's output that rounds
+    apart reaches the next block's output unchanged through the identity.
+    Both against the module chain's output: the fold rounds once a
+    convolution where the modules round after the convolution, the BN's
+    multiply and add and the residual add, with BN scales up to 2 / sqrt(0.5)
+    between them; in bf16 the two differ by about 1% of the largest output,
+    so they are held to FUSED_MODULE_TOL of it (f32: the reassociated BN
+    scale, 1e-4). Returns the worst errors: K9's and K8's against the plain
+    versions, absolute ("abs9", "abs8") and relative to the largest |output|
+    ("rel9", "rel8"), and the fused path's relative to the modules' largest
+    |output| ("mod")."""
+    step = 1e-5 if dtype == torch.float32 else 2 * 2.0**-7
+    tol = FUSED_MODULE_TOL[str(dtype)[6:]]
+    w = dict(abs9=0.0, rel9=0.0, abs8=0.0, rel8=0.0, mod=0.0)
+    for i, ((_, mod_out), ps, out9, chain) in enumerate(zip(caps, folded, k9, k8)):
+        for s, p in enumerate(ps):
+            r = ops_fb.unpad_rows(ops_fb.fused_bottleneck_reference(chain[s], p)).float()
+            e = (ops_fb.unpad_rows(chain[s + 1]).float() - r).abs().max().item()
+            if not e <= step * r.abs().max().item():
+                raise AssertionError(f"K8 run {i} block {s} {dtype}: max abs err {e} above {step} of {r.abs().max().item()}")
+            w["abs8"], w["rel8"] = max(w["abs8"], e), max(w["rel8"], e / r.abs().max().item())
+        if not torch.equal(out9, ops_fb.unpad_rows(chain[-1])):
+            raise AssertionError(f"K9 run {i} {dtype} is not bit-equal to the K8 chain")
+        ref = ops_fb.fused_layer_reference(ops_fb.unpad_rows(chain[0]), ps).float()
+        err = (out9.float() - ref).abs().max().item()
+        limit = (len(ps) if dtype == torch.bfloat16 else 1) * step * ref.abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"K9 run {i} {dtype}: max abs err {err} above {limit}")
+        w["abs9"], w["rel9"] = max(w["abs9"], err), max(w["rel9"], err / ref.abs().max().item())
+        want = mod_out.permute(0, 2, 3, 1).float()
+        top = want.abs().max().item()
+        e = (out9.float() - want).abs().max().item()
+        if not (torch.isfinite(out9).all() and e <= tol * top):
+            raise AssertionError(f"run {i} {dtype} against the modules: {e} above {tol} of {top}")
+        w["mod"] = max(w["mod"], e / top)
+    return w
+
+
+def run_fused_path(torch, dev):
+    """K8 and K9 over the 13 stride-1 bottlenecks of the R50 at 800 x 1344,
+    batch 2, bf16: one pass launches K9 4 times and K8 13 times; each run is
+    held to the plain versions and the module chain, then the same in f32 at
+    FUSED_SMALL; K8, K9, the plain versions and the module chain timed."""
+    from balancedgroupsoftmax_torch import cuda
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    t0 = time.perf_counter()
+    net = fused_backbone(torch, dev)
+    runs = ops_fb.stride1_runs(net)
+    folded = [[ops_fb.fold_bottleneck(b) for b in run] for run in runs]
+    caps = capture_runs(torch, net, runs, MAIN_SIZE, torch.bfloat16)
+    xs = [x.permute(0, 2, 3, 1).contiguous() for x, _ in caps]
+    log(f"  R50 built, runs of {[len(r) for r in runs]} blocks captured at {MAIN_SIZE}, "
+        f"inputs {[tuple(x.shape) for x in xs]}, in {time.perf_counter() - t0:.1f} s")
+
+    for k in cuda.KERNELS:
+        k.launches = 0
+    k9, k8 = fused_pass(torch, ops_fb, xs, folded)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    log(f"  launches over one pass: {launches}")
+    if launches["bags_fused_layer"] != 4 or launches["bags_fused_bottleneck"] != 13:
+        raise AssertionError("a backbone pass must launch K9 4 times and K8 13 times")
+    bf16 = check_fused_runs(torch, ops_fb, caps, folded, k9, k8, torch.bfloat16)
+    log(f"  bf16: K8 within {bf16['rel8']:.3e} (abs {bf16['abs8']:.3e}) of the plain version's largest |output| "
+        f"a block; K9 bit-equal to the K8 chain, within {bf16['rel9']:.3e} (abs {bf16['abs9']:.3e}) of the plain "
+        f"chain's; fused within {bf16['mod']:.3e} of the modules' (limit {FUSED_MODULE_TOL['bfloat16']})")
+    del k8
+
+    t9 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by={"bytes": 0.0, "operations": 0.0})
+    t8 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by={"bytes": 0.0, "operations": 0.0})
+    module_ms = 0.0
+    for i, ((x_nchw, _), x, ps, run, out) in enumerate(zip(caps, xs, folded, runs, k9)):
+        ms = cuda_time_ms(lambda: ops_fb.fused_layer(x, ps), 5)
+        plain = cuda_time_ms(lambda: ops_fb.fused_layer_reference(x, ps), 2)
+        b_ms, b_by = fused_bound(torch, x, ps, out)
+        t9["ms"] += ms
+        t9["plain_ms"] += plain
+        t9["bound_ms"] += b_ms
+        t9["by"][b_by] += b_ms
+
+        def modules(x_nchw=x_nchw, run=run):
+            with torch.no_grad():
+                y = x_nchw
+                for blk in run:
+                    y = blk(y)
+            return y
+
+        mod = cuda_time_ms(modules, 5)
+        module_ms += mod
+        xp = ops_fb.pad_rows(x)
+        per_block = []
+        for p in ps:
+            out_p = ops_fb.fused_bottleneck(xp, p)
+            bms = cuda_time_ms(lambda: ops_fb.fused_bottleneck(xp, p), 5)
+            t8["ms"] += bms
+            t8["plain_ms"] += cuda_time_ms(lambda: ops_fb.fused_bottleneck_reference(xp, p), 2)
+            bb_ms, bb_by = fused_bound(torch, ops_fb.unpad_rows(xp), [p], ops_fb.unpad_rows(out_p))
+            t8["bound_ms"] += bb_ms
+            t8["by"][bb_by] += bb_ms
+            per_block.append(f"{bms:.4f} (bound {bb_ms:.4f} {bb_by[0]})")
+            xp = out_p
+        log(f"  run {i} x {tuple(x.shape)} -> {tuple(out.shape)}, {len(ps)} blocks: K9 {ms:.4f} ms "
+            f"(bound {b_ms:.4f}, {b_by}), K8 blocks {', '.join(per_block)} ms, plain {plain:.3f} ms, "
+            f"module chain {mod:.4f} ms")
+    log(f"  a backbone pass: K9 {t9['ms']:.4f} ms (plain {t9['plain_ms']:.3f}, bound {t9['bound_ms']:.4f}), "
+        f"K8 {t8['ms']:.4f} ms (plain {t8['plain_ms']:.3f}, bound {t8['bound_ms']:.4f}), "
+        f"module chain {module_ms:.4f} ms ({card_line()})")
+    profile_device(torch, "K9 over the four runs", lambda: [ops_fb.fused_layer(x, ps) for x, ps in zip(xs, folded)],
+                   top=6)
+    del caps, xs, k9
+
+    # f32 at a reduced size, TF32 off for the modules' convolutions and the plain versions' products
+    allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        caps = capture_runs(torch, net, runs, FUSED_SMALL, torch.float32)
+        xs = [x.permute(0, 2, 3, 1).contiguous() for x, _ in caps]
+        k9, k8 = fused_pass(torch, ops_fb, xs, folded)
+        f32 = check_fused_runs(torch, ops_fb, caps, folded, k9, k8, torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    log(f"  f32 at {FUSED_SMALL}: K8 within {f32['rel8']:.3e} a block, K9 within {f32['rel9']:.3e} a run of the "
+        f"plain versions' largest |output|; fused within {f32['mod']:.3e} of the modules' "
+        f"(limit {FUSED_MODULE_TOL['float32']})")
+
+    def row(name, t, err):
+        return dict(
+            name=name,
+            route="cuda",
+            source="balancedgroupsoftmax_torch/csrc/fused_block.cu",
+            replaces=f"balancedgroupsoftmax_tpu/pallas/fused_block.py:{234 if name == 'fused_bottleneck' else 448}",
+            max_abs_err=err,
+            ms=t["ms"],
+            plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"],
+            bound_by=max(t["by"], key=t["by"].get),
+            library_ms=None,
+            shape=f"the R50's 13 stride-1 blocks at {MAIN_SIZE}, batch {MAIN_BATCH}, bf16, summed; "
+                  f"module chain {module_ms:.4f} ms",
+        )
+
+    return launches, [row("fused_bottleneck", t8, bf16["abs8"]), row("fused_layer", t9, bf16["abs9"])]
+
+
 def htc_model(torch, dev, cfg=None):
     """gs HTC X101-64x4d DCN c3-c5 (D = 4, 1231 classes) in bf16 on the
     card, through `build_model`, with seeded weights."""
@@ -1121,6 +1360,13 @@ def main() -> int:
     del train_model
 
     t0 = time.perf_counter()
+    fused_launches, fused_rows = run_fused_path(torch, dev)
+    for r in fused_rows:
+        log_row(r)
+    rows += fused_rows
+    log(f"phase fused bottlenecks (K8, K9): wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     cascade_launches, cascade, cascade_rows = run_cascade_path(torch, dev)
     for r in cascade_rows:
         log_row(r)
@@ -1153,7 +1399,8 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it: the Faster R-CNN
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
-    # cascade's predicts for K5 and K6, the HTC's for K7
+    # cascade's predicts for K5 and K6, the HTC's for K7, one pass of the
+    # R50's stride-1 runs for K8 and K9
     symbols = {
         "nms_keep": (launches, "bags_nms_keep"),
         "roi_align_forward": (launches, "bags_roi_align_forward"),
@@ -1163,6 +1410,8 @@ def main() -> int:
         "nms_keep_batched_coords": (cascade_launches, "bags_nms_keep_coords"),
         "gather_lanes": (cascade_launches, "bags_gather_lanes"),
         "deform_conv_forward": (htc_launches, "bags_deform_conv_forward"),
+        "fused_bottleneck": (fused_launches, "bags_fused_bottleneck"),
+        "fused_layer": (fused_launches, "bags_fused_layer"),
     }
     for r in rows:
         counts, sym = symbols[r["name"]]

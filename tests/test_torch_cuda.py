@@ -5,7 +5,12 @@ JAX is not installed, run them without tests/conftest.py (which imports JAX):
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`. Keep masks
 and gathered candidates (K3, K6) must be equal; RoIAlign does the plain version's f32
 operations in its order, so f32 agrees to 1e-5 and bf16 to one bf16 step
-(2^-7 relative to the largest value). The deformable conv (K7) samples with
+(2^-7 relative to the largest value). The fused bottleneck (K8, K9) rounds
+where its plain version rounds but sums in another order, so f32 agrees to
+1e-5 of the largest |output|; in bf16 a block rounds y3 and then y3 +
+identity, so one step apart in y3 can be two in the output: two bf16 steps
+of the largest |output| a block, added up over a chain (the identity carries
+a block's difference into the next). The deformable conv (K7) samples with
 the plain version's f32 operations in its order but contracts in another, so
 f32 agrees to 1e-5 of the largest |output| and bf16 to one bf16 step of it. Its gradient (K2b) sums with atomics,
 in an order that changes from run to run, so f32 agrees to 1e-5 relative to
@@ -259,3 +264,108 @@ def test_deform_conv_refuses_what_the_kernel_does_not_take(dev):
         ops_dcn.deform_conv2d(x.transpose(1, 2), off, w, None, 1, 1, 4, 4)
     with pytest.raises(ValueError):  # groups that do not split the channels
         ops_dcn.deform_conv2d(x, off, w, None, 1, 1, 3, 4)
+
+
+def fused_block_case(seed, cin, cm, cout, downsample, b=2, hw=(13, 37)):
+    """A row-padded NHWC input (B, H + 2, W, Cin) with +-1e9 in its halo rows
+    and BN-folded weights of one bottleneck (w1, b1, w2, b2, w3, b3, wd, bd in
+    the JAX layout; wd and bd None without a downsample), scaled so that each
+    product keeps unit variance."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    x = rng.randn(b, h + 2, w, cin).astype(np.float32)
+    x[:, 0], x[:, -1] = 1e9, -1e9
+
+    def weight(*shape, fan_in):
+        return (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    def bias(c):
+        return (rng.randn(1, c) * 0.1).astype(np.float32)
+
+    p = [weight(cin, cm, fan_in=cin), bias(cm), weight(9, cm, cm, fan_in=9 * cm), bias(cm),
+         weight(cm, cout, fan_in=cm), bias(cout)]
+    p += [weight(cin, cout, fan_in=cin), bias(cout)] if downsample else [None, None]
+    return x, p
+
+
+# the R50's stride-1 block widths: (cin, cm, cout, downsample)
+R50_WIDTHS = {
+    "layer1.0": (64, 64, 256, True),
+    "layer1": (256, 64, 256, False),
+    "layer2": (512, 128, 512, False),
+    "layer3": (1024, 256, 1024, False),
+    "layer4": (2048, 512, 2048, False),
+}
+
+
+def _fused_params(p, dev):
+    from balancedgroupsoftmax_torch.ops.fused_block import FusedBlockParams
+
+    return FusedBlockParams(*(None if t is None else torch.from_numpy(t).to(dev) for t in p))
+
+
+def _fused_limit(dtype, ref, blocks=1):
+    return (1e-5 if dtype == torch.float32 else 2 * 2.0**-7 * blocks) * ref.float().abs().max().item()
+
+
+@pytest.fixture
+def exact_f32():
+    """The plain versions' f32 products in full f32, not TF32."""
+    allow = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = allow
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", list(R50_WIDTHS))
+def test_fused_bottleneck_matches_plain(dev, exact_f32, dtype, width):
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    x, p = fused_block_case(len(width), *R50_WIDTHS[width])
+    x, p = torch.from_numpy(x).to(dev, dtype), _fused_params(p, dev)
+    before = cuda.FUSED_BOTTLENECK.launches
+    out = ops_fb.fused_bottleneck(x, p)
+    assert cuda.FUSED_BOTTLENECK.launches == before + 1
+    ref = ops_fb.unpad_rows(ops_fb.fused_bottleneck_reference(x, p))
+    out = ops_fb.unpad_rows(out)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _fused_limit(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("run", ["layer1", "layer3", "layer4"])
+def test_fused_layer_matches_plain(dev, exact_f32, dtype, run):
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    widths = {"layer1": ["layer1.0", "layer1", "layer1"], "layer3": ["layer3"] * 3, "layer4": ["layer4"] * 2}[run]
+    hw = {"layer1": (19, 35), "layer3": (11, 21), "layer4": (7, 18)}[run]
+    blocks = [_fused_params(fused_block_case(40 + i, *R50_WIDTHS[wd], hw=hw)[1], dev) for i, wd in enumerate(widths)]
+    x = fused_block_case(50, *R50_WIDTHS[widths[0]], hw=hw)[0][:, 1:-1]
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+    before = cuda.FUSED_LAYER.launches
+    out = ops_fb.fused_layer(x, blocks)
+    assert cuda.FUSED_LAYER.launches == before + 1  # one launch for the whole run
+    ref = ops_fb.fused_layer_reference(x, blocks)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _fused_limit(dtype, ref, len(blocks))
+    chain = ops_fb.pad_rows(x)
+    for p in blocks:
+        chain = ops_fb.fused_bottleneck(chain, p)
+    assert torch.equal(out, ops_fb.unpad_rows(chain))  # K9 runs K8's tile body, so bit for bit
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    x, p = fused_block_case(0, 64, 16, 64, False, hw=(6, 8))
+    x, p = torch.from_numpy(x).to(dev), _fused_params(p, dev)
+    with pytest.raises(ValueError):  # x not contiguous
+        ops_fb.fused_bottleneck(x.transpose(1, 2).contiguous().transpose(1, 2), p)
+    with pytest.raises(ValueError):  # a weight on the CPU
+        ops_fb.fused_bottleneck(x, p._replace(w2=p.w2.cpu()))
+    with pytest.raises(ValueError):  # a dtype the kernels do not take
+        ops_fb.fused_layer(x[:, 1:-1].contiguous().double(), [p])
+    with pytest.raises(ValueError):  # channels the block does not keep without a downsample
+        ops_fb.fused_layer(x[:, 1:-1, :, :32].contiguous(), [p])
