@@ -62,6 +62,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 #include <algorithm>
 #include <initializer_list>
 
@@ -565,3 +567,6 @@ int bags_fused_layer(int dtype, const void* x, void* out, void* act0, void* act1
 }
 
 }  // extern "C"
+
+BAGS_PACKED(bags_fused_bottleneck)
+BAGS_PACKED(bags_fused_layer)

@@ -1,10 +1,11 @@
 // Lane gather from shared coordinate planes: K6 `bags_gather_lanes`.
 //
 // Replaces (TPU Pallas, JAX package pallas/gather.py): gather_lanes_matmul (:59,
-// via _gather_kernel :32) -- the candidate gather of the class-agnostic
-// multiclass NMS: out[g, r, k] = planes[g / groups_per_plane, r, idx[g, k]], an
-// index outside [0, N) giving 0. On the detector's path P = B images share one
-// (4, N = 1000) plane each across their 300 capped classes, G = 600, K = 300.
+// via _gather_kernel :32; `pallas_call` at :105) -- the candidate gather of
+// the class-agnostic multiclass NMS: out[g, r, k] = planes[g / groups_per_plane,
+// r, idx[g, k]], an index outside [0, N) giving 0. On the detector's path P = B
+// images share one (4, N = 1000) plane each across their 300 capped classes,
+// G = 600, K = 300.
 //
 // Design. The TPU's gather was slow, so it built each group's (N, K) one-hot
 // in VMEM and contracted the planes against it on the MXU, split into three
@@ -14,12 +15,19 @@
 // is coalesced. The planes (32 KB at the path's shape) stay in L1/L2 and are
 // read at random lanes; nothing is replicated per class.
 //
-// What bounds it on an H100: bytes. At the path's shape it writes 2.88 MB and
-// reads 0.72 MB of indices (and 32 KB of planes): about 1.1 us at 3.35 TB/s,
-// less than a launch costs.
-
+// What bounds it on an H100: by its work, bytes -- it writes 2.88 MB and reads
+// 0.72 MB of indices (and 32 KB of planes) at the path's shape, about 1.1 us
+// at 3.35 TB/s; its body takes about 4 us of device time. What sets its time
+// a call is the host: a launch from C costs about 3.5 us on the card's host,
+// and the wrapper's checks, its one allocation and the ctypes call add the
+// rest. So the launch path is the part kept short (cuda.py, pylaunch.cu,
+// launch.cuh): one CPython call puts the arguments into 8-byte slots and
+// calls `bags_gather_lanes_packed`, whose address ctypes looked up once.
+//
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -56,3 +64,5 @@ int bags_gather_lanes(const float* planes, const int32_t* idx, float* out, int g
 }
 
 }  // extern "C"
+
+BAGS_PACKED(bags_gather_lanes)

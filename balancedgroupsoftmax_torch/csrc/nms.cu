@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;      // fused (K3) and walk blocks
@@ -359,3 +361,8 @@ int bags_nms_keep_gathered(const float* planes, const int32_t* idx, const uint8_
 }
 
 }  // extern "C"
+
+BAGS_PACKED(bags_nms_keep)
+BAGS_PACKED(bags_nms_keep_coords)
+BAGS_PACKED(bags_nms_keep_tiled)
+BAGS_PACKED(bags_nms_keep_gathered)

@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 8;
@@ -283,3 +285,6 @@ int bags_roi_align_backward(int dtype, int num_levels, const int* heights, const
 }
 
 }  // extern "C"
+
+BAGS_PACKED(bags_roi_align_forward)
+BAGS_PACKED(bags_roi_align_backward)

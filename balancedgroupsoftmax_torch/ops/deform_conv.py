@@ -27,7 +27,7 @@ the weight is (C_out, C / groups, kh, kw), as `Conv2d(groups=...)` holds it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -37,9 +37,82 @@ from ..models.layers import Conv2d
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+SHARED_BYTES = 227 * 1024  # the most shared memory one block may have on an H100
+TWO_A_SM = 113 * 1024  # two blocks an SM: 228 KB less 1 KB reserved a block, halved
+SMS = 132  # H100 SXM
+_TILES = ((8, 8), (4, 8), (4, 4))  # (rows, columns) of output positions a block, in order of preference
+
 
 def _out_size(size: int, k: int, stride: int, padding: int) -> int:
     return (size + 2 * padding - k) // stride + 1
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class LaunchPlan(NamedTuple):
+    """How K7's bf16 route cuts one layer: tiles of `th` x `tw` output
+    positions, each block walking `nch` chunks of `cc` channels."""
+
+    th: int
+    tw: int
+    cc: int
+    nch: int
+    smem: int  # shared memory a block, bytes
+    blocks: int
+
+
+def plan_shared_bytes(th: int, tw: int, cc: int, c_g: int, o_g: int, kh: int, kw: int, stride: int, window: int) -> int:
+    """Shared memory of one block of K7's bf16 route (`lay_out` in
+    csrc/deform_conv.cu, which checks that it gets the same): per (position,
+    tap) a corner index (int, or int4 without a window), float4 weights and a
+    float mask; A, positions x (groups, taps * c_g padded to 16), rows padded
+    by 8; B, (groups, o_g padded to 8) x (taps * c_g padded to 16, + 8); and
+    two window buffers at D > 0."""
+    m = th * tw
+    pt = m * kh * kw
+    gc = cc // c_g
+    kp = _round_up(kh * kw * c_g, 16)
+    size = _round_up(pt * (4 if window > 0 else 16), 16) + pt * 16 + _round_up(pt * 4, 16)
+    size += m * (gc * kp + 8) * 2
+    size += gc * _round_up(o_g, 8) * (kp + 8) * 2
+    if window > 0:
+        wr = (th - 1) * stride + kh + 2 * window + 1
+        wc = (tw - 1) * stride + kw + 2 * window + 1
+        size += 2 * wr * wc * cc * 2
+    return size
+
+
+def launch_plan(
+    b: int, ho: int, wo: int, c: int, groups: int, c_out: int, kh: int, kw: int, stride: int, window: int
+) -> Optional[LaunchPlan]:
+    """K7's bf16 launch plan for one layer, or None if no plan fits.
+
+    A chunk is whole groups and a multiple of 8 channels, preferably the
+    smallest such of at least 32 channels. The first tile and chunk, in order
+    of preference, whose shared memory lets two blocks share an SM is taken
+    (else the first that fits at all). Then the chunks a block walks: of the
+    counts that keep the grid at two blocks an SM or more (all counts give
+    fewer: one chunk a block, all the blocks there are), the one with the
+    least (waves of blocks) x (chunks + 1), the 1 standing for a block's
+    corners and first window copy, which no chunk overlaps."""
+    c_g, o_g = c // groups, c_out // groups
+    sizes = [n * c_g for n in range(1, groups + 1) if groups % n == 0 and (n * c_g) % 8 == 0]
+    chunks = [s for s in sizes if s >= 32][:1] + [s for s in reversed(sizes) if s < 32]
+    for limit in (TWO_A_SM, SHARED_BYTES):
+        for th, tw in _TILES:
+            for cc in chunks:
+                smem = plan_shared_bytes(th, tw, cc, c_g, o_g, kh, kw, stride, window)
+                if smem > limit:
+                    continue
+                tiles = b * -(-ho // th) * -(-wo // tw)
+                n = c // cc
+                slots = SMS * (2 if smem <= TWO_A_SM else 1)
+                counts = [d for d in range(1, n + 1) if n % d == 0 and tiles * (n // d) >= 2 * SMS] or [1]
+                nch = min(counts, key=lambda d: (-(-tiles * (n // d) // slots) * (d + 1), -d))
+                return LaunchPlan(th, tw, cc, nch, smem, tiles * (n // nch))
+    return None
 
 
 def sample_cols(
@@ -139,7 +212,8 @@ def deform_conv2d(
     groups: int = 1,
     shift_window: int = 0,
 ) -> torch.Tensor:
-    """K7: (B, Ho, Wo, C_out) in x's dtype."""
+    """K7: (B, Ho, Wo, C_out) in x's dtype. In bf16 the kernel takes C a
+    multiple of 8 and C / groups a multiple of 4, and refuses others."""
     if x.device.type == "cpu":
         return deform_conv2d_reference(x, offsets, weight, mask, stride, padding, groups, shift_window)
     b, h, w, c = x.shape
@@ -155,14 +229,25 @@ def deform_conv2d(
     cuda.check(weight, x.dtype, (c_out, c_g, kh, kw), "weight")
     if mask is not None:
         cuda.check(mask, torch.float32, (b, ho, wo, taps), "mask")
+    plan = LaunchPlan(0, 0, 0, 0, 0, 0)  # the f32 route plans for itself
+    if x.dtype == torch.bfloat16:
+        plan = launch_plan(b, ho, wo, c, groups, c_out, kh, kw, stride, shift_window)
+        if c % 8 or c_g % 4 or x.data_ptr() % 16 or plan is None:
+            raise ValueError(
+                f"the bf16 deform_conv kernel takes channels in 16-byte pieces (C % 8 == 0, C / groups % 4 == 0, "
+                f"x aligned to 16 bytes) and a plan that fits {SHARED_BYTES} bytes of shared memory; got C {c}, "
+                f"groups {groups}, weight {tuple(weight.shape)}"
+            )
+        weight = weight.permute(0, 2, 3, 1).contiguous()  # (C_out, kh, kw, c_g): a row of the kernel's B is one run
     out = torch.empty(b, ho, wo, c_out, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     cuda.DEFORM_CONV(
         _DTYPE_CODES[x.dtype],
-        x.data_ptr(), offsets.data_ptr(), None if mask is None else mask.data_ptr(),
+        x.data_ptr(), offsets.data_ptr(), 0 if mask is None else mask.data_ptr(),
         weight.data_ptr(), out.data_ptr(),
         b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window,
+        plan.th, plan.tw, plan.cc, plan.nch, plan.smem,
     )
     return out
 

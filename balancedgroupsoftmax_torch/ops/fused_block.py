@@ -179,7 +179,7 @@ def fused_bottleneck(x: torch.Tensor, p: FusedBlockParams) -> torch.Tensor:
     out = torch.empty(b, hp, w, cout, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    ptrs = [None if t is None else t.data_ptr() for t in wts]
+    ptrs = [0 if t is None else t.data_ptr() for t in wts]
     cuda.FUSED_BOTTLENECK(_DTYPE_CODES[x.dtype], x.data_ptr(), *ptrs, out.data_ptr(), b, hp - 2, w, cin, cm, cout)
     return out
 

@@ -15,6 +15,8 @@ import torch
 
 from .. import cuda
 
+_F32, _I32 = torch.float32, torch.int32
+
 
 def _shape(planes: torch.Tensor, idx: torch.Tensor, groups_per_plane: int):
     p, r, n = planes.shape
@@ -37,13 +39,22 @@ def gather_lanes_reference(planes: torch.Tensor, idx: torch.Tensor, groups_per_p
 
 def gather_lanes(planes: torch.Tensor, idx: torch.Tensor, groups_per_plane: int = 1) -> torch.Tensor:
     """K6: planes (P, R, N) f32, idx (G, K) int32 with G = P * groups_per_plane
-    -> (G, R, K) f32, bit-equal to the plain version."""
-    if planes.device.type == "cpu":
-        return gather_lanes_reference(planes, idx, groups_per_plane)
-    p, r, n, g, k = _shape(planes, idx, groups_per_plane)
-    cuda.check(planes, torch.float32, (p, r, n), "planes")
-    cuda.check(idx, torch.int32, (g, k), "idx")
-    out = torch.empty(g, r, k, dtype=torch.float32, device=planes.device)
+    -> (G, R, K) f32, bit-equal to the plain version. At the cascade's shape
+    the host's cost of a launch, not the kernel, sets K6's time, so the path
+    is kept short: the shapes are read from the tensors themselves, so only
+    device, dtype and layout are checked (`cuda.check` runs only to refuse),
+    and one allocation."""
+    p, r, n = planes.shape
+    g, k = idx.shape
+    if g != p * groups_per_plane:
+        raise ValueError(f"{g} groups of indices for {p} planes x {groups_per_plane} groups each")
+    if not (planes.is_cuda and idx.is_cuda and planes.dtype is _F32 and idx.dtype is _I32
+            and planes.is_contiguous() and idx.is_contiguous()):
+        if planes.is_cpu:
+            return gather_lanes_reference(planes, idx, groups_per_plane)
+        cuda.check(planes, torch.float32, (p, r, n), "planes")  # raises, saying what the kernel takes
+        cuda.check(idx, torch.int32, (g, k), "idx")
+    out = planes.new_empty(g, r, k)
     if g and k and r:
         cuda.GATHER_LANES(planes.data_ptr(), idx.data_ptr(), out.data_ptr(), g, r, k, n, groups_per_plane)
     return out

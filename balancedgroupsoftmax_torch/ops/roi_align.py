@@ -201,11 +201,13 @@ def roi_align_forward(
     if out.numel() == 0:
         return out
     n = len(feats)
+    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])  # host arrays live until the launch returns
+    lv = _level_args([(f.shape[1], f.shape[2]) for f in feats], strides)
     cuda.ROI_ALIGN(
         _DTYPE_CODES[dtype],
         n,
-        (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
-        *_level_args([(f.shape[1], f.shape[2]) for f in feats], strides),
+        ctypes.addressof(ptrs),
+        *map(ctypes.addressof, lv),
         rois.data_ptr(),
         levels.data_ptr(),
         out.data_ptr(),
@@ -241,10 +243,11 @@ def roi_align_backward(
     sizes = [b * h * w * c for h, w in shapes]
     buf = torch.zeros(sum(sizes), dtype=torch.float32, device=rois.device)
     if grad.numel():
+        lv = _level_args(shapes, strides)  # host arrays live until the launch returns
         cuda.ROI_ALIGN_BACKWARD(
             _DTYPE_CODES[grad.dtype],
             len(shapes),
-            *_level_args(shapes, strides),
+            *map(ctypes.addressof, lv),
             rois.data_ptr(),
             map_roi_levels(rois, len(shapes), finest_scale).data_ptr(),
             grad.data_ptr(),

@@ -31,8 +31,10 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    (cascade_rcnn_r50_fpn_lvis with GS heads, built through `build_model`):
    `predict` must launch K1, K2 (once a stage), K6 and K5 and not K3; K5
    and K6 are held to their plain versions again, and timed, on the inputs
-   that predict gave them; the BAGS phase-2 step (selectp=3) must move the
-   three stages' fc_cls alone;
+   that predict gave them (K6 in turns with `torch.gather`, with both device
+   times from the profiler and the host's cost of K6's launch path part by
+   part, beside the plainer ways to do each part); the BAGS phase-2
+   step (selectp=3) must move the three stages' fc_cls alone;
 11. serve BAGS HTC X101-64x4d with deformable conv c3-c5
    (htc_x101_64x4d_fpn_lvis(use_gs=True, dcn=True): 1231 classes, D = 4,
    bf16, 800 x 1344, batch 2, offset convs given seeded non-zero weights)
@@ -57,7 +59,9 @@ K8, K9, the plain versions and the unfused module chain are timed. As in the
 JAX package, neither kernel is wired into `predict`.
 
 Phase 2 also holds K7 against its plain version on edge cases: the clamp,
-the border bands, D = 0, stride 2 and v2 with a mask, in f32 and bf16.
+the border bands, D = 0, stride 2, v2 with a mask, groups of 4 channels with
+12 outputs, offsets at and beyond +-D at the border, and a c5-like layer
+with ragged last tiles, in f32 and bf16.
 
 It prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -90,6 +94,7 @@ TIMED_PREDICTS = 3
 TIMED_STEPS = 3
 TRAIN_ROIS = 512  # rcnn_train sampler num: RoIs per image in training
 TRAIN_GTS = 20
+HOST_CALLS = 3000  # calls a part of K6's launch path is timed over
 
 
 def log(msg: str) -> None:
@@ -109,6 +114,19 @@ def cuda_time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def interleaved_ms(fns, iters: int, reps: int) -> list:
+    """`cuda_time_ms` of each of `fns`, taken `reps` times in turns (a, b, a,
+    b, ...), the median of each: for calls whose time the host's cost of a
+    launch sets, which moves from one moment to the next on a shared host."""
+    import statistics
+
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for t, fn in zip(times, fns):
+            t.append(cuda_time_ms(fn, iters))
+    return [statistics.median(t) for t in times]
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -238,19 +256,111 @@ def check_k6(torch, ops_gather, planes, idx, groups_per_plane):
         raise AssertionError("torch.gather disagrees with K6")
     nbytes = out.numel() * 4 + idx.numel() * 4 + planes.numel() * 4
     b_ms, b_by = bound(nbytes, 0)
+    k6_host_split(torch, ops_gather, planes, idx, groups_per_plane)
+    kernel_fn = lambda: ops_gather.gather_lanes(planes, idx, groups_per_plane)
+    library_fn = lambda: torch.gather(src, 3, index)
+    dev_k6 = device_ms_per_launch(torch, kernel_fn, "gather_lanes")
+    dev_lib = device_ms_per_launch(torch, library_fn, "")
+    log(f"  K6 device time {dev_k6:.5f} ms a launch, torch.gather's {dev_lib:.5f} ms (profiler, 50 calls each)")
+    ms, library_ms = interleaved_ms([kernel_fn, library_fn], 300, 7)
+    log(f"  K6 {ms:.5f} ms a call by events, torch.gather {library_ms:.5f} ms (medians of 7 turns of 300 calls)")
     return dict(
         name="gather_lanes",
         route="cuda",
         source="balancedgroupsoftmax_torch/csrc/gather.cu",
         replaces="balancedgroupsoftmax_tpu/pallas/gather.py:59",
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops_gather.gather_lanes(planes, idx, groups_per_plane), 50),
+        ms=ms,
         plain_ms=cuda_time_ms(lambda: ops_gather.gather_lanes_reference(planes, idx, groups_per_plane), 10),
         bound_ms=b_ms,
         bound_by=b_by,
-        library_ms=cuda_time_ms(lambda: torch.gather(src, 3, index), 50),
+        library_ms=library_ms,
         shape=f"P={p} R={r} N={n} G={g} K={k}",
     )
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS, batch: int = 200) -> float:
+    """Host time of one call of `fn`, in microseconds: perf_counter around
+    batches of `batch` calls, the card drained before each batch so that a
+    full launch queue never holds the host back."""
+    fn()
+    total = 0.0
+    for _ in range(calls // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / (calls // batch * batch) * 1e6
+
+
+def k6_host_split(torch, ops_gather, planes, idx, groups_per_plane) -> dict:
+    """The host cost of one K6 launch, part by part, at the cascade's shape:
+    each part of the wrapper's launch path beside a plainer way to do it
+    (checks through `tuple(shape)` and `device.type`, `torch.empty`, a Stream
+    object for the current stream, the symbol looked up at every launch, a
+    ctypes call converting nine arguments in place of the launch module's
+    call), the whole wrapper and one `torch.gather` call."""
+    import ctypes
+
+    from balancedgroupsoftmax_torch import cuda
+
+    p, r, n = planes.shape
+    g, k = idx.shape
+
+    def check_plain(t, dtype, shape):
+        if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise AssertionError("refused")
+
+    out = planes.new_empty((g, r, k))
+    kernel = cuda.GATHER_LANES
+    launch = kernel.bind()
+    ctypes_fn = getattr(ctypes.CDLL(str(cuda.build()[0])), kernel.symbol)
+    ctypes_fn.argtypes = cuda.SIGNATURES[kernel.symbol]
+    ctypes_fn.restype = ctypes.c_int
+    stream = cuda.current_stream()
+    args = (planes.data_ptr(), idx.data_ptr(), out.data_ptr(), g, r, k, n, groups_per_plane, stream)
+    src = planes[:, None].expand(p, groups_per_plane, r, n)
+    index = idx.long().view(p, groups_per_plane, 1, k).expand(p, groups_per_plane, r, k)
+    parts = {
+        "checks x2 (tuple(shape), device.type)": lambda: (check_plain(planes, torch.float32, (p, r, n)),
+                                                       check_plain(idx, torch.int32, (g, k))),
+        "checks x2": lambda: (cuda.check(planes, torch.float32, (p, r, n), "planes"),
+                              cuda.check(idx, torch.int32, (g, k), "idx")),
+        "torch.empty(g, r, k, dtype, device)": lambda: torch.empty(g, r, k, dtype=torch.float32, device=planes.device),
+        "new_empty(g, r, k)": lambda: planes.new_empty(g, r, k),
+        "stream (current_stream().cuda_stream)": lambda: torch.cuda.current_stream().cuda_stream,
+        "stream (raw)": cuda.current_stream,
+        "symbol lookup (getattr(library(), ...))": lambda: getattr(cuda.library(), kernel.symbol),
+        "data_ptr x3": lambda: (planes.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "ctypes call of 9 converted arguments and launch": lambda: ctypes_fn(*args),
+        "_bags_launch.launch call and launch": lambda: launch(kernel.address, kernel.kinds, *args),
+        "whole wrapper": lambda: ops_gather.gather_lanes(planes, idx, groups_per_plane),
+        "torch.gather": lambda: torch.gather(src, 3, index),
+    }
+    split = {name: host_us(torch, f) for name, f in parts.items()}
+    log(f"  K6 host cost a call (us, perf_counter over {HOST_CALLS} calls, {card_line()}): "
+        + ", ".join(f"{name} {us:.3f}" for name, us in split.items()))
+    return split
+
+
+def device_ms_per_launch(torch, fn, pattern: str, calls: int = 50) -> float:
+    """Device time of one launch of the kernels whose name holds `pattern`
+    (any CUDA kernel for ""), from the profiler over `calls` calls of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    self_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and self_us(e) > 0 and pattern in e.key]
+    count = sum(e.count for e in rows)
+    return float("nan") if not count else sum(self_us(e) for e in rows) / count / 1e3
 
 
 def pyramid(torch, dtype, dev, gen):
@@ -833,18 +943,32 @@ def k7_err(torch, ops_dcn, args) -> tuple[float, float]:
     return err, limit
 
 
-def dcn_case(torch, gen, b, h, w, c_in, c_out, groups, stride, modulated, scale, dev, dtype):
+def dcn_case(torch, gen, b, h, w, c_in, c_out, groups, stride, modulated, scale, dev, dtype, at_window=0):
     """K7 inputs with offsets of std `scale` cells, a quarter of them whole
-    numbers, and samples placed in the (-1, 0) and (H - 1, H) border bands."""
+    numbers, and samples placed in the (-1, 0) and (H - 1, H) border bands.
+    With `at_window` D > 0 instead: a third of the offsets exactly +-D, a
+    third just beyond (+-(D + 0.5)), and at the border rows and columns
+    offsets of D and D + 0.5 pointing out of the image, so that the staged
+    window's edges and its zero fill are read."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     x = torch.randn(b, h, w, c_in, generator=gen)
     off = torch.randn(b, ho, wo, 18, generator=gen) * scale
     whole = torch.rand(off.shape, generator=gen) < 0.25
     off[whole] = off[whole].round()
-    off[:, 0, :, 0] = 0.5  # tap (0, 0) of the first row samples at y = -0.5
-    off[:, :, 0, 1] = 0.25  # ... and of the first column at x = -0.75
-    off[:, -1, :, 16] = h - 0.5 - ((ho - 1) * stride + 1)  # tap (2, 2) of the last row at y = H - 0.5
-    off[:, :, -1, 17] = w - 0.5 - ((wo - 1) * stride + 1)
+    if at_window:
+        d = float(at_window)
+        sign = torch.where(torch.rand(off.shape, generator=gen) < 0.5, -1.0, 1.0)
+        pick = torch.rand(off.shape, generator=gen)
+        off = torch.where(pick < 1 / 3, sign * d, torch.where(pick < 2 / 3, sign * (d + 0.5), off))
+        off[:, 0, :, 0::2] = -d
+        off[:, -1, :, 0::2] = d + 0.5
+        off[:, :, 0, 1::2] = -(d + 0.5)
+        off[:, :, -1, 1::2] = d
+    else:
+        off[:, 0, :, 0] = 0.5  # tap (0, 0) of the first row samples at y = -0.5
+        off[:, :, 0, 1] = 0.25  # ... and of the first column at x = -0.75
+        off[:, -1, :, 16] = h - 0.5 - ((ho - 1) * stride + 1)  # tap (2, 2) of the last row at y = H - 0.5
+        off[:, :, -1, 17] = w - 0.5 - ((wo - 1) * stride + 1)
     weight = torch.randn(c_out, c_in // groups, 3, 3, generator=gen) / (9 * c_in / groups) ** 0.5
     mask = torch.rand(b, ho, wo, 9, generator=gen).to(dev) if modulated else None
     return x.to(dev, dtype), off.to(dev), weight.to(dev, dtype), mask
@@ -853,7 +977,10 @@ def dcn_case(torch, gen, b, h, w, c_in, c_out, groups, stride, modulated, scale,
 def check_k7_edges(torch, ops_dcn, dev) -> None:
     """K7 against its plain version on edge cases, in f32 and bf16: the
     clamp (offsets of std 3 cells at D = 4), the border bands, D = 0, stride
-    2, and v2 with a mask and output groups narrower than the input ones."""
+    2, v2 with a mask and output groups narrower than the input ones, groups
+    of 4 channels with 12 outputs (a k16 step over four taps, o_g padded),
+    offsets at and beyond +-D at the border (stride 2), and a c5-like layer
+    whose 13 x 21 positions leave a ragged last tile."""
     from balancedgroupsoftmax_torch import cuda
 
     gen = torch.Generator().manual_seed(13)
@@ -863,18 +990,23 @@ def check_k7_edges(torch, ops_dcn, dev) -> None:
         ("D=0 c5 groups", dict(h=13, w=21, c_in=2048, c_out=2048, groups=64, stride=1, modulated=False, scale=2.0), 0),
         ("v2 mask D=4", dict(h=33, w=27, c_in=256, c_out=192, groups=8, stride=1, modulated=True, scale=2.5), 4),
         ("v2 mask D=0 stride 2", dict(h=33, w=27, c_in=64, c_out=64, groups=1, stride=2, modulated=True, scale=2.5), 0),
+        ("c_g 4 o_g 12 D=4", dict(h=33, w=27, c_in=64, c_out=192, groups=16, stride=1, modulated=False, scale=2.5), 4),
+        ("offsets at +-D and beyond, border, stride 2", dict(h=41, w=57, c_in=512, c_out=512, groups=64, stride=2,
+                                                             modulated=False, scale=2.0, at_window=4), 4),
+        ("ragged c5 tiles D=4", dict(h=13, w=21, c_in=2048, c_out=2048, groups=64, stride=1, modulated=False, scale=2.0), 4),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for label, kw, window in cases:
             stride = kw["stride"]
             x, off, weight, mask = dcn_case(torch, gen, 2, kw["h"], kw["w"], kw["c_in"], kw["c_out"], kw["groups"],
-                                            stride, kw["modulated"], kw["scale"], dev, dtype)
+                                            stride, kw["modulated"], kw["scale"], dev, dtype, kw.get("at_window", 0))
             before = cuda.DEFORM_CONV.launches
             err, limit = k7_err(torch, ops_dcn, (x, off, weight, mask, stride, 1, kw["groups"], window))
             if cuda.DEFORM_CONV.launches != before + 1:
                 raise AssertionError(f"K7 {label}: the wrapper did not launch the kernel")
             log(f"  K7 {label} {str(dtype)[6:]}: max |kernel - plain| = {err:.3e} (limit {limit:.3e}), "
-                f"{(off.abs() > 4).float().mean().item():.3f} of offsets beyond +-4")
+                f"{(off.abs() > 4).float().mean().item():.3f} of offsets beyond +-4, "
+                f"{(off.abs() == 4).float().mean().item():.3f} at +-4")
 
 
 def spread_offsets(torch, model, images, target: float = 2.0) -> None:

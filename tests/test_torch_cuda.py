@@ -177,6 +177,21 @@ def test_gather_lanes_is_bit_equal_to_plain(dev, groups_per_plane, k, n):
     assert (out[0, :, :3] == 0).all()
 
 
+def test_launches_go_on_the_current_stream(dev):
+    """The raw stream every launch is queued on is PyTorch's current one, on
+    the default stream and inside `torch.cuda.stream`."""
+    assert cuda.current_stream() == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert cuda.current_stream() == side.cuda_stream != torch.cuda.default_stream().cuda_stream
+        from balancedgroupsoftmax_torch.ops import gather as ops_gather
+
+        planes, idx = (torch.from_numpy(a).to(dev) for a in lane_gather_case(5))
+        out = ops_gather.gather_lanes(planes, idx, 8)
+    side.synchronize()
+    assert torch.equal(out, ops_gather.gather_lanes_reference(planes, idx, 8))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_roi_align_matches_plain(dev, dtype):
     rng = np.random.RandomState(0)
@@ -226,23 +241,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops_gather.gather_lanes(torch.zeros(1, 4, 8, device=dev), torch.zeros(2, 3, dtype=torch.int64, device=dev), 2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "window,stride,groups,c_in,c_out,modulated",
-    [
-        (4, 2, 64, 512, 512, False),  # the X101's first c3 block: groups of 8
-        (4, 1, 64, 1024, 1024, False),  # c4: groups of 16
-        (4, 1, 64, 2048, 2048, False),  # c5: groups of 32
-        (0, 1, 8, 128, 128, False),  # no clamp
-        (0, 2, 4, 32, 24, True),  # v2, output groups narrower than input ones
-        (4, 1, 1, 16, 16, True),
-    ],
-)
-def test_deform_conv_matches_plain(dev, dtype, window, stride, groups, c_in, c_out, modulated):
-    x, off, weight, mask = deform_case(c_in + stride, c_in, c_out, groups, stride, window, modulated, hw=(23, 37))
+DEFORM_HW = (23, 37)
+DEFORM_CASES = [  # window, stride, groups, c_in, c_out, modulated; at DEFORM_HW
+    (4, 2, 64, 512, 512, False),  # the X101's first c3 block: groups of 8
+    (4, 1, 64, 1024, 1024, False),  # c4: groups of 16
+    (4, 1, 64, 2048, 2048, False),  # c5: groups of 32
+    (0, 1, 8, 128, 128, False),  # no clamp
+    (0, 2, 4, 32, 24, True),  # v2, output groups narrower than input ones
+    (4, 1, 1, 16, 16, True),
+]
+DEFORM_SHAPES = [  # window, stride, groups, c_in, c_out, hw
+    (4, 1, 16, 64, 192, (23, 37)),  # c_g = 4, o_g = 12: a k16 step spans four taps, o_g padded to 16
+    (4, 1, 64, 2048, 2048, (13, 21)),  # c5-like: 13 x 21 positions leave a ragged last tile both ways
+]
+WINDOW_EDGE = (4, 2, 64, 512, 512, (23, 37))  # window, stride, groups, c_in, c_out, hw
+
+
+def _deform_matches_plain(dev, dtype, x, off, weight, mask, stride, groups, window):
     x, weight = (torch.from_numpy(a).to(dev, dtype) for a in (x, weight))
     off = torch.from_numpy(off).to(dev)
-    mask = torch.from_numpy(mask).to(dev) if modulated else None
+    mask = None if mask is None else torch.from_numpy(mask).to(dev)
     before = cuda.DEFORM_CONV.launches
     out = ops_dcn.deform_conv2d(x, off, weight, mask, stride, 1, groups, window)
     assert cuda.DEFORM_CONV.launches == before + 1
@@ -250,6 +268,48 @@ def test_deform_conv_matches_plain(dev, dtype, window, stride, groups, c_in, c_o
     top = ref.abs().max().item()
     assert out.dtype == dtype and out.shape == ref.shape
     assert (out.float() - ref).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2.0**-7) * top
+
+
+def window_edge_offsets(off, window, seed):
+    """Offsets at the shift window's edge: a third exactly +-D, a third just
+    beyond (+-(D + 0.5)), the rest as they were; and at the border rows and
+    columns, offsets of D and D + 0.5 pointing out of the image, so that the
+    staged window's edges and its zero fill are read."""
+    rng = np.random.RandomState(seed)
+    off = off.copy()
+    sign = np.where(rng.rand(*off.shape) < 0.5, -1.0, 1.0)
+    pick = rng.rand(*off.shape)
+    off[pick < 1 / 3] = (sign * window)[pick < 1 / 3]
+    beyond = (pick >= 1 / 3) & (pick < 2 / 3)
+    off[beyond] = (sign * (window + 0.5))[beyond]
+    off[:, 0, :, 0::2] = -window  # first row: dy up to the window's top edge
+    off[:, -1, :, 0::2] = window + 0.5  # last row: dy beyond the bottom edge
+    off[:, :, 0, 1::2] = -(window + 0.5)  # first column: dx beyond the left edge
+    off[:, :, -1, 1::2] = window  # last column: dx at the right edge
+    return off.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,stride,groups,c_in,c_out,modulated", DEFORM_CASES)
+def test_deform_conv_matches_plain(dev, dtype, window, stride, groups, c_in, c_out, modulated):
+    x, off, weight, mask = deform_case(c_in + stride, c_in, c_out, groups, stride, window, modulated, hw=DEFORM_HW)
+    _deform_matches_plain(dev, dtype, x, off, weight, mask if modulated else None, stride, groups, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,stride,groups,c_in,c_out,hw", DEFORM_SHAPES)
+def test_deform_conv_narrow_groups_and_ragged_tiles_match_plain(dev, dtype, window, stride, groups, c_in, c_out, hw):
+    x, off, weight, _ = deform_case(c_in + groups, c_in, c_out, groups, stride, window, False, hw=hw)
+    _deform_matches_plain(dev, dtype, x, off, weight, None, stride, groups, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("modulated", [False, True], ids=["v1", "v2"])
+def test_deform_conv_offsets_at_and_beyond_the_window_match_plain(dev, dtype, modulated):
+    window, stride, groups, c_in, c_out, hw = WINDOW_EDGE
+    x, off, weight, mask = deform_case(41, c_in, c_out, groups, stride, window, modulated, hw=hw)
+    off = window_edge_offsets(off, window, 42)
+    _deform_matches_plain(dev, dtype, x, off, weight, mask if modulated else None, stride, groups, window)
 
 
 def test_deform_conv_refuses_what_the_kernel_does_not_take(dev):
@@ -264,6 +324,8 @@ def test_deform_conv_refuses_what_the_kernel_does_not_take(dev):
         ops_dcn.deform_conv2d(x.transpose(1, 2), off, w, None, 1, 1, 4, 4)
     with pytest.raises(ValueError):  # groups that do not split the channels
         ops_dcn.deform_conv2d(x, off, w, None, 1, 1, 3, 4)
+    with pytest.raises(ValueError):  # bf16 groups of 2 channels: not 8-byte pieces
+        ops_dcn.deform_conv2d(x.bfloat16(), off, torch.zeros(16, 2, 3, 3, device=dev).bfloat16(), None, 1, 1, 8, 4)
 
 
 def fused_block_case(seed, cin, cm, cout, downsample, b=2, hw=(13, 37)):

@@ -22,8 +22,18 @@ from balancedgroupsoftmax_tpu.ops.deform_conv import deform_conv2d as jax_deform
 from balancedgroupsoftmax_torch import cuda
 from balancedgroupsoftmax_torch.convert import bottleneck_from_flax, conv_from_flax
 from balancedgroupsoftmax_torch.models.resnet import Bottleneck
-from balancedgroupsoftmax_torch.ops.deform_conv import DeformConv, deform_conv2d, deform_conv2d_reference
-from test_torch_cuda import deform_case
+from balancedgroupsoftmax_torch import zoo
+from balancedgroupsoftmax_torch.models.resnet import ARCH_SETTINGS
+from balancedgroupsoftmax_torch.ops.deform_conv import (
+    SHARED_BYTES,
+    SMS,
+    DeformConv,
+    deform_conv2d,
+    deform_conv2d_reference,
+    launch_plan,
+    plan_shared_bytes,
+)
+from test_torch_cuda import DEFORM_CASES, DEFORM_HW, DEFORM_SHAPES, WINDOW_EDGE, deform_case
 
 TOL = 1e-5
 
@@ -127,3 +137,60 @@ def test_dcn_bottleneck_matches_jax(stride):
     assert block.conv2.weight.shape == (32, 4, 3, 3)  # width int(64 * 4 / 64) * 8, 8 groups
     got = block(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
     _close(got.permute(0, 2, 3, 1).detach().numpy(), want)
+
+
+def htc_dcn_layers(batch=2, size=(800, 1344)):
+    """(B, H, W, C, groups, stride, D) of the input of each deformable layer
+    of gs HTC X101-64x4d DCN c3-c5 at `size`, from the zoo's config and the
+    port's ResNet (stem: a 7x7 stride-2 conv and a stride-2 max pool; the
+    stride on the first 3x3 of each stage after the first)."""
+    cfg = zoo.htc_x101_64x4d_fpn_lvis(use_gs=True, dcn=True).backbone
+    h, w = ((s + 2 * 3 - 7) // 2 + 1 for s in size)
+    h, w = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
+    layers = []
+    for stage, blocks in enumerate(ARCH_SETTINGS[cfg.depth]):
+        width = int(64 * 2**stage * cfg.base_width / 64) * cfg.groups
+        for blk in range(blocks):
+            stride = (1 if stage == 0 else 2) if blk == 0 else 1
+            if cfg.dcn_stages[stage]:
+                layers.append((batch, h, w, width, cfg.dcn_groups or cfg.groups, stride, cfg.dcn_shift_window))
+            h, w = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return layers
+
+
+def card_test_layers():
+    """The same tuples, with C_out, for every K7 shape of tests/test_torch_cuda.py."""
+    cases = [(2, *DEFORM_HW, c_in, g, s, d, c_out) for d, s, g, c_in, c_out, _ in DEFORM_CASES]
+    cases += [(2, *hw, c_in, g, s, d, c_out) for d, s, g, c_in, c_out, hw in DEFORM_SHAPES + [WINDOW_EDGE]]
+    return cases
+
+
+def test_htc_dcn_layers_are_the_x101s():
+    layers = htc_dcn_layers()
+    assert len(layers) == 30
+    assert layers[0] == (2, 200, 336, 512, 64, 2, 4)  # c3's first block: stride 2 on the 200 x 336 map
+    assert layers[4] == (2, 100, 168, 1024, 64, 2, 4) and layers[5] == (2, 50, 84, 1024, 64, 1, 4)
+    assert layers[-1] == (2, 25, 42, 2048, 64, 1, 4)
+
+
+@pytest.mark.parametrize(
+    "layer",
+    [(*shape, shape[3]) for shape in htc_dcn_layers()] + card_test_layers(),
+    ids=[f"htc{i}" for i in range(30)] + [f"card{i}" for i in range(len(card_test_layers()))],
+)
+def test_launch_plan_fits_and_fills_the_card(layer):
+    """K7's bf16 launch plan at every HTC-DCN layer (800 x 1344, batch 2) and
+    every card-test shape: whole groups in chunks of 16-byte pieces, shared
+    memory within 227 KB (and what csrc/deform_conv.cu lays out), and a grid
+    of at least two blocks an SM, or all the blocks the layer has."""
+    b, h, w, c, groups, stride, window, c_out = layer
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    c_g, o_g = c // groups, c_out // groups
+    plan = launch_plan(b, ho, wo, c, groups, c_out, 3, 3, stride, window)
+    assert plan is not None
+    assert plan.cc % 8 == 0 and plan.cc % c_g == 0 and c % plan.cc == 0 and (c // plan.cc) % plan.nch == 0
+    assert plan.smem == plan_shared_bytes(plan.th, plan.tw, plan.cc, c_g, o_g, 3, 3, stride, window)
+    assert plan.smem <= SHARED_BYTES
+    tiles = b * -(-ho // plan.th) * -(-wo // plan.tw)
+    assert plan.blocks == tiles * (c // plan.cc) // plan.nch
+    assert plan.blocks >= 2 * SMS or plan.nch == 1
