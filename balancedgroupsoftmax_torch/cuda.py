@@ -61,10 +61,10 @@ SIGNATURES = {
     "bags_nms_keep_coords": (_P, _P, _P, _P, _I, _I, _F, _P),
     "bags_gather_lanes": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bags_roi_align_forward": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),
     "bags_roi_align_backward": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
     "bags_deform_conv_forward": (
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1,9 +1,10 @@
-"""Where K7's time goes, and what one launch costs on the card's host.
+"""Where K7's and K2b's time goes, and what one launch costs on the card's host.
 
     python3 -m balancedgroupsoftmax_torch.kernel_study
 
-Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu` into a
-temporary directory and leaves the package's own build alone. It prints:
+Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu` and
+`csrc/roi_align.cu` into a temporary directory and leaves the package's own
+build alone. It prints:
 
 1. K7 (bf16, D = 4) at the HTC X101's four kinds of deformable layer at
    800 x 1344, batch 2 (c3's stride-2 first layer, c3, c4, c5), with the
@@ -17,7 +18,11 @@ temporary directory and leaves the package's own build alone. It prints:
 3. the host's cost of one launch: an empty kernel with K6's nine arguments
    launched from C in a loop, through the static and the shared CUDA
    runtime, the same launch through one ctypes call, and through
-   `_bags_launch.launch` (cuda.py's launch path).
+   `_bags_launch.launch` (cuda.py's launch path);
+4. K2b at the training shape, whole and with its atomics made plain stores
+   or its writes cut out, beside the f32 buffer's memset and cast alone:
+   what the scatter's atomics cost; and how many updates a scatter makes by
+   sample corner, by distinct pixel of each bin and of each roi.
 
 Its inputs are seeded; offsets have a spread of 2 cells, as in
 `chip_smoke.py`'s HTC phase.
@@ -51,6 +56,12 @@ CUTS = {  # part cut out: (text in deform_conv.cu, its replacement)
     "products": ("    for (int u = warp; u < units; u += kThreads / 32) {",
                  "    if (0) for (int u = warp; u < units; u += kThreads / 32) {"),
     "copies": ("  for (int pix = threadIdx.x < step * nq", "  if (0) for (int pix = threadIdx.x < step * nq"),
+}
+K2B_CUTS = {  # K2b's part cut out: (text in roi_align.cu, its replacement)
+    "atomics (plain stores)": ("    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));",
+                               "    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);"),
+    "writes": ("            if (c0 < channels) add4<VEC>(dst + c0, min(4, channels - c0), sum[u]);",
+               "            if (c0 < channels && sum[u][0] == 1.0e30f) add4<VEC>(dst + c0, min(4, channels - c0), sum[u]);"),
 }
 LAUNCH_BENCH = r"""
 #include <cuda_runtime.h>
@@ -88,27 +99,34 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_variants(tmp: Path) -> dict:
-    """The packed K7 launcher of each variant of deform_conv.cu."""
-    src = (cuda.CSRC / "deform_conv.cu").read_text()
+def build_variants(tmp: Path, source: str, symbol: str, cuts: dict, extra: dict = {}) -> dict:
+    """The packed launcher `symbol` of each variant of `source`: whole, with
+    each cut of `cuts` (name: (text, its replacement)), and with each set of
+    cuts in `extra` (name: cut names) made together."""
+    src = (cuda.CSRC / source).read_text()
     texts = {"whole": src}
-    for name, (old, new) in CUTS.items():
+    for name, (old, new) in cuts.items():
         if src.count(old) != 1:
-            raise RuntimeError(f"deform_conv.cu no longer holds the {name} loop this study cuts out")
+            raise RuntimeError(f"{source} no longer holds the {name} text this study cuts out")
         texts[f"no {name}"] = src.replace(old, new)
-    texts["no weights, sampling, copies"] = texts["no weights"].replace(*CUTS["sampling"]).replace(*CUTS["copies"])
+    for name, parts in extra.items():
+        text = src
+        for part in parts:
+            text = text.replace(*cuts[part])
+        texts[name] = text
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
-        (tmp / f"v{i}.cu").write_text(text)
-        procs[name] = (i, subprocess.Popen(
-            [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-shared", str(tmp / f"v{i}.cu"), "-o",
-             str(tmp / f"libv{i}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        stem = f"{Path(source).stem}_v{i}"
+        (tmp / f"{stem}.cu").write_text(text)
+        procs[name] = (stem, subprocess.Popen(
+            [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-shared", str(tmp / f"{stem}.cu"), "-o",
+             str(tmp / f"lib{stem}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
-    for name, (i, proc) in procs.items():
+    for name, (stem, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the variant '{name}':\n{log}")
-        fn = getattr(ctypes.CDLL(str(tmp / f"libv{i}.so")), "bags_deform_conv_forward_packed")
+        fn = getattr(ctypes.CDLL(str(tmp / f"lib{stem}.so")), f"{symbol}_packed")
         fns[name] = ctypes.cast(fn, ctypes.c_void_p).value
     return fns
 
@@ -168,6 +186,52 @@ def study_k7(fns: dict) -> None:
               + "; ".join(f"{t:.4f} ms {p}" for t, p, _ in rows[:6]), flush=True)
 
 
+def study_k2b(fns: dict) -> None:
+    """K2b at the training shape (B = 2, R = 512 an image, S = 7, C = 256,
+    bf16, 800 x 1344, proposal-like rois as chip_smoke.py draws them): each
+    variant's launch (memset, scatter, cast), and the memset and cast alone
+    (R = 0), medians of 3 runs of 20 launches."""
+    from .ops import roi_align as ops_roi
+
+    gen = torch.Generator().manual_seed(7)
+    b, r, strides = 2, 512, (4, 8, 16, 32)
+    shapes = [(-(-800 // s), -(-1344 // s)) for s in strides]
+    side = torch.exp(torch.empty(b, r, 2).uniform_(2.0, 6.7, generator=gen))
+    x1, y1 = torch.rand(b, r, generator=gen) * 1343, torch.rand(b, r, generator=gen) * 799
+    rois = torch.stack([x1, y1, (x1 + side[..., 0]).clamp(max=1343), (y1 + side[..., 1]).clamp(max=799)], -1).cuda()
+    levels = ops_roi.map_roi_levels(rois, 4)
+    grad = torch.randn(b, r, 7, 7, 256, generator=gen).to("cuda", torch.bfloat16)
+    total = sum(b * h * w * 256 for h, w in shapes)
+    acc = torch.empty(total, device="cuda")
+    out = torch.empty(total, dtype=torch.bfloat16, device="cuda")
+    _, lv = ops_roi._level_args(tuple(shapes), strides)
+    launch = cuda.launch_module().launch
+
+    def call(address, rois_n):
+        args = (1, 4, *lv, rois.data_ptr(), levels.data_ptr(), grad.data_ptr(), acc.data_ptr(), out.data_ptr(), b,
+                rois_n, 256, 7, 2)
+        return lambda: launch(address, cuda.ROI_ALIGN_BACKWARD.kinds, *args, cuda.current_stream())
+
+    # what a scatter updates: every sample corner; each bin's distinct pixels;
+    # each roi's distinct pixels (what K2b adds, one atomic a 4-channel piece)
+    index, weight, valid = ops_roi.sample_points(shapes, rois, strides, levels=levels)
+    n = index.shape[1]
+    corner = lambda t: t.reshape(4, n, 7, 2, 7, 2).permute(1, 2, 4, 0, 3, 5).reshape(n, 7, 7, 16)
+    live = corner(valid.expand(4, -1, -1, -1)) & (corner(weight) != 0)
+    keys = torch.where(live, corner(index), torch.full_like(corner(index), -1))
+
+    def distinct(k):
+        k = k.sort(dim=-1).values
+        return int(((k[..., 1:] != k[..., :-1]) & (k[..., 1:] >= 0)).sum() + (k[..., 0] >= 0).sum())
+
+    print(f"K2b, training shape: {int(live.sum())} sample corners, {distinct(keys)} pixels of bins, "
+          f"{distinct(keys.reshape(n, -1))} pixels of rois, over {sum(b * h * w for h, w in shapes)} pyramid pixels",
+          flush=True)
+    times = {v: statistics.median(cuda_time_ms(call(fn, r), 20) for _ in range(3)) for v, fn in fns.items()}
+    times["memset and cast alone (R = 0)"] = statistics.median(cuda_time_ms(call(fns["whole"], 0), 20) for _ in range(3))
+    print("K2b, training shape: ms " + ", ".join(f"{v} {t:.4f}" for v, t in times.items()), flush=True)
+
+
 def study_launch(tmp: Path) -> None:
     (tmp / "launch.cu").write_text(LAUNCH_BENCH)
     stream = cuda.current_stream()
@@ -205,7 +269,9 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(f"{card}; torch {torch.__version__}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        study_k7(build_variants(Path(tmp)))
+        study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
+                                {"no weights, sampling, copies": ("weights", "sampling", "copies")}))
+        study_k2b(build_variants(Path(tmp), "roi_align.cu", "bags_roi_align_backward", K2B_CUTS))
         study_launch(Path(tmp))
     return 0
 

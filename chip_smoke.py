@@ -61,7 +61,15 @@ JAX package, neither kernel is wired into `predict`.
 Phase 2 also holds K7 against its plain version on edge cases: the clamp,
 the border bands, D = 0, stride 2, v2 with a mask, groups of 4 channels with
 12 outputs, offsets at and beyond +-D at the border, and a c5-like layer
-with ragged last tiles, in f32 and bf16.
+with ragged last tiles, in f32 and bf16. It holds and times K2 at HTC's two
+other shapes (the mask pooling, 300 rois an image at 14 x 14, and the
+semantic pooling over one stride-8 level), holds K2 and K2b on edge cases
+(S = 14, one level, C = 12, rois outside the image, zero-area rois, R = 0)
+in f32 and bf16, checks that the levels K2 routes by inside its launch equal
+map_roi_levels' at rois on the level boundaries, and times K2b beside its
+f32 buffer's memset and cast alone and beside four per-level casts. The
+HTC phase reports K2's device time over its 8 launches and how many device
+kernels map_roi_levels launches a call.
 
 It prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -383,33 +391,113 @@ def main_rois(torch, dev, gen, r=1000):
     return rois.to(dev)
 
 
+def k2_bound(torch, ops_roi, feats, rois, strides, out_size) -> tuple[float, str]:
+    """K2's least time: the pixels its samples touch, the rois and its output,
+    each moved once, against SAMPLE_OPS a sample and channel."""
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    index, _, valid = ops_roi.sample_points(shapes, rois, strides, out_size)
+    touched = torch.unique(index[:, valid]).numel()
+    c, size = feats[0].shape[-1], feats[0].element_size()
+    out_elems = rois.shape[0] * rois.shape[1] * out_size * out_size * c
+    return bound(touched * c * size + rois.numel() * 4 + out_elems * size, out_elems * 4 * SAMPLE_OPS)
+
+
+def k2_matches(torch, ops_roi, feats, rois, strides, out_size, label) -> float:
+    """K2 against its plain version on the same inputs: f32 equal up to 1e-5
+    (the same operations in the same order, |x| <= ~5), bf16 within one bf16
+    step (2^-7 relative) of the largest value, should an f32 sum differ in
+    its last bit. Returns the largest difference."""
+    out = ops_roi.multilevel_roi_align(feats, rois, strides, out_size)
+    ref = ops_roi.multilevel_roi_align_reference(feats, rois, strides, out_size)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"K2 {label}: {out.dtype} {tuple(out.shape)}, plain {ref.dtype} {tuple(ref.shape)}")
+    if not ref.numel():
+        log(f"  K2 {label}: empty output, as the plain version's")
+        return 0.0
+    err = (out.float() - ref.float()).abs().max().item()
+    limit = 1e-5 if feats[0].dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    log(f"  K2 {label}: max |kernel - plain| = {err:.3e} (limit {limit:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"K2 {label}: max abs err {err} above {limit}")
+    return err
+
+
+def roi_edges(torch, dev, gen, c=256):
+    """K2's and K2b's edge cases on a 256 x 384 image, batch 2: name ->
+    (features (f32) per level, rois, strides, out_size). S = 14; a one-level
+    stride-8 pyramid; C = 12 (no multiple of a 16-byte piece); rois wholly
+    outside the image; zero-area rois (x2 = x1 - 1, y2 = y1 - 1); R = 0."""
+    h, w = 256, 384
+    side = torch.exp(torch.empty(MAIN_BATCH, 200, 2).uniform_(2.0, 6.5, generator=gen))
+    xy = torch.rand(MAIN_BATCH, 200, 2, generator=gen) * torch.tensor([w, h])
+    rois = torch.cat([xy, xy + side], -1)
+    far = torch.where(torch.rand(MAIN_BATCH, 200, 1, generator=gen) < 0.5, 2000.0, -2000.0)
+    level = lambda s, ch: torch.randn(MAIN_BATCH, -(-h // s), -(-w // s), ch, generator=gen)
+    fpn = [level(s, c) for s in (4, 8, 16, 32)]
+    cases = {
+        "S=14": (fpn, rois, (4, 8, 16, 32), 14),
+        "one level": ([level(8, c)], rois, (8,), 7),
+        "C=12": ([level(s, 12) for s in (4, 8, 16, 32)], rois, (4, 8, 16, 32), 7),
+        "outside": (fpn, rois + far, (4, 8, 16, 32), 7),
+        "zero area": (fpn, torch.cat([xy, xy - 1], -1), (4, 8, 16, 32), 7),
+        "R=0": (fpn, rois[:, :0], (4, 8, 16, 32), 7),
+    }
+    return {k: ([f.to(dev) for f in fs], r.contiguous().to(dev), st, s) for k, (fs, r, st, s) in cases.items()}
+
+
+def boundary_rois(torch, finest_scale=56):
+    """(1, R, 4) rois whose sqrt(area) / finest_scale + 1e-6 lies within a
+    few f32 steps of 2, 4 and 8, where map_roi_levels' rounding decides the
+    level: squares and rectangles of five aspect ratios, one side swept step
+    by step (tests/test_torch_cuda.py builds the same)."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    rois = []
+    for k in (1, 2, 3):
+        side = np.float32(finest_scale * (2.0**k - 1e-6))
+        for ratio in (1.0, 2.0, 0.5, 1.5, 0.75):
+            w = np.float32(side * ratio)
+            h0 = np.float32(np.float64(side) ** 2 / np.float64(w))
+            hs = (np.array([h0]).view(np.int32) + np.arange(-40, 41, dtype=np.int32)).view(np.float32)
+            x1 = np.float32(rng.uniform(0, 50)) if ratio != 1.0 else np.float32(0)
+            y1 = np.float32(rng.uniform(0, 50)) if ratio != 1.0 else np.float32(0)
+            rois += [[x1, y1, x1 + w - 1, y1 + hh - 1] for hh in hs]
+    return torch.from_numpy(np.asarray(rois, np.float32)[None])
+
+
+def check_k2_levels(torch, ops_roi, dev) -> None:
+    """K2 routes each roi inside the launch: its levels must equal
+    map_roi_levels' on the card at the level boundaries, four levels and one."""
+    rois = boundary_rois(torch).to(dev)
+    for strides in ((4, 8, 16, 32), (8,)):
+        feats = [torch.zeros(1, 512 // s, 512 // s, 8, device=dev) for s in strides]
+        _, levels = ops_roi.roi_align_forward(feats, rois, strides, return_levels=True)
+        want = ops_roi.map_roi_levels(rois, len(strides))
+        torch.cuda.synchronize()
+        if not torch.equal(levels, want):
+            raise AssertionError(f"K2 routes {(levels != want).sum().item()} of {want.numel()} boundary rois otherwise")
+        log(f"  K2 levels at {want.numel()} boundary rois, {len(strides)} level(s): equal to map_roi_levels "
+            f"(levels {sorted(want.unique().tolist())})")
+
+
 def check_k2(torch, ops_roi, dev):
+    """K2 at Faster R-CNN's shape (the kernels line's row), then at HTC's
+    two other shapes -- the mask pooling (300 rois an image at 14 x 14 over
+    the FPN) and the semantic pooling (1000 rois at 7 x 7 over a one-level
+    stride-8 pyramid) -- each held to its plain version and timed, then the
+    edge cases in f32 and bf16 and the levels at the boundaries."""
     gen = torch.Generator().manual_seed(2)
     rois = main_rois(torch, dev, gen)
     strides = (4, 8, 16, 32)
     results = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, None)):
+    for dtype in (torch.float32, torch.bfloat16):
         feats = pyramid(torch, dtype, dev, gen)
-        out = ops_roi.multilevel_roi_align(feats, rois, strides)
-        ref = ops_roi.multilevel_roi_align_reference(feats, rois, strides)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # f32: the same operations in the same order, so equal up to 1e-5
-        # (|x| <= ~5); bf16: should an f32 sum differ in its last bit, it may
-        # round to the neighbouring bf16 value, one bf16 step (2^-7 relative)
-        limit = tol if tol is not None else 2.0**-7 * ref.float().abs().max().item()
-        log(f"  K2 {dtype}: max |kernel - plain| = {err:.3e} (limit {limit:.3e})")
-        if not err <= limit:
-            raise AssertionError(f"K2 {dtype}: max abs err {err} above {limit}")
-        results[dtype] = (feats, err)
+        results[dtype] = (feats, k2_matches(torch, ops_roi, feats, rois, strides, 7, f"{dtype}"))
     feats, err = results[torch.bfloat16]
-    lvl_shapes = [(f.shape[1], f.shape[2]) for f in feats]
-    index, _, valid = ops_roi.sample_points(lvl_shapes, rois, strides)
-    touched = torch.unique(index[:, valid]).numel()
-    out_elems = rois.shape[0] * rois.shape[1] * 49 * 256
-    nbytes = touched * 256 * 2 + rois.numel() * 4 + out_elems * 2
-    b_ms, b_by = bound(nbytes, out_elems * 4 * SAMPLE_OPS)
-    return dict(
+    b_ms, b_by = k2_bound(torch, ops_roi, feats, rois, strides, 7)
+    row = dict(
         name="roi_align_forward",
         route="cuda",
         source="balancedgroupsoftmax_torch/csrc/roi_align.cu",
@@ -422,6 +510,25 @@ def check_k2(torch, ops_roi, dev):
         library_ms=None,
         shape=f"B={MAIN_BATCH} R=1000 S=7 C=256 bf16, f32 err {results[torch.float32][1]:.3e}",
     )
+
+    h, w = MAIN_SIZE
+    semantic = [torch.randn(MAIN_BATCH, -(-h // 8), -(-w // 8), 256, generator=gen).to(dev, torch.bfloat16)]
+    htc = {
+        "HTC mask pooling B=2 R=300 S=14 C=256 bf16": (feats, main_rois(torch, dev, gen, 300), strides, 14),
+        "HTC semantic pooling B=2 R=1000 S=7 C=256 bf16, one stride-8 level": (semantic, rois, (8,), 7),
+    }
+    for label, (fs, rs, st, size) in htc.items():
+        e = k2_matches(torch, ops_roi, fs, rs, st, size, label)
+        ms = cuda_time_ms(lambda: ops_roi.multilevel_roi_align(fs, rs, st, size), 20)
+        plain = cuda_time_ms(lambda: ops_roi.multilevel_roi_align_reference(fs, rs, st, size), 3)
+        bms, bby = k2_bound(torch, ops_roi, fs, rs, st, size)
+        log(f"  K2 {label}: max err {e:.3e}, kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+            f"bound {bms:.5f} ms ({bby})")
+    for label, (fs, rs, st, size) in roi_edges(torch, dev, gen).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            k2_matches(torch, ops_roi, [f.to(dtype) for f in fs], rs, st, size, f"{label} {dtype}")
+    check_k2_levels(torch, ops_roi, dev)
+    return row
 
 
 def check_k3(torch, ops_nms, dev):
@@ -486,42 +593,71 @@ def check_k4(torch, ops_nms, dev):
     )
 
 
+def k2b_matches(torch, ops_roi, grad, rois, shapes, strides, out_size, dtype, label, levels=None) -> float:
+    """K2b against its plain version: atomics sum in another order than
+    index_add_, so f32 within 1e-5 of the largest value, bf16 within one bf16
+    step (2^-7) of it. Returns the largest difference."""
+    out = ops_roi.roi_align_backward(grad, rois, shapes, strides, out_size, dtype=dtype, levels=levels)
+    ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, out_size, dtype=dtype)
+    torch.cuda.synchronize()
+    if any(o.shape != r.shape or o.dtype != r.dtype for o, r in zip(out, ref)):
+        raise AssertionError(f"K2b {label}: levels of other shapes or dtypes than the plain version's")
+    err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+    top = max(r.float().abs().max().item() for r in ref)
+    limit = (1e-5 if dtype == torch.float32 else 2.0**-7) * top
+    log(f"  K2b {label}: max |kernel - plain| = {err:.3e} (limit {limit:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"K2b {label}: max abs err {err} above {limit}")
+    return err
+
+
 def check_k2b(torch, ops_roi, dev):
     """K2b at the training head's shape: 512 rois an image on the 800 x 1344
-    pyramid, C=256, 7 x 7, sample_num 2."""
+    pyramid, C=256, 7 x 7, sample_num 2, with the levels K2 routed by (the
+    training path hands K2b the forward's). Timed beside the same scatter
+    with its f32 gradient cast by four per-level `.to` (one launch a level) and
+    beside the f32 buffer's memset and cast alone (R = 0). Then the edge
+    cases."""
     gen = torch.Generator().manual_seed(7)
     rois = main_rois(torch, dev, gen, TRAIN_ROIS)
     strides = (4, 8, 16, 32)
     h, w = MAIN_SIZE
     shapes = [(-(-h // s), -(-w // s)) for s in strides]
+    feats = [torch.zeros(MAIN_BATCH, a, b, 8, device=dev) for a, b in shapes]
+    _, levels = ops_roi.roi_align_forward(feats, rois, strides, return_levels=True)
+    del feats
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         grad = torch.randn(MAIN_BATCH, TRAIN_ROIS, 7, 7, 256, generator=gen).to(dev, dtype)
-        out = ops_roi.roi_align_backward(grad, rois, shapes, strides, dtype=dtype)
-        ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, dtype=dtype)
-        torch.cuda.synchronize()
-        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
-        top = max(r.float().abs().max().item() for r in ref)
-        # atomics sum in another order than index_add_: f32 within 1e-5 of
-        # the largest value, bf16 within one bf16 step (2^-7) of it
-        limit = (1e-5 if dtype == torch.float32 else 2.0**-7) * top
-        log(f"  K2b {dtype}: max |kernel - plain| = {err:.3e} (limit {limit:.3e})")
-        if not err <= limit:
-            raise AssertionError(f"K2b {dtype}: max abs err {err} above {limit}")
-        results[dtype] = (grad, err)
+        results[dtype] = (grad, k2b_matches(torch, ops_roi, grad, rois, shapes, strides, 7, dtype, f"{dtype}", levels))
     grad, err = results[torch.bfloat16]
     pyramid_elems = MAIN_BATCH * sum(a * b for a, b in shapes) * 256
     nbytes = grad.numel() * 2 + rois.numel() * 4 + pyramid_elems * 2
     b_ms, b_by = bound(nbytes, grad.numel() * 4 * SAMPLE_OPS)
+    bf16 = torch.bfloat16
+    fused, four_casts, buffer_only = interleaved_ms([
+        lambda: ops_roi.roi_align_backward(grad, rois, shapes, strides, dtype=bf16, levels=levels),
+        lambda: [g.to(bf16) for g in ops_roi.roi_align_backward(grad, rois, shapes, strides, levels=levels)],
+        lambda: ops_roi.roi_align_backward(grad[:, :0], rois[:, :0], shapes, strides, dtype=bf16, levels=levels[:, :0]),
+    ], 20, 3)
+    floor = bound(pyramid_elems * (4 + 4 + 2), 0)[0]
+    log(f"  K2b bf16, medians of 3 turns of 20 calls ({card_line()}): one cast pass {fused:.4f} ms, "
+        f"four per-level casts {four_casts:.4f} ms; the f32 buffer's memset and cast alone (R = 0) "
+        f"{buffer_only:.4f} ms, their floor {floor:.4f} ms at 3.35 TB/s")
+    for label, (fs, rs, st, size) in roi_edges(torch, dev, gen).items():
+        lshapes = [(f.shape[1], f.shape[2]) for f in fs]
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn(*rs.shape[:2], size, size, fs[0].shape[-1], generator=gen).to(dev, dtype)
+            k2b_matches(torch, ops_roi, g, rs, lshapes, st, size, dtype, f"{label} {dtype}")
     return dict(
         name="roi_align_backward",
         route="cuda",
         source="balancedgroupsoftmax_torch/csrc/roi_align.cu",
         replaces="balancedgroupsoftmax_tpu/pallas/roi_align.py:569",
         max_abs_err=err,
-        ms=cuda_time_ms(lambda: ops_roi.roi_align_backward(grad, rois, shapes, strides, dtype=torch.bfloat16), 20),
+        ms=cuda_time_ms(lambda: ops_roi.roi_align_backward(grad, rois, shapes, strides, dtype=bf16, levels=levels), 20),
         plain_ms=cuda_time_ms(
-            lambda: ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, dtype=torch.bfloat16), 3
+            lambda: ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, dtype=bf16), 3
         ),
         bound_ms=b_ms,
         bound_by=b_by,
@@ -676,6 +812,18 @@ def run_cascade_path(torch, dev):
         check_k6(torch, ops_gather, planes, idx, kw6["groups_per_plane"]),
     ]
     return launches, model, rows
+
+
+def kernels_per_call(torch, fn) -> int:
+    """The device kernels one call of `fn` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def profile_device(torch, label: str, fn, top: int = 12) -> dict:
@@ -1357,6 +1505,7 @@ def run_htc_path(torch, dev):
     against its plain version, and timed, on the inputs one more predict gave
     each deformable layer."""
     from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
+    from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
 
     t0 = time.perf_counter()
     model = htc_model(torch, dev)
@@ -1370,9 +1519,17 @@ def run_htc_path(torch, dev):
         call=model.predict_with_masks,
     )
     prof = profile_device(torch, "HTC predict_with_masks", lambda: model.predict_with_masks(*inputs), top=15)
-    k7 = [v for k, v in prof.items() if "deform_conv" in k]
-    if k7:
-        log(f"  K7 in the profiled predict: {sum(v[0] for v in k7):.4f} ms device over {sum(v[1] for v in k7)} launches")
+    for name, pattern in (("K7", "deform_conv"), ("K2", "roi_align_forward")):
+        rows = [v for k, v in prof.items() if pattern in k]
+        if rows:
+            log(f"  {name} in the profiled predict: {sum(v[0] for v in rows):.4f} ms device over "
+                f"{sum(v[1] for v in rows)} launches")
+    if prof:
+        # K2 routes inside its launch: what map_roi_levels would add before each K2 call
+        rois = main_rois(torch, dev, gen, 300)
+        routing = kernels_per_call(torch, lambda: ops_roi.map_roi_levels(rois, 4))
+        log(f"  device kernels in the profiled predict: {sum(v[1] for v in prof.values())}; "
+            f"map_roi_levels alone launches {routing}, {8 * routing} over 8 K2 calls")
     layers = capture_dcn(torch, lambda: model.predict_with_masks(*inputs))
     row = check_k7_path(torch, ops_dcn, layers)
     del layers

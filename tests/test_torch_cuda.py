@@ -14,7 +14,9 @@ a block's difference into the next). The deformable conv (K7) samples with
 the plain version's f32 operations in its order but contracts in another, so
 f32 agrees to 1e-5 of the largest |output| and bf16 to one bf16 step of it. Its gradient (K2b) sums with atomics,
 in an order that changes from run to run, so f32 agrees to 1e-5 relative to
-the largest value and bf16 to one bf16 step.
+the largest value and bf16 to one bf16 step. K2 routes each roi inside its
+launch, so its levels must equal map_roi_levels' exactly, at the level
+boundaries too.
 
 This file imports nothing of JAX, so it also holds the numpy-built inputs
 that the port's CPU tests share.
@@ -222,6 +224,110 @@ def test_roi_align_backward_matches_plain(dev, dtype, out_size):
         assert (f.grad.float() - r).abs().max().item() <= limit
 
 
+ROI_EDGES = ["s14", "one_level", "c12", "outside", "zero_area", "r0"]
+
+
+def roi_edge_case(name, seed):
+    """(feats as numpy, rois, strides, out_size) of one of K2's edge cases:
+    S = 14, a one-level stride-8 pyramid, C = 12 (no multiple of a 16-byte
+    piece, so pieces are read channel by channel), rois wholly outside the
+    image, zero-area rois (x2 = x1 - 1, y2 = y1 - 1) and R = 0."""
+    rng = np.random.RandomState(seed)
+    strides = (8,) if name == "one_level" else STRIDES
+    feats = [rng.randn(2, -(-IMAGE[0] // s), -(-IMAGE[1] // s), 12 if name == "c12" else 16).astype(np.float32)
+             for s in strides]
+    rois = rois_all_levels(rng)
+    if name == "outside":  # right of or below the image, or above and left of it
+        far = np.where(rng.rand(*rois.shape[:2], 1) < 0.5, 2000.0, -2000.0).astype(np.float32)
+        rois = rois + far
+    elif name == "zero_area":
+        rois[..., 2:] = rois[..., :2] - 1
+    elif name == "r0":
+        rois = rois[:, :0]
+    return feats, rois, strides, 14 if name == "s14" else 7
+
+
+def boundary_rois(finest_scale=56):
+    """(1, R, 4) rois whose sqrt(area) / finest_scale + 1e-6 lies within a
+    few f32 steps of 2, 4 and 8 (sqrt(area) near 112, 224 and 448), where
+    map_roi_levels' rounding decides the level: squares and rectangles of
+    five aspect ratios, one side swept step by step, some at fractional
+    corners."""
+    rng = np.random.RandomState(7)
+    rois = []
+    for k in (1, 2, 3):
+        side = np.float32(finest_scale * (2.0**k - 1e-6))
+        for ratio in (1.0, 2.0, 0.5, 1.5, 0.75):
+            w = np.float32(side * ratio)
+            h0 = np.float32(np.float64(side) ** 2 / np.float64(w))
+            hs = (np.array([h0]).view(np.int32) + np.arange(-40, 41, dtype=np.int32)).view(np.float32)
+            x1 = np.float32(rng.uniform(0, 50)) if ratio != 1.0 else np.float32(0)
+            y1 = np.float32(rng.uniform(0, 50)) if ratio != 1.0 else np.float32(0)
+            for h in hs:
+                rois.append([x1, y1, x1 + w - 1, y1 + h - 1])
+    return np.asarray(rois, np.float32)[None]
+
+
+def test_boundary_rois_straddle_the_level_boundaries():
+    levels = ops_roi.map_roi_levels(torch.from_numpy(boundary_rois()), 4)
+    assert set(levels.unique().tolist()) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ROI_EDGES)
+def test_roi_align_edges_match_plain(dev, dtype, case):
+    feats, rois, strides, out_size = roi_edge_case(case, ROI_EDGES.index(case))
+    feats = [torch.from_numpy(f).to(dev, dtype) for f in feats]
+    rois = torch.from_numpy(rois).to(dev)
+    out = ops_roi.multilevel_roi_align(feats, rois, strides, out_size)
+    ref = ops_roi.multilevel_roi_align_reference(feats, rois, strides, out_size).float()
+    assert out.dtype == dtype and out.shape == ref.shape
+    if case == "outside":
+        assert ref.abs().max().item() == 0
+    if ref.numel():
+        limit = 1e-5 if dtype == torch.float32 else 2.0**-7 * ref.abs().max().item()
+        assert (out.float() - ref).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (torch.float32, "c12"), (torch.bfloat16, "c12"), (torch.bfloat16, "s14"), (torch.bfloat16, "one_level"),
+    (torch.float32, "outside"), (torch.bfloat16, "zero_area"), (torch.float32, "r0"),
+])
+def test_roi_align_backward_edges_match_plain(dev, dtype, case):
+    feats, rois, strides, out_size = roi_edge_case(case, 10 + ROI_EDGES.index(case))
+    feats = [torch.from_numpy(f).to(dev, dtype).requires_grad_() for f in feats]
+    rois = torch.from_numpy(rois).to(dev)
+    c = feats[0].shape[-1]
+    grad = torch.from_numpy(np.random.RandomState(5).randn(*rois.shape[:2], out_size, out_size, c)
+                            .astype(np.float32)).to(dev, dtype)
+    before = cuda.ROI_ALIGN_BACKWARD.launches
+    ops_roi.multilevel_roi_align(feats, rois, strides, out_size).backward(grad)
+    assert cuda.ROI_ALIGN_BACKWARD.launches == before + 1
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, out_size, dtype=dtype)
+    top = max(r.float().abs().max().item() for r in ref)
+    if case in ("outside", "r0"):
+        assert top == 0
+    for f, r in zip(feats, ref):
+        assert f.grad.dtype == dtype and f.grad.shape == r.shape
+        limit = (1e-5 if dtype == torch.float32 else 2.0**-7) * r.float().abs().max().item()
+        assert (f.grad.float() - r.float()).abs().max().item() <= limit
+
+
+def test_roi_align_routes_as_map_roi_levels_at_the_boundaries(dev):
+    """K2's levels, routed inside the launch, equal map_roi_levels' on the
+    card at rois within a few f32 steps of each level boundary, for a
+    four-level and a one-level pyramid."""
+    rois = torch.from_numpy(boundary_rois()).to(dev)
+    for strides in (STRIDES, (8,)):
+        feats = [torch.zeros(1, 512 // s, 512 // s, 8, device=dev) for s in strides]
+        _, levels = ops_roi.roi_align_forward(feats, rois, strides, return_levels=True)
+        want = ops_roi.map_roi_levels(rois, len(strides))
+        assert levels.dtype == torch.int32
+        assert torch.equal(levels, want), f"{(levels != want).sum().item()} rois routed otherwise"
+    assert set(want.unique().tolist()) == {0}
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     boxes = torch.zeros(2, 8, 4, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
@@ -233,6 +339,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops_nms.nms_keep_tiled(boxes, torch.ones(2, 8, dtype=torch.bool, device=dev), 0.5)
     with pytest.raises(ValueError):  # a gradient of the wrong shape
         ops_roi.roi_align_backward(torch.zeros(1, 2, 7, 7, 5, device=dev), torch.zeros(1, 3, 4, device=dev), [(8, 8)], (4,))
+    with pytest.raises(ValueError):  # levels of another dtype than K2's int32
+        ops_roi.roi_align_backward(torch.zeros(1, 3, 7, 7, 8, device=dev), torch.zeros(1, 3, 4, device=dev), [(8, 8)],
+                                   (4,), levels=torch.zeros(1, 3, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):  # a sample_num the kernels are not built for
+        ops_roi.multilevel_roi_align([torch.zeros(1, 8, 8, 8, device=dev)], torch.zeros(1, 2, 4, device=dev), (4,), 7, 5)
     with pytest.raises(ValueError):  # (G, K, 4) boxes where K5 takes (G, 4, K) planes
         ops_nms.nms_keep_batched_coords(torch.zeros(2, 8, 4, device=dev), torch.ones(2, 8, dtype=torch.bool, device=dev), 0.5)
     from balancedgroupsoftmax_torch.ops import gather as ops_gather
