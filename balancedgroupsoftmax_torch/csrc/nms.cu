@@ -18,7 +18,7 @@
 // it. Invalid slots neither keep nor suppress. This equals the fixpoint the TPU
 // kernels iterate to.
 //
-// Design. Three steps, each a device function below:
+// Design of K1 and K3. Three steps, each a device function below:
 //  1. load a row's boxes (K3: gather them straight from the (G, 4, N) planes
 //     with plain loads, which are exact; the TPU needed a bf16x3 one-hot
 //     matmul to gather) into shared memory with their areas;
@@ -29,34 +29,54 @@
 //     removed set in a register, a shuffle tells every lane whether box i is
 //     still in, and a kept box ORs its mask row in.
 // K3 runs all three in one block per row: its B * 300 rows fill the card.
-// K1 has only G = B * 5 rows, so step 2 -- K^2 / 2 IoUs a row, most of its
-// time when one SM did a whole row -- runs as its own kernel over
+// K1 has only G = B * 5 rows, so step 2 runs as its own kernel over
 // (ceil(K/64) row blocks) x G, into a (G, K, ceil(K/64)) mask in device memory
-// that the walk kernel copies into shared memory. Only that mask goes
-// through device memory; the boxes are read once and the keep mask (and K3's
-// candidates) written once. K5 is K1 with another box loader: step 1 reads a
-// row's four coordinate planes (coalesced, where K1 reads 16-byte boxes), and
-// steps 2 and 3 are K1's kernels. Its mask pass has ceil(K/64) = 5 row blocks
-// for each of the 600 rows, which fill the card as K3's 600 blocks do.
+// that the walk kernel copies into shared memory.
 //
-// K4 shares K1's mask kernel and replaces only the walk. The TPU walked
-// 256-box tiles and iterated a fixpoint inside each; here a row's mask (512 KB
-// at K = 2000, more than a block's shared memory) stays in device memory (and
-// in L2: 5 MB for the ten training rows) and one warp walks it 64 boxes at a
-// time. For the chunk of boxes [64 c, 64 c + 64) it loads the chunk's diagonal
-// words (mask[i][c], two per lane), settles the chunk's keeps among
-// themselves with shuffles, starting from word c of the removed set, and then
-// ORs the rows of the boxes it kept into the later words of the removed set:
-// lane l accumulates words c + 1 + l, c + 33 + l, ..., eight row loads in
-// flight at a time. The removed set (ceil(K/64) words) sits in shared memory,
-// so any K works; the walk reads each kept box's row once, coalesced.
+// Design of K4 and K5. Both cut a row's K boxes into T = ceil(K/64)
+// blocks of 64 and keep the mask transposed, word (w, i) at [w * K + i]: bit
+// b is set when box i suppresses box 64 w + b. Only the T (T + 1) / 2 tiles
+// of 64 x 64 words on or above the diagonal (w >= i / 64) are ever built or
+// read: box i never suppresses an earlier box. Each runs two kernels.
+//  a. The mask pass (`nms_tile_mask_kernel`, shared; K4 reads 16-byte
+//     boxes, K5 its four coordinate planes, coalesced). A grid enumerates
+//     only the upper tiles, four a block. A thread holds its row box i in
+//     registers, the tile's 64 column boxes sit in shared memory (read as
+//     broadcasts), and the thread builds its 64-bit word in a register
+//     (`row_word`): no ballots, no runtime division, no whole-row copy into
+//     every block. Neighbouring threads store neighbouring words. Bounds on
+//     the product thr * union decide every pair whose IoU is not within a
+//     relative 2^-20 of thr without the division (`Threshold`), eight
+//     pairs at a time without a branch; the others divide.
+//  b. The walk, 64 boxes a chunk. The invalid boxes and the boxes removed
+//     by earlier chunks start as set bits of `cur`; then one thread settles
+//     the chunk from its 64 diagonal words as a chain of a test and an OR a
+//     box on 32-bit halves (`settle`): box b is kept when bit b of cur is
+//     clear, and then cur |= d_b. As d_b holds only bits above b, the
+//     chunk's kept set is ~cur at the end. A warp ORs the kept boxes' words
+//     into a later word of the removed set, each lane taking two of the
+//     chunk's 64 words and two `__reduce_or_sync` finishing it (`or_kept`).
+// K4 (G = B * 5 rows of K = 2000 in training; 528 tiles a row) walks each
+// row in one block straight from the scratch in device memory
+// (`nms_tile_walk_kernel`). Only word c + 1 has to be final before chunk
+// c + 1 settles, so warp 0 settles chunk after chunk and ORs each chunk's
+// kept words into the next word itself, with the next chunk's words already
+// in its registers (loaded while the chunk before settled); the other warps
+// OR the chunk into the words after that, loading them as they go, while
+// warp 0 settles the next chunk. Named barriers hand the kept set over and
+// tell warp 0, one chunk later, that the OR is done: no load of the mask
+// and no block-wide barrier is on the chain's path. K5 (G = B * 300 rows of
+// K = 300; 15 tiles a row) copies each row's mask (12 KB) into one block's
+// shared memory and walks it there (`nms_coords_walk_kernel`).
 //
-// What bounds them on an H100: neither bytes nor FLOPs but latency. The walks
-// are K dependent steps of one warp, at most G of the 132 SMs busy. Shared
-// memory: a K1 walk block at K = 1000 holds the 128 KB mask row, which caps K
-// near 1350, as K3's fused block at K = 300 (20 KB) is capped; the register
-// walk allows K <= 2048. A K that does not fit makes the launcher return an
-// error; `kernels.batched_nms_topk` sends K > 1280 to K4.
+// What bounds them on an H100: neither bytes nor FLOPs but latency and the
+// IoU tests' instructions. A K1 walk block at K = 1000 holds the 128 KB
+// mask row, which caps K near 1350, as K3's fused block at K = 300 (20 KB)
+// is capped; the register walk allows K <= 2048. K4 keeps little in shared
+// memory, so only the mask pass's grid bounds K (<= 46272); K5 keeps a
+// row's mask in shared memory, so K <= 1344, as before. A K that does not
+// fit makes the launcher return an error; `kernels.batched_nms_topk` sends
+// K > 1280 to K4.
 //
 // IoU is computed in the JAX formula order with round-to-nearest intrinsics,
 // which the compiler never contracts into FMAs, so a box exactly at the
@@ -69,17 +89,33 @@
 
 namespace {
 
-constexpr int kThreads = 512;      // fused (K3) and walk blocks
+typedef unsigned long long u64;
+
+constexpr int kThreads = 512;      // K3's blocks and K1's walk blocks
 constexpr int kMaskThreads = 256;  // K1 mask blocks, one per 64 rows
 constexpr int kMaxWords = 32;      // the walk keeps one word per lane
+constexpr int kTileThreads = 256;  // K4 / K5 mask pass: four 64 x 64 tiles a block
+constexpr int kTilesPerBlock = kTileThreads / 64;
+constexpr int kMaxTileWords = 723;  // the mask pass's grid: T (T + 1) / 2 tiles <= 65535 blocks of 4
+constexpr int kRowThreads = 512;     // K4 walk blocks, one row each
+constexpr int kCoordsThreads = 256;  // K5 walk blocks, one row each
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block can have on sm_90 (227 KB)
+
+// The intersection and union of two boxes in the JAX formula order.
+__device__ __forceinline__ void inter_union(float ax1, float ay1, float ax2, float ay2, float aarea,
+                                            float bx1, float by1, float bx2, float by2, float barea,
+                                            float& inter, float& uni) {
+  float iw = fmaxf(__fadd_rn(__fsub_rn(fminf(ax2, bx2), fmaxf(ax1, bx1)), 1.0f), 0.0f);
+  float ih = fmaxf(__fadd_rn(__fsub_rn(fminf(ay2, by2), fmaxf(ay1, by1)), 1.0f), 0.0f);
+  inter = __fmul_rn(iw, ih);
+  uni = __fsub_rn(__fadd_rn(aarea, barea), inter);
+}
 
 __device__ __forceinline__ bool iou_above(float ax1, float ay1, float ax2, float ay2,
                                           float aarea, float bx1, float by1, float bx2,
                                           float by2, float barea, float thr) {
-  float iw = fmaxf(__fadd_rn(__fsub_rn(fminf(ax2, bx2), fmaxf(ax1, bx1)), 1.0f), 0.0f);
-  float ih = fmaxf(__fadd_rn(__fsub_rn(fminf(ay2, by2), fmaxf(ay1, by1)), 1.0f), 0.0f);
-  float inter = __fmul_rn(iw, ih);
-  float uni = __fsub_rn(__fadd_rn(aarea, barea), inter);
+  float inter, uni;
+  inter_union(ax1, ay1, ax2, ay2, aarea, bx1, by1, bx2, by2, barea, inter, uni);
   return __fdiv_rn(inter, fmaxf(uni, 1e-6f)) > thr;
 }
 
@@ -108,15 +144,16 @@ __device__ Row carve_row(void* at, int k) {
 
 size_t row_bytes(int k) { return size_t(k) * (5 * sizeof(float) + 1); }
 
-// Step 1 (whole block). With kGather, idx (G, K) picks the candidates from the
-// planes and cand (G, 4, K) receives them (0 for an index outside [0, N)).
-// How step 1 finds a row's boxes.
+// How a kernel finds a row's boxes.
 enum class Src {
   kRows,    // K1, K4: src is boxes (G, K, 4)
   kPlanes,  // K5: src is coordinate planes (G, 4, K)
   kGather,  // K3: src is planes (G, 4, N), gathered through idx
 };
 
+// K1 and K3 step 1 (whole block). With kGather, idx (G, K) picks the
+// candidates from the planes and cand (G, 4, K) receives them (0 for an index
+// outside [0, N)).
 template <Src kSrc>
 __device__ void load_row(Row r, const float* __restrict__ src, const int32_t* __restrict__ idx,
                          const uint8_t* __restrict__ valid, float* __restrict__ cand, int64_t g,
@@ -131,9 +168,6 @@ __device__ void load_row(Row r, const float* __restrict__ src, const int32_t* __
         c[q] = in ? src[(g * 4 + q) * n + j] : 0.0f;
         cand[(g * 4 + q) * k + i] = c[q];
       }
-    } else if constexpr (kSrc == Src::kPlanes) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[q] = src[(g * 4 + q) * k + i];
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) c[q] = src[(g * k + i) * 4 + q];
@@ -147,17 +181,16 @@ __device__ void load_row(Row r, const float* __restrict__ src, const int32_t* __
   }
 }
 
-// Step 2 (whole block): mask[i * words + w] for rows i in [i_begin, i_end).
+// K1 and K3 step 2 (whole block): mask[i * words + w] for rows i in [i_begin, i_end).
 // Word (i, w) holds bit b for box j = 64 w + b that box i suppresses; lane l
 // of the warp making it tests j = 64 w + l and 64 w + 32 + l.
-__device__ void build_mask(Row r, int k, int i_begin, int i_end, float thr,
-                           unsigned long long* mask) {
+__device__ void build_mask(Row r, int k, int i_begin, int i_end, float thr, u64* mask) {
   const int words = num_words(k);
   const int lane = threadIdx.x & 31;
   for (int t = threadIdx.x >> 5; t < (i_end - i_begin) * words; t += blockDim.x >> 5) {
     const int i = i_begin + t / words;
     const int w = t % words;
-    unsigned long long bits = 0ull;
+    u64 bits = 0ull;
     if (r.v[i] && 64 * w + 63 > i) {  // the same for every lane of the warp
       const int j0 = 64 * w + lane;
       const int j1 = j0 + 32;
@@ -167,23 +200,23 @@ __device__ void build_mask(Row r, int k, int i_begin, int i_end, float thr,
       const bool s1 = j1 > i && j1 < k && r.v[j1] &&
                       iou_above(r.x1[i], r.y1[i], r.x2[i], r.y2[i], r.area[i], r.x1[j1],
                                 r.y1[j1], r.x2[j1], r.y2[j1], r.area[j1], thr);
-      bits = static_cast<unsigned long long>(__ballot_sync(0xffffffffu, s0)) |
-             (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, s1)) << 32);
+      bits = static_cast<u64>(__ballot_sync(0xffffffffu, s0)) |
+             (static_cast<u64>(__ballot_sync(0xffffffffu, s1)) << 32);
     }
     if (lane == 0) mask[size_t(i) * words + w] = bits;
   }
 }
 
-// Step 3 (warp 0): keep[i] for the row whose mask (K x words) and valid flags
-// are in shared memory.
-__device__ void walk(const unsigned long long* mask, const uint8_t* v, uint8_t* keep, int k) {
+// K1 and K3 step 3 (warp 0): keep[i] for the row whose mask (K x words) and
+// valid flags are in shared memory.
+__device__ void walk(const u64* mask, const uint8_t* v, uint8_t* keep, int k) {
   if (threadIdx.x >= 32) return;
   const int words = num_words(k);
   const int lane = threadIdx.x;
-  unsigned long long removed = 0ull;  // word `lane` of the removed set
+  u64 removed = 0ull;  // word `lane` of the removed set
   for (int i = 0; i < k; ++i) {
-    const unsigned long long row = lane < words ? mask[size_t(i) * words + lane] : 0ull;
-    const unsigned long long word = __shfl_sync(0xffffffffu, removed, i >> 6);
+    const u64 row = lane < words ? mask[size_t(i) * words + lane] : 0ull;
+    const u64 word = __shfl_sync(0xffffffffu, removed, i >> 6);
     const bool kept = v[i] && !((word >> (i & 63)) & 1ull);
     if (kept) removed |= row;
     if (lane == 0) keep[i] = kept;
@@ -195,9 +228,9 @@ __global__ void __launch_bounds__(kThreads)
 nms_gathered_kernel(const float* __restrict__ planes, const int32_t* __restrict__ idx,
                     const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
                     float* __restrict__ cand, int k, int n, float thr) {
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ u64 smem[];
   const int64_t g = blockIdx.x;
-  unsigned long long* mask = smem;
+  u64* mask = smem;
   Row r = carve_row(mask + size_t(k) * num_words(k), k);
   load_row<Src::kGather>(r, planes, idx, valid, cand, g, k, n);
   __syncthreads();
@@ -206,26 +239,24 @@ nms_gathered_kernel(const float* __restrict__ planes, const int32_t* __restrict_
   walk(mask, r.v, keep + g * k, k);
 }
 
-// K1/K4/K5 step 2: block (rb, g) makes the mask words of rows [64 rb, 64 rb + 64)
-// of row g.
-template <Src kSrc>
+// K1 step 2: block (rb, g) makes the mask words of rows [64 rb, 64 rb + 64) of row g.
 __global__ void __launch_bounds__(kMaskThreads)
 nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                unsigned long long* __restrict__ mask, int k, float thr) {
-  extern __shared__ unsigned long long smem[];
+                u64* __restrict__ mask, int k, float thr) {
+  extern __shared__ u64 smem[];
   const int64_t g = blockIdx.y;
   Row r = carve_row(smem, k);
-  load_row<kSrc>(r, boxes, nullptr, valid, nullptr, g, k, 0);
+  load_row<Src::kRows>(r, boxes, nullptr, valid, nullptr, g, k, 0);
   __syncthreads();
   const int i_begin = 64 * blockIdx.x;
   build_mask(r, k, i_begin, min(i_begin + 64, k), thr, mask + g * k * num_words(k));
 }
 
-// K1/K5 step 3: one block per row copies the row's mask into shared memory, then walks.
+// K1 step 3: one block per row copies the row's mask into shared memory, then walks.
 __global__ void __launch_bounds__(kThreads)
-nms_walk_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ valid,
+nms_walk_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
                 uint8_t* __restrict__ keep, int k) {
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ u64 smem[];
   const int64_t g = blockIdx.x;
   const size_t n_words = size_t(k) * num_words(k);
   uint8_t* v = reinterpret_cast<uint8_t*>(smem + n_words);
@@ -235,81 +266,361 @@ nms_walk_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __re
   walk(smem, v, keep + g * k, k);
 }
 
-// K4 step 3: one warp per row walks the mask in device memory, 64 boxes a chunk.
-__global__ void __launch_bounds__(32)
-nms_stream_walk_kernel(const unsigned long long* __restrict__ mask,
-                       const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep, int k) {
-  extern __shared__ unsigned long long removed[];  // ceil(K/64) words
-  const int64_t g = blockIdx.x;
-  const int words = num_words(k);
-  const int lane = threadIdx.x;
-  const unsigned long long* m = mask + g * k * int64_t(words);
-  const uint8_t* v = valid + g * k;
-  for (int w = lane; w < words; w += 32) removed[w] = 0ull;
-  __syncwarp();
-  for (int c = 0; c < words; ++c) {
-    const int i0 = 64 * c;
-    const int n = min(64, k - i0);
-    // the chunk's diagonal words and validity: box i0 + lane and i0 + 32 + lane
-    const bool in0 = lane < n;
-    const bool in1 = lane + 32 < n;
-    const unsigned long long d0 = in0 ? m[int64_t(i0 + lane) * words + c] : 0ull;
-    const unsigned long long d1 = in1 ? m[int64_t(i0 + 32 + lane) * words + c] : 0ull;
-    const unsigned long long vbits =
-        static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in0 && v[i0 + lane])) |
-        (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in1 && v[i0 + 32 + lane]))
-         << 32);
-    // settle the chunk: box b is kept when valid and not yet removed
-    unsigned long long cur = removed[c];
-    unsigned long long kept = 0ull;
-    for (int b = 0; b < n; ++b) {
-      const unsigned long long d = __shfl_sync(0xffffffffu, b < 32 ? d0 : d1, b & 31);
-      if (((vbits & ~cur) >> b) & 1ull) {
-        kept |= 1ull << b;
-        cur |= d;
-      }
-    }
-    if (in0) keep[g * k + i0 + lane] = (kept >> lane) & 1ull;
-    if (in1) keep[g * k + i0 + 32 + lane] = (kept >> (lane + 32)) & 1ull;
-    // OR the kept boxes' rows into the later words of the removed set
-    for (int w = c + 1 + lane; w < words; w += 32) {
-      unsigned long long acc = 0ull;
-      for (int b0 = 0; b0 < n; b0 += 8) {
-        unsigned long long r[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int b = b0 + j;
-          r[j] = (b < n && ((kept >> b) & 1ull)) ? m[int64_t(i0 + b) * words + w] : 0ull;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc |= r[j];
-      }
-      removed[w] |= acc;
-    }
-    __syncwarp();
+// ---- K4 and K5 ------------------------------------------------------------
+
+// Box i of row g as (x1, y1, x2, y2): one 16-byte load from (G, K, 4) boxes
+// (four where a caller's view is not 16-byte aligned), or four coalesced
+// loads from (G, 4, K) planes.
+template <Src kSrc>
+__device__ __forceinline__ float4 box_at(const float* __restrict__ src, int64_t g, int k, int i) {
+  if constexpr (kSrc == Src::kPlanes) {
+    const float* p = src + g * 4 * int64_t(k) + i;
+    return make_float4(p[0], p[k], p[2 * int64_t(k)], p[3 * int64_t(k)]);
+  } else {
+    const float* p = src + (g * k + i) * 4;
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
+    return make_float4(p[0], p[1], p[2], p[3]);
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+__device__ __forceinline__ float area_of(float4 b) { return box_area(b.x, b.y, b.z, b.w); }
+
+// The bits above b: the boxes of a chunk that box b of it may suppress.
+__device__ __forceinline__ u64 above(int b) { return b >= 63 ? 0ull : ~0ull << (b + 1); }
+
+// Tile u of the T (T + 1) / 2 tiles on or above a row's diagonal, counted row
+// block by row block, as (row block, column block).
+__device__ __forceinline__ int2 upper_tile(int u, int t) {
+  const int v = t * (t + 1) / 2 - 1 - u;  // counted back from the last tile
+  int r = int((sqrtf(8.0f * v + 1.0f) - 1.0f) * 0.5f);
+  while ((r + 1) * (r + 2) / 2 <= v) ++r;
+  while (r * (r + 1) / 2 > v) --r;
+  const int rb = t - 1 - r;  // row block rb holds t - rb tiles
+  return make_int2(rb, rb + r - (v - r * (r + 1) / 2));
 }
 
-// K1 and K5: the mask pass, then the walk with the row's mask in shared memory.
+// iou_above without the division where the IoU is not within a relative
+// 2^-20 of thr. With u = max(uni, 1e-6), thr_hi = fl(thr (1 + 2^-20)) and
+// thr_lo = fl(thr (1 - 2^-20)), and each product below off by at most 2^-24:
+// inter > fl(thr_hi u) gives inter / u > thr (1 + 2^-21), above the midpoint
+// between thr and the next f32, so the rounded quotient is above thr; inter <
+// fl(thr_lo u) gives inter / u < thr, so the rounded quotient is at most thr.
+// Both need the products normal, which thr in [2^-100, 2^100] and u >= 1e-6
+// ensure (an overflow to inf decides as the quotient would); outside that
+// range, and for NaN and the pairs between the bounds, the division decides.
+struct Threshold {
+  float thr, hi, lo;
+  bool bounds;  // thr in [2^-100, 2^100]: the bounds decide
+};
+
+__device__ __forceinline__ Threshold threshold(float thr) {
+  return {thr, __fmul_rn(thr, 1.0f + 0x1p-20f), __fmul_rn(thr, 1.0f - 0x1p-20f),
+          thr >= 0x1p-100f && thr <= 0x1p100f};
+}
+
+// Step a: the word of box a (t of its row block, in registers) against the
+// 64 column boxes of a tile (shared memory, read as broadcasts). cv has bit
+// j when column box j exists and is valid; on the diagonal only j > t count,
+// and the warp skips the columns below its first lane's. Bit j is set when a
+// suppresses column box j. Eight columns at a time are tested without a
+// branch by the bounds; a group with a pair the bounds leave open divides for
+// those pairs.
+__device__ __forceinline__ u64 row_word(float4 a, float aarea, bool a_valid, const float4* cbox,
+                                        const float* carea, u64 cv, int t, bool diag, Threshold thr) {
+  if (!a_valid) return 0ull;
+  const u64 live = diag ? cv & above(t) : cv;
+  const u64 warp_live = diag ? cv & above(t & ~31) : cv;  // the same for the warp's lanes
+  unsigned half[2] = {0u, 0u};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {  // eight columns at a time, skipped when none is live
+    if ((warp_live >> (8 * q)) & 0xffull) {
+      unsigned sure = 0u, open = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b = cbox[8 * q + j];
+        float inter, uni;
+        inter_union(a.x, a.y, a.z, a.w, aarea, b.x, b.y, b.z, b.w, carea[8 * q + j], inter, uni);
+        const float u = fmaxf(uni, 1e-6f);
+        const bool yes = thr.bounds && inter > __fmul_rn(thr.hi, u);
+        const bool no = thr.bounds && inter < __fmul_rn(thr.lo, u);
+        sure |= static_cast<unsigned>(yes) << j;
+        open |= static_cast<unsigned>(!yes && !no) << j;
+      }
+      for (; open != 0u; open &= open - 1u) {
+        const int j = 8 * q + __ffs(open) - 1;
+        const float4 b = cbox[j];
+        sure |= static_cast<unsigned>(iou_above(a.x, a.y, a.z, a.w, aarea, b.x, b.y, b.z, b.w, carea[j], thr.thr))
+                << (j - 8 * q);
+      }
+      half[q >> 2] |= sure << (8 * (q & 3));
+    }
+  }
+  return ((static_cast<u64>(half[1]) << 32) | half[0]) & live;
+}
+
+// Step a over the card (K4 and K5): block (g, y) builds tiles 4 y .. 4 y + 3
+// of row g's upper tiles, word (w, i) of the row at mask[(g * T + w) * K + i].
+// The lower tiles are never written.
 template <Src kSrc>
-int keep_in_smem(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g,
-                 int k, float thr, cudaStream_t stream) {
-  if (num_words(k) > kMaxWords) return int(cudaErrorInvalidValue);
-  auto* m = static_cast<unsigned long long*>(mask);
-  nms_mask_kernel<kSrc><<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(
-      boxes, valid, m, k, thr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const size_t walk_bytes = size_t(k) * num_words(k) * sizeof(unsigned long long) + k;
-  err = allow_smem(nms_walk_kernel, walk_bytes);
-  if (err != cudaSuccess) return int(err);
-  nms_walk_kernel<<<g, kThreads, walk_bytes, stream>>>(m, valid, keep, k);
-  return int(cudaGetLastError());
+__global__ void __launch_bounds__(kTileThreads)
+nms_tile_mask_kernel(const float* __restrict__ src, const uint8_t* __restrict__ valid,
+                     u64* __restrict__ mask, int k, float thr) {
+  __shared__ float4 cbox[kTilesPerBlock][64];
+  __shared__ float carea[kTilesPerBlock][64];
+  __shared__ unsigned cvalid[kTilesPerBlock][2];
+  const int64_t g = blockIdx.x;
+  const int words = num_words(k);
+  const int grp = threadIdx.x >> 6;
+  const int t = threadIdx.x & 63;
+  const int u = blockIdx.y * kTilesPerBlock + grp;
+  const bool live = u < words * (words + 1) / 2;  // the same for the group's 64 threads
+  const int2 tile = live ? upper_tile(u, words) : make_int2(0, 0);
+  const int i = 64 * tile.x + t;
+  const int j = 64 * tile.y + t;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  bool a_valid = false;
+  if (live && i < k) {
+    a = box_at<kSrc>(src, g, k, i);
+    a_valid = valid[g * k + i] != 0;
+  }
+  bool j_valid = false;
+  if (live && j < k) {
+    const float4 b = box_at<kSrc>(src, g, k, j);
+    cbox[grp][t] = b;
+    carea[grp][t] = area_of(b);
+    j_valid = valid[g * k + j] != 0;
+  }
+  const unsigned half = __ballot_sync(0xffffffffu, j_valid);
+  if ((threadIdx.x & 31) == 0) cvalid[grp][t >> 5] = half;
+  __syncthreads();
+  if (!live || i >= k) return;
+  const u64 cv = cvalid[grp][0] | (static_cast<u64>(cvalid[grp][1]) << 32);
+  mask[(g * words + tile.y) * int64_t(k) + i] =
+      row_word(a, area_of(a), a_valid, cbox[grp], carea[grp], cv, t, tile.x == tile.y, threshold(thr));
+}
+
+// Whole block: vbits[w] bit b set when box 64 w + b exists and is valid; the
+// removed set zeroed.
+__device__ void row_bits(const uint8_t* __restrict__ v, int k, u64* vbits, u64* removed) {
+  const int words = num_words(k);
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x & ~31; base < 64 * words; base += blockDim.x) {
+    const int i = base + lane;
+    const unsigned half = __ballot_sync(0xffffffffu, i < k && v[i] != 0);
+    if (lane == 0) reinterpret_cast<unsigned*>(vbits)[base >> 5] = half;
+  }
+  for (int w = threadIdx.x; w < words; w += blockDim.x) removed[w] = 0ull;
+}
+
+// Step b for one chunk: cur starts with the chunk's invalid and removed boxes
+// set; d holds its 64 diagonal words, zero past the row's end. Returns the
+// kept set. The chain runs on 32-bit halves: box b < 32 tests the low half
+// and ORs in both halves of d_b; from b = 32 on a diagonal word has only
+// high bits (bits above b), so only the high halves take part. A box costs
+// a test, a select and an OR on the chain; a test and a predicated OR in
+// inline PTX measured within 2% of it on the H100 (`kernel_study` times
+// both), so the plain form stays.
+__device__ __forceinline__ u64 settle(const u64* d, u64 cur) {
+  if (~cur == 0ull) return 0ull;
+  unsigned lo = static_cast<unsigned>(cur);
+  unsigned hi = static_cast<unsigned>(cur >> 32);
+  const uint2* w = reinterpret_cast<const uint2*>(d);
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    const uint2 x = w[b];
+    if (!(lo & (1u << b))) {
+      lo |= x.x;
+      hi |= x.y;
+    }
+  }
+#pragma unroll
+  for (int b = 32; b < 64; ++b) {
+    const unsigned x = w[b].y;
+    if (!(hi & (1u << (b - 32)))) hi |= x;
+  }
+  return ~((static_cast<u64>(hi) << 32) | lo);
+}
+
+// The OR over a warp of the kept boxes' words for one later word: lane l
+// holds the words of boxes l (v0) and l + 32 (v1) of the chunk.
+__device__ __forceinline__ u64 or_kept(u64 v0, u64 v1, u64 kept, int lane) {
+  const u64 v = (((kept >> lane) & 1ull) ? v0 : 0ull) | (((kept >> (lane + 32)) & 1ull) ? v1 : 0ull);
+  const unsigned lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(v));
+  const unsigned hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(v >> 32));
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// The same for the words (w, 64 c + b) at r, read only where box b is kept.
+__device__ __forceinline__ u64 or_kept(const u64* r, u64 kept, int lane) {
+  const u64 v0 = ((kept >> lane) & 1ull) ? r[lane] : 0ull;
+  const u64 v1 = ((kept >> (lane + 32)) & 1ull) ? r[lane + 32] : 0ull;
+  return or_kept(v0, v1, kept, lane);
+}
+
+// *word |= v for words other warps OR into as well: two native 32-bit
+// atomics (a 64-bit atomicOr on shared memory is a compare-and-swap loop).
+__device__ __forceinline__ void or_into(u64* word, u64 v) {
+  atomicOr(reinterpret_cast<unsigned*>(word), static_cast<unsigned>(v));
+  atomicOr(reinterpret_cast<unsigned*>(word) + 1, static_cast<unsigned>(v >> 32));
+}
+
+// Named barriers between K4's settling warp and the others (0 is __syncthreads).
+constexpr int kKeptBar = 1;  // + c % 2: chunk c's kept set is out
+constexpr int kOredBar = 3;  // + c % 2: chunk c's kept words are ORed into the words after c + 1
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(static_cast<int>(blockDim.x)) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(static_cast<int>(blockDim.x)) : "memory");
+}
+
+// K4's walk bytes: the removed set, the valid bits, two kept sets, a chunk's diagonal words.
+size_t tile_walk_bytes(int k) { return (2 * size_t(num_words(k)) + 2 + 64) * sizeof(u64); }
+
+// K4 step b: one block per row walks the mask in device memory. Warp 0
+// settles chunk after chunk: its lanes hold the chunk's diagonal words and
+// its words for c + 1, loaded while the chunk before settled; once chunk c
+// is settled it ORs the kept boxes' words into word c + 1 itself, so word
+// c + 1 is final but for chunks <= c - 1. The other warps OR chunk c's kept
+// words into the words after c + 1, loading them as they go, while warp 0
+// settles chunk c + 1; warp 0 waits for them only before chunk c + 2.
+__global__ void __launch_bounds__(kRowThreads)
+nms_tile_walk_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
+                     uint8_t* __restrict__ keep, int k) {
+  extern __shared__ u64 smem[];
+  const int64_t g = blockIdx.x;
+  const int words = num_words(k);
+  u64* removed = smem;
+  u64* vbits = removed + words;
+  u64* kept_at = vbits + words;  // chunk c's kept set at kept_at[c % 2]
+  u64* diag = kept_at + 2;
+  const u64* m = mask + g * words * int64_t(k);
+  uint8_t* out = keep + g * k;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  row_bits(valid + g * k, k, vbits, removed);
+  __syncthreads();
+  // word (w, 64 c + b) of the row, 0 past its end
+  auto word = [&](int w, int c, int b) -> u64 {
+    const int i = 64 * c + b;
+    return w < words && i < k ? __ldg(m + int64_t(w) * k + i) : 0ull;
+  };
+  if (warp == 0) {
+    u64 d0 = word(0, 0, lane), d1 = word(0, 0, lane + 32);  // chunk c's diagonal words
+    u64 e0 = word(1, 0, lane), e1 = word(1, 0, lane + 32);  // its words for c + 1
+    for (int c = 0; c < words; ++c) {
+      if (c >= 2) bar_sync(kOredBar + (c & 1));  // chunk c - 2 is ORed in
+      diag[lane] = d0;
+      diag[lane + 32] = d1;
+      __syncwarp();
+      d0 = word(c + 1, c + 1, lane);
+      d1 = word(c + 1, c + 1, lane + 32);
+      const u64 f0 = word(c + 2, c + 1, lane), f1 = word(c + 2, c + 1, lane + 32);
+      const int n = min(64, k - 64 * c);
+      u64 kept = 0ull;
+      if (lane == 0) kept = settle(diag, removed[c] | ~vbits[c]);
+      kept = __shfl_sync(0xffffffffu, kept, 0);
+      if (lane < n) out[64 * c + lane] = (kept >> lane) & 1ull;
+      if (lane + 32 < n) out[64 * c + 32 + lane] = (kept >> (lane + 32)) & 1ull;
+      if (c + 2 < words) {
+        if (lane == 0) kept_at[c & 1] = kept;
+        bar_arrive(kKeptBar + (c & 1));
+      }
+      if (c + 1 < words && kept != 0ull) {
+        const u64 v = or_kept(e0, e1, kept, lane);
+        if (lane == 0) or_into(removed + c + 1, v);
+      }
+      e0 = f0;
+      e1 = f1;
+      __syncwarp();
+    }
+  } else {
+    for (int c = 0; c + 2 < words; ++c) {
+      bar_sync(kKeptBar + (c & 1));
+      const u64 kept = kept_at[c & 1];
+      if (kept != 0ull) {
+        for (int w = c + 2 + warp - 1; w < words; w += (blockDim.x >> 5) - 1) {
+          const u64 v = or_kept(m + int64_t(w) * k + 64 * c, kept, lane);
+          if (lane == 0 && v != 0ull) or_into(removed + w, v);
+        }
+      }
+      bar_arrive(kOredBar + (c & 1));
+    }
+  }
+}
+
+// K5's walk bytes: the row's mask, 64 zero words after it (the last chunk's
+// diagonal words past the row's end), the removed set, the valid bits, the
+// kept set.
+size_t coords_walk_bytes(int k) {
+  const size_t words = num_words(k);
+  return (words * k + 64 + 2 * words + 1) * sizeof(u64);
+}
+
+// K5 step b: one block per row copies the row's mask (the upper tiles the
+// mask pass wrote) into shared memory and walks it there: thread 0 settles a
+// chunk, then the warps OR its kept words into the later words.
+__global__ void __launch_bounds__(kCoordsThreads)
+nms_coords_walk_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
+                       uint8_t* __restrict__ keep, int k) {
+  extern __shared__ u64 smem[];
+  const int64_t g = blockIdx.x;
+  const int words = num_words(k);
+  u64* m = smem;  // word (w, i) at m[w * k + i]
+  u64* removed = m + size_t(words) * k + 64;
+  u64* vbits = removed + words;
+  u64* kept_at = vbits + words;
+  uint8_t* out = keep + g * k;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  row_bits(valid + g * k, k, vbits, removed);
+  const u64* src = mask + g * words * int64_t(k);
+  for (int e = threadIdx.x; e < words * k + 64; e += blockDim.x) m[e] = e < words * k ? src[e] : 0ull;
+  for (int c = 0; c < words; ++c) {
+    __syncthreads();  // the mask copied, or chunk c - 1 ORed in
+    const int n = min(64, k - 64 * c);
+    if (threadIdx.x == 0) *kept_at = settle(m + size_t(c) * k + 64 * c, removed[c] | ~vbits[c]);
+    __syncthreads();
+    const u64 kept = *kept_at;
+    if (threadIdx.x < n) out[64 * c + threadIdx.x] = (kept >> threadIdx.x) & 1ull;
+    if (kept == 0ull) continue;
+    for (int w = c + 1 + warp; w < words; w += blockDim.x >> 5) {
+      const u64 v = or_kept(m + size_t(w) * k + 64 * c, kept, lane);
+      if (lane == 0) removed[w] |= v;
+    }
+  }
+}
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize, raised for a kernel once to
+// each larger size it is launched with, on each device.
+constexpr int kMaxDevices = 64;
+
+struct SmemSet {
+  size_t bytes[kMaxDevices] = {};
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, SmemSet& set, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && set.bytes[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) set.bytes[dev] = bytes;
+  return err;
+}
+
+// Step a over the card for G rows of K boxes.
+template <Src kSrc>
+cudaError_t launch_tile_mask(const float* src, const uint8_t* valid, u64* mask, int g, int k, float thr,
+                             cudaStream_t stream) {
+  const int tiles = num_words(k) * (num_words(k) + 1) / 2;
+  nms_tile_mask_kernel<kSrc><<<dim3(g, (tiles + kTilesPerBlock - 1) / kTilesPerBlock), kTileThreads, 0, stream>>>(
+      src, valid, mask, k, thr);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -320,30 +631,46 @@ extern "C" {
 // (G, K, ceil(K/64)) uint64 scratch.
 int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g,
                   int k, float thr, cudaStream_t stream) {
-  return keep_in_smem<Src::kRows>(boxes, valid, keep, mask, g, k, thr, stream);
+  static SmemSet walk_set;
+  if (num_words(k) > kMaxWords) return int(cudaErrorInvalidValue);
+  auto* m = static_cast<u64*>(mask);
+  nms_mask_kernel<<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(boxes, valid, m, k, thr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const size_t walk_bytes = size_t(k) * num_words(k) * sizeof(u64) + k;
+  err = allow_smem(nms_walk_kernel, walk_set, walk_bytes);
+  if (err != cudaSuccess) return int(err);
+  nms_walk_kernel<<<g, kThreads, walk_bytes, stream>>>(m, valid, keep, k);
+  return int(cudaGetLastError());
 }
 
-// K5: coords (G, 4, K) f32, valid (G, K) bool -> keep (G, K) bool; mask is
-// (G, K, ceil(K/64)) uint64 scratch.
+// K5: coords (G, 4, K) f32, valid (G, K) bool -> keep (G, K) bool, K <= 1344
+// (a row's mask in one block's shared memory); mask is (G, K, ceil(K/64))
+// uint64 scratch.
 int bags_nms_keep_coords(const float* coords, const uint8_t* valid, uint8_t* keep, void* mask,
                          int g, int k, float thr, cudaStream_t stream) {
-  return keep_in_smem<Src::kPlanes>(coords, valid, keep, mask, g, k, thr, stream);
+  static SmemSet walk_set;
+  const size_t walk_bytes = coords_walk_bytes(k);
+  if (walk_bytes > kMaxSmem) return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(nms_coords_walk_kernel, walk_set, walk_bytes);
+  if (err != cudaSuccess) return int(err);
+  auto* m = static_cast<u64*>(mask);
+  err = launch_tile_mask<Src::kPlanes>(coords, valid, m, g, k, thr, stream);
+  if (err != cudaSuccess) return int(err);
+  nms_coords_walk_kernel<<<g, kCoordsThreads, walk_bytes, stream>>>(m, valid, keep, k);
+  return int(cudaGetLastError());
 }
 
-// K4: boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool, any K whose
-// row fits the mask kernel's shared memory (K <= ~11000); mask is
-// (G, K, ceil(K/64)) uint64 scratch.
+// K4: boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool, K <= 46272
+// (the mask pass's grid); mask is (G, K, ceil(K/64)) uint64 scratch.
 int bags_nms_keep_tiled(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask,
                         int g, int k, float thr, cudaStream_t stream) {
-  auto* m = static_cast<unsigned long long*>(mask);
-  cudaError_t err = allow_smem(nms_mask_kernel<Src::kRows>, row_bytes(k));
+  if (num_words(k) > kMaxTileWords) return int(cudaErrorInvalidValue);
+  const size_t walk_bytes = tile_walk_bytes(k);  // at most 12 KB: no attribute to raise
+  auto* m = static_cast<u64*>(mask);
+  cudaError_t err = launch_tile_mask<Src::kRows>(boxes, valid, m, g, k, thr, stream);
   if (err != cudaSuccess) return int(err);
-  nms_mask_kernel<Src::kRows><<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(
-      boxes, valid, m, k, thr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const size_t walk_bytes = size_t(num_words(k)) * sizeof(unsigned long long);
-  nms_stream_walk_kernel<<<g, 32, walk_bytes, stream>>>(m, valid, keep, k);
+  nms_tile_walk_kernel<<<g, kRowThreads, walk_bytes, stream>>>(m, valid, keep, k);
   return int(cudaGetLastError());
 }
 
@@ -352,9 +679,10 @@ int bags_nms_keep_tiled(const float* boxes, const uint8_t* valid, uint8_t* keep,
 int bags_nms_keep_gathered(const float* planes, const int32_t* idx, const uint8_t* valid,
                            uint8_t* keep, float* cand, int g, int k, int n, float thr,
                            cudaStream_t stream) {
+  static SmemSet set;
   if (num_words(k) > kMaxWords) return int(cudaErrorInvalidValue);
-  const size_t bytes = size_t(k) * num_words(k) * sizeof(unsigned long long) + row_bytes(k);
-  cudaError_t err = allow_smem(nms_gathered_kernel, bytes);
+  const size_t bytes = size_t(k) * num_words(k) * sizeof(u64) + row_bytes(k);
+  cudaError_t err = allow_smem(nms_gathered_kernel, set, bytes);
   if (err != cudaSuccess) return int(err);
   nms_gathered_kernel<<<g, kThreads, bytes, stream>>>(planes, idx, valid, keep, cand, k, n, thr);
   return int(cudaGetLastError());

@@ -1,10 +1,10 @@
-"""Where K7's and K2b's time goes, and what one launch costs on the card's host.
+"""Where K7's, K2b's, K4's and K5's time goes, and what one launch costs on the card's host.
 
     python3 -m balancedgroupsoftmax_torch.kernel_study
 
-Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu` and
-`csrc/roi_align.cu` into a temporary directory and leaves the package's own
-build alone. It prints:
+Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu`,
+`csrc/roi_align.cu` and `csrc/nms.cu` into a temporary directory and leaves
+the package's own build alone. It prints:
 
 1. K7 (bf16, D = 4) at the HTC X101's four kinds of deformable layer at
    800 x 1344, batch 2 (c3's stride-2 first layer, c3, c4, c5), with the
@@ -22,7 +22,17 @@ build alone. It prints:
 4. K2b at the training shape, whole and with its atomics made plain stores
    or its writes cut out, beside the f32 buffer's memset and cast alone:
    what the scatter's atomics cost; and how many updates a scatter makes by
-   sample corner, by distinct pixel of each bin and of each roi.
+   sample corner, by distinct pixel of each bin and of each roi;
+5. K4 at the training RPN's shape (G = 10 rows of K = 2000) and K5 at the
+   cascade's (G = 600 rows of K = 300), on `chip_smoke.py`'s tie boxes,
+   whole and with one part cut out at a time: each one's mask pass alone
+   and walk alone (on the mask the whole kernel left in the scratch); K4
+   with the settling warp's loads made plain (a chunk's words loaded when
+   it settles, not while the chunk before settles), and without the other
+   warps' OR (its result is then wrong; it shows whether the settling warp
+   waits for them); and the design's choices each undone: the IoU test by
+   division on every pair, eight tiles a mask block, a 256-thread K4 walk,
+   the chain as a predicated OR in inline PTX.
 
 Its inputs are seeded; offsets have a spread of 2 cells, as in
 `chip_smoke.py`'s HTC phase.
@@ -63,6 +73,29 @@ K2B_CUTS = {  # K2b's part cut out: (text in roi_align.cu, its replacement)
     "writes": ("            if (c0 < channels) add4<VEC>(dst + c0, min(4, channels - c0), sum[u]);",
                "            if (c0 < channels && sum[u][0] == 1.0e30f) add4<VEC>(dst + c0, min(4, channels - c0), sum[u]);"),
 }
+NMS_CUTS = {  # part of nms.cu cut out: (its text, the replacement)
+    "K4 walk": ("  nms_tile_walk_kernel<<<g, kRowThreads, walk_bytes, stream>>>(m, valid, keep, k);",
+                "  if (0) nms_tile_walk_kernel<<<g, kRowThreads, walk_bytes, stream>>>(m, valid, keep, k);"),
+    "K4 mask pass": ("  cudaError_t err = launch_tile_mask<Src::kRows>(boxes, valid, m, g, k, thr, stream);",
+                     "  cudaError_t err = cudaSuccess;"),
+    "K4 prefetch (loads on the chain)": (
+        "      diag[lane] = d0;\n",
+        "      d0 = word(c, c, lane), d1 = word(c, c, lane + 32), e0 = word(c + 1, c, lane), e1 = word(c + 1, c, lane + 32);\n"
+        "      diag[lane] = d0;\n"),
+    "K4 other warps' OR": ("          if (lane == 0 && v != 0ull) or_into(removed + w, v);", ""),
+    "K4/K5 bounds (every pair divides)": ("          thr >= 0x1p-100f && thr <= 0x1p100f};", "          false};"),
+    "K4/K5 four tiles a block (eight)": (
+        "constexpr int kTileThreads = 256;  // K4 / K5 mask pass: four 64 x 64 tiles a block",
+        "constexpr int kTileThreads = 512;"),
+    "K4 512-thread walk (256)": ("constexpr int kRowThreads = 512;     // K4 walk blocks, one row each",
+                                 "constexpr int kRowThreads = 256;"),
+    "K4/K5 C++ chain (a predicated OR in inline PTX)": (
+        "    if (!(lo & (1u << b))) {\n      lo |= x.x;\n      hi |= x.y;\n    }\n",
+        '    asm("{\\n\\t.reg .pred p;\\n\\t.reg .b32 t;\\n\\tand.b32 t, %0, %4;\\n\\tsetp.eq.u32 p, t, 0;\\n\\t"\n        "@p or.b32 %0, %0, %2;\\n\\t@p or.b32 %1, %1, %3;\\n\\t}"\n        : "+r"(lo), "+r"(hi) : "r"(x.x), "r"(x.y), "r"(1u << b));\n'),
+    "K5 walk": ("  nms_coords_walk_kernel<<<g, kCoordsThreads, walk_bytes, stream>>>(m, valid, keep, k);",
+                "  if (0) nms_coords_walk_kernel<<<g, kCoordsThreads, walk_bytes, stream>>>(m, valid, keep, k);"),
+    "K5 mask pass": ("  err = launch_tile_mask<Src::kPlanes>(coords, valid, m, g, k, thr, stream);", "  err = cudaSuccess;"),
+}
 LAUNCH_BENCH = r"""
 #include <cuda_runtime.h>
 #include <chrono>
@@ -99,10 +132,12 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_variants(tmp: Path, source: str, symbol: str, cuts: dict, extra: dict = {}) -> dict:
-    """The packed launcher `symbol` of each variant of `source`: whole, with
-    each cut of `cuts` (name: (text, its replacement)), and with each set of
-    cuts in `extra` (name: cut names) made together."""
+def build_variants(tmp: Path, source: str, symbols, cuts: dict, extra: dict = {}) -> dict:
+    """The packed launchers `symbols` (one name, or several) of each variant
+    of `source`: whole, with each cut of `cuts` (name: (text, its
+    replacement)), and with each set of cuts in `extra` (name: cut names)
+    made together. Returns {variant: address}, or {variant: {symbol:
+    address}} for several symbols."""
     src = (cuda.CSRC / source).read_text()
     texts = {"whole": src}
     for name, (old, new) in cuts.items():
@@ -126,8 +161,9 @@ def build_variants(tmp: Path, source: str, symbol: str, cuts: dict, extra: dict 
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the variant '{name}':\n{log}")
-        fn = getattr(ctypes.CDLL(str(tmp / f"lib{stem}.so")), f"{symbol}_packed")
-        fns[name] = ctypes.cast(fn, ctypes.c_void_p).value
+        lib = ctypes.CDLL(str(tmp / f"lib{stem}.so"))
+        address = lambda symbol: ctypes.cast(getattr(lib, f"{symbol}_packed"), ctypes.c_void_p).value
+        fns[name] = address(symbols) if isinstance(symbols, str) else {sym: address(sym) for sym in symbols}
     return fns
 
 
@@ -232,6 +268,43 @@ def study_k2b(fns: dict) -> None:
     print("K2b, training shape: ms " + ", ".join(f"{v} {t:.4f}" for v, t in times.items()), flush=True)
 
 
+def study_nms(fns: dict) -> None:
+    """K4 and K5 at their paths' shapes, each variant's launch timed (medians
+    of 3 runs of 20 launches) in the order built, on buffers the variants
+    share: the whole kernel runs first, so a walk alone reads the mask the
+    whole kernel left."""
+    from chip_smoke import tie_boxes  # the repository's root is on the path under `python3 -m`
+
+    from .ops import nms as ops_nms
+
+    launch = cuda.launch_module().launch
+    cases = (
+        ("K4", "bags_nms_keep_tiled", cuda.NMS_KEEP_TILED, 10, 2000, 0.7, False),
+        ("K5", "bags_nms_keep_coords", cuda.NMS_KEEP_COORDS, 600, 300, 0.5, True),
+    )
+    for label, symbol, kernel, g, k, thr, planes in cases:
+        boxes, valid = tie_boxes(torch.Generator().manual_seed(6), g, k, thr, "cuda")
+        src = boxes.transpose(1, 2).contiguous() if planes else boxes
+        keep = torch.empty(g, k, dtype=torch.bool, device="cuda")
+        mask = torch.empty(g, k, -(-k // 64), dtype=torch.int64, device="cuda")
+        ref = ops_nms.nms_keep_reference(boxes, valid, thr)
+        args = (src.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), g, k, thr)
+        times = {}
+        for name, by_symbol in fns.items():
+            if name != "whole" and label not in name.split(" ")[1]:  # "no K4 ...", "no K4/K5 ..."
+                continue
+            call = lambda: launch(by_symbol[symbol], kernel.kinds, *args, cuda.current_stream())
+            keep.zero_()
+            if call():
+                raise RuntimeError(f"{label} variant '{name}' refused the launch")
+            torch.cuda.synchronize()
+            if name == "whole" and not torch.equal(keep, ref):
+                raise AssertionError(f"{label}: the whole kernel differs from the plain version")
+            times[name] = statistics.median(cuda_time_ms(call, 20) for _ in range(3))
+        print(f"{label} (G={g} K={k} kept {int(ref.sum())} of {int(valid.sum())}): ms "
+              + ", ".join(f"{v} {t:.4f}" for v, t in times.items()), flush=True)
+
+
 def study_launch(tmp: Path) -> None:
     (tmp / "launch.cu").write_text(LAUNCH_BENCH)
     stream = cuda.current_stream()
@@ -272,6 +345,7 @@ def main() -> int:
         study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
                                 {"no weights, sampling, copies": ("weights", "sampling", "copies")}))
         study_k2b(build_variants(Path(tmp), "roi_align.cu", "bags_roi_align_backward", K2B_CUTS))
+        study_nms(build_variants(Path(tmp), "nms.cu", ("bags_nms_keep_tiled", "bags_nms_keep_coords"), NMS_CUTS))
         study_launch(Path(tmp))
     return 0
 

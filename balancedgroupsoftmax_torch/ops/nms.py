@@ -63,8 +63,9 @@ def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -
 
 
 def nms_keep_tiled(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
-    """K4: the K1 keep mask for any K (the training RPN's K = 2000); the walk
-    streams each row's mask from device memory."""
+    """K4: the K1 keep mask for long rows (the training RPN's K = 2000; K <=
+    46272): the mask pass builds the upper 64 x 64 tiles of each row's mask
+    over the card, then a block a row walks it 64 boxes a chunk."""
     if boxes.device.type == "cpu":
         return nms_keep_reference(boxes, valid, iou_thr)
     return _launch_keep(cuda.NMS_KEEP_TILED, boxes, valid, iou_thr)
@@ -72,8 +73,9 @@ def nms_keep_tiled(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> 
 
 def nms_keep_batched_coords(coords: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
     """K5: the K1 keep mask of coordinate planes, coords (G, 4, K) f32 (rows
-    x1, y1, x2, y2; columns in score order), valid (G, K) bool; K <= ~1350
-    as for K1. Its plain version is K1's on the transposed boxes."""
+    x1, y1, x2, y2; columns in score order), valid (G, K) bool; K <= 1344
+    (a row's mask in one block's shared memory). Its plain version is K1's
+    on the transposed boxes."""
     if coords.device.type == "cpu":
         return nms_keep_reference(coords.transpose(1, 2), valid, iou_thr)
     return _launch_keep(cuda.NMS_KEEP_COORDS, coords, valid, iou_thr, layout="planes")

@@ -46,10 +46,23 @@ from .. import cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@functools.cache
+def _reciprocal(n: int) -> float:
+    """f32(1 / n), the f32 division, as a Python float."""
+    return torch.tensor(1.0, dtype=torch.float32).div(n).item()
+
+
 def map_roi_levels(rois: torch.Tensor, num_levels: int, finest_scale: int = 56) -> torch.Tensor:
-    """(...,) int32 FPN level per roi (single_level.py:54-73)."""
+    """(...,) int32 FPN level per roi (single_level.py:54-73).
+
+    sqrt(area) / finest_scale is taken as a product with the f32 reciprocal
+    of finest_scale on every device: the JAX model runs jitted, and XLA
+    folds `x / 56` into `x * f32(1 / 56)`; PyTorch's CUDA division by a
+    number does the same, and K2 routes with it. The exact division rounds
+    otherwise just below sqrt(area) = 112 and 224, and sends such a roi to
+    the level below."""
     scale = torch.sqrt((rois[..., 2] - rois[..., 0] + 1.0) * (rois[..., 3] - rois[..., 1] + 1.0))
-    lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
+    lvl = torch.floor(torch.log2(scale * _reciprocal(finest_scale) + 1e-6))
     return lvl.clamp(0, num_levels - 1).to(torch.int32)
 
 
@@ -72,7 +85,8 @@ def axis_samples(
     dev = start.device
     grid = torch.arange(out_size, dtype=torch.float32, device=dev)
     # divisions by tensors: PyTorch's CUDA division by a number multiplies by
-    # its reciprocal, which rounds differently from the kernel's (and XLA's) `/`
+    # its reciprocal, which rounds differently from the kernel's `/` (and from
+    # eager XLA's; under jit XLA multiplies by the f32 reciprocal too)
     sub = torch.arange(sample_num, dtype=torch.float32, device=dev) + 0.5
     sub = sub / torch.full_like(sub, sample_num)
     pos = (grid[:, None] + sub[None, :]).reshape(-1)  # (n,)

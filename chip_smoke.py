@@ -6,10 +6,11 @@
 Phases, each timed, any failure ending the run with a non-zero exit:
 1. build the CUDA kernels of balancedgroupsoftmax_torch/csrc with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it, and time both: K1-K3 at inference's, K4 (the
-   training RPN's NMS) and K2b (the RoIAlign gradient) at training's, K5 and
-   K6 (the class-agnostic multiclass NMS) on inputs with exact ties and
-   out-of-range indices at the cascade's shapes;
+   shapes its path gives it, and time both: K1-K3 at inference's, K2b (the
+   RoIAlign gradient) at training's, K4 (the training RPN's NMS) on inputs
+   with exact ties at K = 1 to 4097 (timed at the training RPN's shape),
+   K5 and K6 (the class-agnostic multiclass NMS) on inputs with exact ties
+   and out-of-range indices at the cascade's shapes;
 3. run BAGS Faster R-CNN R50-FPN (gs_faster_rcnn_r50_fpn_lvis: 1231 classes,
    800 x 1344, bf16, batch 2, seeded random weights and synthetic partition)
    through `init_detector` and `predict`, check that K1-K3 were launched and
@@ -22,8 +23,9 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    through `create_train_state` and `make_train_step`: a warm-up step and
    timed steps of full training (selectp=0), checking that the losses are
    finite, that K4 and K2b were launched and that the parameters moved;
-   profile one step; then one BAGS phase-2 step (selectp=1), which must
-   move fc_cls alone;
+   hold K4 against its plain version, and time it, on the boxes and
+   validity the first step handed it; profile one step; then one BAGS
+   phase-2 step (selectp=1), which must move fc_cls alone;
 6. take one small f32 training step on the card and on the CPU from the
    same weights and batch, sampling made deterministic by the
    configuration, and compare the loss dicts;
@@ -42,7 +44,8 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    times, K2 8 times, K1, K6 and K5 once and K3 never a call; check the
    detections and that the masks are probabilities; profile one call; then
    hold K7 against its plain version, and time it, on the inputs that one
-   call gave each of the 30 deformable layers;
+   call gave each of the 30 deformable layers, and K5 on the candidates one
+   call gave it;
 12. run a reduced HTC-DCN (depth 50, the same widths) in f32 on a small
    image on the card and on the CPU and compare detections and masks.
 
@@ -222,13 +225,13 @@ def check_k6_ties(torch, ops_gather, dev) -> None:
     log(f"  K6: bit-equal to the plain version ({int(((idx < 0) | (idx >= n)).sum())} indices outside the plane)")
 
 
-def check_k5(torch, ops_nms, coords, valid, thr):
-    """K5 on the inputs the cascade's predict gave it."""
+def check_k5(torch, ops_nms, coords, valid, thr, path="cascade"):
+    """K5 on the inputs the cascade's (or HTC's) predict gave it."""
     keep = ops_nms.nms_keep_batched_coords(coords, valid, thr)
     ref = ops_nms.nms_keep_reference(coords.transpose(1, 2), valid, thr)
     torch.cuda.synchronize()
     if not torch.equal(keep, ref):
-        raise AssertionError(f"K5 keep on the path's data differs in {(keep != ref).sum().item()} slots")
+        raise AssertionError(f"K5 keep on the {path}'s data differs in {(keep != ref).sum().item()} slots")
     g, k = valid.shape
     nbytes = coords.numel() * 4 + valid.numel() * 2
     b_ms, b_by = bound(nbytes, valid_pairs(valid) * IOU_OPS)
@@ -562,34 +565,49 @@ def check_k3(torch, ops_nms, dev):
     )
 
 
-def check_k4(torch, ops_nms, dev):
-    """K4 at the training RPN's shape (5 levels x 2 images, 2000 boxes a
-    row) and at a K that is no multiple of 64."""
-    g, k = 5 * MAIN_BATCH, 2000
+def check_k4_ties(torch, ops_nms, dev) -> None:
+    """K4 on tie boxes at the training RPN's shape (5 levels x 2 images, 2000
+    boxes a row), at K of one box, around one 64-box chunk, no multiple of
+    64 and past 4096; then timed at the training RPN's shape (the number
+    earlier runs reported). Its row in the kernels line comes from the
+    training step's own inputs (`check_k4`)."""
+    g = 5 * MAIN_BATCH
     gen = torch.Generator().manual_seed(6)
-    for kk in (k, 1337):
-        boxes, valid = tie_boxes(gen, g, kk, 0.7, dev)
+    for kk in (2000, 1337, 1, 64, 65, 4097):
+        boxes, valid = tie_boxes(gen, g if kk <= 2000 else 3, kk, 0.7, dev)
         keep = ops_nms.nms_keep_tiled(boxes, valid, 0.7)
         ref = ops_nms.nms_keep_reference(boxes, valid, 0.7)
         torch.cuda.synchronize()
         if not torch.equal(keep, ref):
             raise AssertionError(f"K4 keep at K={kk} differs in {(keep != ref).sum().item()} slots")
-        log(f"  K4 K={kk}: keep equal to the plain version ({int(keep.sum())} kept of {int(valid.sum())})")
-    boxes, valid = tie_boxes(gen, g, k, 0.7, dev)
-    nbytes = boxes.numel() * 4 + valid.numel() * 2
-    b_ms, b_by = bound(nbytes, valid_pairs(valid) * IOU_OPS)
+        log(f"  K4 ties K={kk}: keep equal to the plain version ({int(keep.sum())} kept of {int(valid.sum())})")
+    boxes, valid = tie_boxes(gen, g, 2000, 0.7, dev)
+    b_ms, _ = bound(boxes.numel() * 4 + valid.numel() * 2, valid_pairs(valid) * IOU_OPS)
+    log(f"  K4 ties G={g} K=2000: kernel {cuda_time_ms(lambda: ops_nms.nms_keep_tiled(boxes, valid, 0.7), 50):.4f} ms, "
+        f"bound {b_ms:.5f} ms")
+
+
+def check_k4(torch, ops_nms, boxes, valid, thr):
+    """K4 on the inputs one selectp=0 training step gave it."""
+    keep = ops_nms.nms_keep_tiled(boxes, valid, thr)
+    ref = ops_nms.nms_keep_reference(boxes, valid, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, ref):
+        raise AssertionError(f"K4 keep on the training step's data differs in {(keep != ref).sum().item()} slots")
+    g, k = valid.shape
+    b_ms, b_by = bound(boxes.numel() * 4 + valid.numel() * 2, valid_pairs(valid) * IOU_OPS)
     return dict(
         name="nms_keep_tiled",
         route="cuda",
         source="balancedgroupsoftmax_torch/csrc/nms.cu",
         replaces="balancedgroupsoftmax_tpu/pallas/nms.py:213",
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops_nms.nms_keep_tiled(boxes, valid, 0.7), 50),
-        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_reference(boxes, valid, 0.7), 3),
+        ms=cuda_time_ms(lambda: ops_nms.nms_keep_tiled(boxes, valid, thr), 50),
+        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_reference(boxes, valid, thr), 3),
         bound_ms=b_ms,
         bound_by=b_by,
         library_ms=None,
-        shape=f"G={g} K={k}",
+        shape=f"G={g} K={k} valid={int(valid.sum())} pairs={valid_pairs(valid)} kept={int(keep.sum())}",
     )
 
 
@@ -773,7 +791,6 @@ def run_cascade_path(torch, dev):
     """Cascade predicts at the main shape: K1 once, K2 once a stage, K6 and
     K5 once, K3 never. Then K5 and K6 against their plain versions on the
     inputs one more predict gave them."""
-    from balancedgroupsoftmax_torch import kernels
     from balancedgroupsoftmax_torch.ops import gather as ops_gather
     from balancedgroupsoftmax_torch.ops import nms as ops_nms
 
@@ -789,22 +806,7 @@ def run_cascade_path(torch, dev):
     profile_device(torch, "cascade predict", lambda: model.predict(*inputs))
 
     # record what the class-agnostic multiclass NMS hands K6 and K5
-    seen = {}
-    wrapped = {}
-    for name in ("gather_lanes", "nms_keep_batched_coords"):
-        fn = getattr(kernels, name)
-
-        def record(*args, _name=name, _fn=fn, **kw):
-            seen[_name] = (args, kw)
-            return _fn(*args, **kw)
-
-        wrapped[name] = fn
-        setattr(kernels, name, record)
-    try:
-        model.predict(*inputs)
-    finally:
-        for name, fn in wrapped.items():
-            setattr(kernels, name, fn)
+    seen = capture_calls(("gather_lanes", "nms_keep_batched_coords"), lambda: model.predict(*inputs))
     (planes, idx), kw6 = seen["gather_lanes"]
     (coords, valid, thr), _ = seen["nms_keep_batched_coords"]
     rows = [
@@ -812,6 +814,30 @@ def run_cascade_path(torch, dev):
         check_k6(torch, ops_gather, planes, idx, kw6["groups_per_plane"]),
     ]
     return launches, model, rows
+
+
+def capture_calls(names, fn) -> dict:
+    """Run `fn` with the kernel wrappers `names` of `kernels.py` recording
+    what they are handed: {name: (args, kwargs)} of each one's last call.
+    The wrappers still run (and count their launches)."""
+    from balancedgroupsoftmax_torch import kernels
+
+    seen, wrapped = {}, {}
+    for name in names:
+        fn_k = getattr(kernels, name)
+
+        def record(*args, _name=name, _fn=fn_k, **kw):
+            seen[_name] = (args, kw)
+            return _fn(*args, **kw)
+
+        wrapped[name] = fn_k
+        setattr(kernels, name, record)
+    try:
+        fn()
+    finally:
+        for name, fn_k in wrapped.items():
+            setattr(kernels, name, fn_k)
+    return seen
 
 
 def kernels_per_call(torch, fn) -> int:
@@ -929,7 +955,8 @@ def run_train_path(torch, model, phase2):
     """Full training steps of `model` (bf16, on the card) at 800 x 1344,
     batch 2, then one BAGS phase-2 step with the TrainConfig `phase2`, which
     must move the fc_cls tensors alone. Each step launches K4 once, and K2
-    and K2b once a stage."""
+    and K2b once a stage. Returns the launches of the selectp=0 steps and
+    what the first of them handed K4 (boxes, valid, iou_thr)."""
     from balancedgroupsoftmax_torch import cuda
     from balancedgroupsoftmax_torch.config import TrainConfig
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
@@ -951,7 +978,10 @@ def run_train_path(torch, model, phase2):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics = step(batch, gen)
+    # the first step also records what the RPN's NMS hands K4
+    out = []
+    seen = capture_calls(("nms_keep_tiled",), lambda: out.append(step(batch, gen)))
+    metrics, k4_inputs = out[0], seen["nms_keep_tiled"][0]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     step_ms = []
@@ -993,7 +1023,7 @@ def run_train_path(torch, model, phase2):
         raise AssertionError(f"selectp={phase2.selectp} moved {moved}")
     log(f"  selectp={phase2.selectp} step {(time.perf_counter() - t0) * 1e3:.3f} ms moved only {moved}, "
         f"loss {metrics['loss'].item():.5f}")
-    return launches
+    return launches, k4_inputs
 
 
 def compare_small_train(torch, model) -> None:
@@ -1503,8 +1533,9 @@ def run_htc_path(torch, dev):
     times, K2 8 times (three stages and the masks, each over the FPN and the
     semantic feature), K1, K6 and K5 once and K3 never a call. Then K7
     against its plain version, and timed, on the inputs one more predict gave
-    each deformable layer."""
+    each deformable layer, and K5 on the candidates one more predict gave it."""
     from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
+    from balancedgroupsoftmax_torch.ops import nms as ops_nms
     from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
 
     t0 = time.perf_counter()
@@ -1533,6 +1564,11 @@ def run_htc_path(torch, dev):
     layers = capture_dcn(torch, lambda: model.predict_with_masks(*inputs))
     row = check_k7_path(torch, ops_dcn, layers)
     del layers
+    (coords, valid, thr), _ = capture_calls(("nms_keep_batched_coords",),
+                                            lambda: model.predict_with_masks(*inputs))["nms_keep_batched_coords"]
+    k5 = check_k5(torch, ops_nms, coords, valid, thr, path="HTC")
+    log(f"  K5 on HTC's candidates ({k5['shape']}): equal to the plain version, kernel {k5['ms']:.4f} ms, "
+        f"bound {k5['bound_ms']:.5f} ms")
     return launches, model, row
 
 
@@ -1619,9 +1655,9 @@ def main() -> int:
         check_k1(torch, ops_nms, dev),
         check_k2(torch, ops_roi, dev),
         check_k3(torch, ops_nms, dev),
-        check_k4(torch, ops_nms, dev),
         check_k2b(torch, ops_roi, dev),
     ]
+    check_k4_ties(torch, ops_nms, dev)
     check_k5_ties(torch, ops_nms, dev)
     check_k6_ties(torch, ops_gather, dev)
     check_k7_edges(torch, ops_dcn, dev)
@@ -1640,7 +1676,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     train_model = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
-    train_launches = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
+    train_launches, k4_inputs = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
+    k4_row = check_k4(torch, ops_nms, *k4_inputs)
+    log_row(k4_row)
+    rows.append(k4_row)
+    del k4_inputs
     log(f"phase training path: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -133,6 +133,77 @@ def test_nms_keep_tiled_matches_plain(dev, k):
     assert torch.equal(keep, ops_nms.nms_keep_reference(boxes, valid, 0.7))
 
 
+NMS_ROWS = ["scattered", "all_valid", "all_invalid", "invalid_tail"]
+
+
+def nms_rows(seed, g, k, thr, rows, spread=600):
+    """`tie_rows` with the validity of `rows`: tie_rows' scattered ~10%
+    invalid slots, all valid, none valid, or the last third invalid (the
+    padding top-k leaves)."""
+    boxes, valid = tie_rows(seed, g, k, thr, spread=spread)
+    if rows == "all_valid":
+        valid[:] = True
+    elif rows == "all_invalid":
+        valid[:] = False
+    elif rows == "invalid_tail":
+        valid[:] = True
+        valid[:, k - k // 3:] = False
+    return boxes, valid
+
+
+def _one_launch_of(kernel, before):
+    assert [kk.launches - b for kk, b in zip(cuda.KERNELS, before)] == [int(kk is kernel) for kk in cuda.KERNELS]
+
+
+@pytest.mark.parametrize("rows", NMS_ROWS)
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 1337, 2000, 4097])
+def test_nms_keep_tiled_edges_match_plain(dev, k, rows):
+    """K4 bit for bit at K of one box, around one 64-box chunk, the RPN's
+    2000, and past 4096, with every kind of row."""
+    g = 3 if k > 2000 else 10
+    boxes, valid = (torch.from_numpy(x).to(dev) for x in nms_rows(k + 3, g, k, 0.7, rows))
+    before = [kk.launches for kk in cuda.KERNELS]
+    keep = ops_nms.nms_keep_tiled(boxes, valid, 0.7)
+    _one_launch_of(cuda.NMS_KEEP_TILED, before)
+    assert torch.equal(keep, ops_nms.nms_keep_reference(boxes, valid, 0.7))
+
+
+@pytest.mark.parametrize("rows", NMS_ROWS)
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+@pytest.mark.parametrize("k", [1, 64, 300, 1344])
+def test_nms_keep_coords_edges_match_plain(dev, k, thr, rows):
+    """K5 bit for bit, its mask pass and its walk in one call, at K of one
+    box, one 64-box chunk, the cascade's 300 (its 600 rows) and 1344, its
+    largest, with every kind of row."""
+    g = 600 if k == 300 else 7
+    boxes, valid = nms_rows(k + 5, g, k, thr, rows, spread=300)
+    coords = torch.from_numpy(np.ascontiguousarray(boxes.transpose(0, 2, 1))).to(dev)
+    valid = torch.from_numpy(valid).to(dev)
+    before = [kk.launches for kk in cuda.KERNELS]
+    keep = ops_nms.nms_keep_batched_coords(coords, valid, thr)
+    _one_launch_of(cuda.NMS_KEEP_COORDS, before)
+    assert torch.equal(keep, ops_nms.nms_keep_reference(coords.transpose(1, 2), valid, thr))
+
+
+def test_nms_keep_coords_refuses_rows_beyond_its_limit(dev):
+    """K5 holds a row's mask in one block's shared memory, so K = 1345
+    raises, with no launch counted and nothing computed; K = 1344 runs."""
+    for k, fits in ((1344, True), (1345, False), (2000, False)):
+        boxes, valid = nms_rows(k, 2, k, 0.5, "scattered")
+        coords = torch.from_numpy(np.ascontiguousarray(boxes.transpose(0, 2, 1))).to(dev)
+        valid = torch.from_numpy(valid).to(dev)
+        before = cuda.NMS_KEEP_COORDS.launches
+        if fits:
+            keep = ops_nms.nms_keep_batched_coords(coords, valid, 0.5)
+            assert torch.equal(keep, ops_nms.nms_keep_reference(coords.transpose(1, 2), valid, 0.5))
+            assert cuda.NMS_KEEP_COORDS.launches == before + 1
+        else:
+            with pytest.raises(RuntimeError, match="bags_nms_keep_coords"):
+                ops_nms.nms_keep_batched_coords(coords, valid, 0.5)
+            torch.cuda.synchronize()  # and nothing was left running that fails later
+            assert cuda.NMS_KEEP_COORDS.launches == before
+
+
 def test_batched_nms_topk_sends_long_rows_to_k4(dev):
     from balancedgroupsoftmax_torch.kernels import batched_nms_topk
 
