@@ -18,36 +18,26 @@
 // it. Invalid slots neither keep nor suppress. This equals the fixpoint the TPU
 // kernels iterate to.
 //
-// Design of K1 and K3. Three steps, each a device function below:
-//  1. load a row's boxes (K3: gather them straight from the (G, 4, N) planes
-//     with plain loads, which are exact; the TPU needed a bf16x3 one-hot
-//     matmul to gather) into shared memory with their areas;
-//  2. build the suppression bitmask, K x ceil(K/64) uint64 words: one warp
-//     makes a word, its lanes testing 64 neighbouring boxes j against box i
-//     (no bank conflicts), two ballots assembling the bits;
-//  3. walk the boxes in score order with one warp: lane w holds word w of the
-//     removed set in a register, a shuffle tells every lane whether box i is
-//     still in, and a kept box ORs its mask row in.
-// K3 runs all three in one block per row: its B * 300 rows fill the card.
-// K1 has only G = B * 5 rows, so step 2 runs as its own kernel over
-// (ceil(K/64) row blocks) x G, into a (G, K, ceil(K/64)) mask in device memory
-// that the walk kernel copies into shared memory.
-//
-// Design of K4 and K5. Both cut a row's K boxes into T = ceil(K/64)
-// blocks of 64 and keep the mask transposed, word (w, i) at [w * K + i]: bit
-// b is set when box i suppresses box 64 w + b. Only the T (T + 1) / 2 tiles
-// of 64 x 64 words on or above the diagonal (w >= i / 64) are ever built or
-// read: box i never suppresses an earlier box. Each runs two kernels.
-//  a. The mask pass (`nms_tile_mask_kernel`, shared; K4 reads 16-byte
-//     boxes, K5 its four coordinate planes, coalesced). A grid enumerates
-//     only the upper tiles, four a block. A thread holds its row box i in
-//     registers, the tile's 64 column boxes sit in shared memory (read as
-//     broadcasts), and the thread builds its 64-bit word in a register
-//     (`row_word`): no ballots, no runtime division, no whole-row copy into
-//     every block. Neighbouring threads store neighbouring words. Bounds on
-//     the product thr * union decide every pair whose IoU is not within a
-//     relative 2^-20 of thr without the division (`Threshold`), eight
-//     pairs at a time without a branch; the others divide.
+// Design (all four). Each cuts a row's K boxes into T = ceil(K/64) blocks of
+// 64 and keeps the mask transposed, word (w, i) at [w * K + i]: bit b is set
+// when box i suppresses box 64 w + b. Only the T (T + 1) / 2 tiles of 64 x 64
+// words on or above the diagonal (w >= i / 64) are ever built or read: box i
+// never suppresses an earlier box. Each runs two kernels.
+//  a. The mask pass (`nms_tile_mask_kernel`, shared; K1 and K4 read 16-byte
+//     boxes, K5 its four coordinate planes, coalesced; K3 gathers each box
+//     from its (G, 4, N) planes through idx, the zero box for an index
+//     outside [0, N), as the plain version and the TPU's one-hot gather do).
+//     A grid enumerates only the upper tiles, four a block. A thread holds
+//     its row box i in registers, the tile's 64 column boxes sit in shared
+//     memory (read as broadcasts), and the thread builds its 64-bit word in
+//     a register (`row_word`): no ballots, no runtime division, no whole-row
+//     copy into every block. Neighbouring threads store neighbouring words.
+//     Bounds on the product thr * union decide every pair whose IoU is not
+//     within a relative 2^-20 of thr without the division (`Threshold`),
+//     eight pairs at a time without a branch; the others divide. In K3 the
+//     group that builds a row block's diagonal tile also writes the block's
+//     64 candidates to cand: each column block has one diagonal tile, so
+//     each candidate is written once, inside K3's own launches.
 //  b. The walk, 64 boxes a chunk. The invalid boxes and the boxes removed
 //     by earlier chunks start as set bits of `cur`; then one thread settles
 //     the chunk from its 64 diagonal words as a chain of a test and an OR a
@@ -56,8 +46,9 @@
 //     chunk's kept set is ~cur at the end. A warp ORs the kept boxes' words
 //     into a later word of the removed set, each lane taking two of the
 //     chunk's 64 words and two `__reduce_or_sync` finishing it (`or_kept`).
-// K4 (G = B * 5 rows of K = 2000 in training; 528 tiles a row) walks each
-// row in one block straight from the scratch in device memory
+// K1 and K4 (the RPN's G = B * 5 rows: K = 1000 at test time, 2000 in
+// training; 136 and 528 tiles a row) share `keep_rows` and walk each row in
+// one block straight from the scratch in device memory
 // (`nms_tile_walk_kernel`). Only word c + 1 has to be final before chunk
 // c + 1 settles, so warp 0 settles chunk after chunk and ORs each chunk's
 // kept words into the next word itself, with the next chunk's words already
@@ -65,18 +56,16 @@
 // OR the chunk into the words after that, loading them as they go, while
 // warp 0 settles the next chunk. Named barriers hand the kept set over and
 // tell warp 0, one chunk later, that the OR is done: no load of the mask
-// and no block-wide barrier is on the chain's path. K5 (G = B * 300 rows of
-// K = 300; 15 tiles a row) copies each row's mask (12 KB) into one block's
-// shared memory and walks it there (`nms_coords_walk_kernel`).
+// and no block-wide barrier is on the chain's path. K3 and K5 (G = B * 300
+// rows of K = 300; 15 tiles a row) copy each row's mask (12 KB) into one
+// block's shared memory and walk it there (`nms_coords_walk_kernel`).
 //
 // What bounds them on an H100: neither bytes nor FLOPs but latency and the
-// IoU tests' instructions. A K1 walk block at K = 1000 holds the 128 KB
-// mask row, which caps K near 1350, as K3's fused block at K = 300 (20 KB)
-// is capped; the register walk allows K <= 2048. K4 keeps little in shared
-// memory, so only the mask pass's grid bounds K (<= 46272); K5 keeps a
-// row's mask in shared memory, so K <= 1344, as before. A K that does not
-// fit makes the launcher return an error; `kernels.batched_nms_topk` sends
-// K > 1280 to K4.
+// IoU tests' instructions. K1 and K4 keep little in shared memory, so only
+// the mask pass's grid bounds K (<= 46272); K3 and K5 keep a row's mask in
+// shared memory, so K <= 1344. A K that does not fit makes the launcher
+// return an error before anything is launched; `kernels.batched_nms_topk`
+// sends K > 1280 to K4, as the JAX package does.
 //
 // IoU is computed in the JAX formula order with round-to-nearest intrinsics,
 // which the compiler never contracts into FMAs, so a box exactly at the
@@ -91,14 +80,11 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 512;      // K3's blocks and K1's walk blocks
-constexpr int kMaskThreads = 256;  // K1 mask blocks, one per 64 rows
-constexpr int kMaxWords = 32;      // the walk keeps one word per lane
-constexpr int kTileThreads = 256;  // K4 / K5 mask pass: four 64 x 64 tiles a block
+constexpr int kTileThreads = 256;  // the mask pass: four 64 x 64 tiles a block
 constexpr int kTilesPerBlock = kTileThreads / 64;
 constexpr int kMaxTileWords = 723;  // the mask pass's grid: T (T + 1) / 2 tiles <= 65535 blocks of 4
-constexpr int kRowThreads = 512;     // K4 walk blocks, one row each
-constexpr int kCoordsThreads = 256;  // K5 walk blocks, one row each
+constexpr int kRowThreads = 512;     // K1 / K4 walk blocks, one row each
+constexpr int kCoordsThreads = 256;  // K3 / K5 walk blocks, one row each
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block can have on sm_90 (227 KB)
 
 // The intersection and union of two boxes in the JAX formula order.
@@ -125,155 +111,26 @@ __device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2
 
 __host__ __device__ inline int num_words(int k) { return (k + 63) / 64; }
 
-// A row's boxes in shared memory: x1, y1, x2, y2, area (K floats each), valid (K bytes).
-struct Row {
-  float *x1, *y1, *x2, *y2, *area;
-  uint8_t* v;
-};
-
-__device__ Row carve_row(void* at, int k) {
-  Row r;
-  r.x1 = static_cast<float*>(at);
-  r.y1 = r.x1 + k;
-  r.x2 = r.y1 + k;
-  r.y2 = r.x2 + k;
-  r.area = r.y2 + k;
-  r.v = reinterpret_cast<uint8_t*>(r.area + k);
-  return r;
-}
-
-size_t row_bytes(int k) { return size_t(k) * (5 * sizeof(float) + 1); }
-
 // How a kernel finds a row's boxes.
 enum class Src {
   kRows,    // K1, K4: src is boxes (G, K, 4)
   kPlanes,  // K5: src is coordinate planes (G, 4, K)
-  kGather,  // K3: src is planes (G, 4, N), gathered through idx
+  kGather,  // K3: src is planes (G, 4, N), gathered through idx (G, K)
 };
 
-// K1 and K3 step 1 (whole block). With kGather, idx (G, K) picks the
-// candidates from the planes and cand (G, 4, K) receives them (0 for an index
-// outside [0, N)).
-template <Src kSrc>
-__device__ void load_row(Row r, const float* __restrict__ src, const int32_t* __restrict__ idx,
-                         const uint8_t* __restrict__ valid, float* __restrict__ cand, int64_t g,
-                         int k, int n) {
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    float c[4];
-    if constexpr (kSrc == Src::kGather) {
-      const int j = idx[g * k + i];
-      const bool in = j >= 0 && j < n;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c[q] = in ? src[(g * 4 + q) * n + j] : 0.0f;
-        cand[(g * 4 + q) * k + i] = c[q];
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[q] = src[(g * k + i) * 4 + q];
-    }
-    r.x1[i] = c[0];
-    r.y1[i] = c[1];
-    r.x2[i] = c[2];
-    r.y2[i] = c[3];
-    r.area[i] = box_area(c[0], c[1], c[2], c[3]);
-    r.v[i] = valid[g * k + i] != 0;
-  }
-}
-
-// K1 and K3 step 2 (whole block): mask[i * words + w] for rows i in [i_begin, i_end).
-// Word (i, w) holds bit b for box j = 64 w + b that box i suppresses; lane l
-// of the warp making it tests j = 64 w + l and 64 w + 32 + l.
-__device__ void build_mask(Row r, int k, int i_begin, int i_end, float thr, u64* mask) {
-  const int words = num_words(k);
-  const int lane = threadIdx.x & 31;
-  for (int t = threadIdx.x >> 5; t < (i_end - i_begin) * words; t += blockDim.x >> 5) {
-    const int i = i_begin + t / words;
-    const int w = t % words;
-    u64 bits = 0ull;
-    if (r.v[i] && 64 * w + 63 > i) {  // the same for every lane of the warp
-      const int j0 = 64 * w + lane;
-      const int j1 = j0 + 32;
-      const bool s0 = j0 > i && j0 < k && r.v[j0] &&
-                      iou_above(r.x1[i], r.y1[i], r.x2[i], r.y2[i], r.area[i], r.x1[j0],
-                                r.y1[j0], r.x2[j0], r.y2[j0], r.area[j0], thr);
-      const bool s1 = j1 > i && j1 < k && r.v[j1] &&
-                      iou_above(r.x1[i], r.y1[i], r.x2[i], r.y2[i], r.area[i], r.x1[j1],
-                                r.y1[j1], r.x2[j1], r.y2[j1], r.area[j1], thr);
-      bits = static_cast<u64>(__ballot_sync(0xffffffffu, s0)) |
-             (static_cast<u64>(__ballot_sync(0xffffffffu, s1)) << 32);
-    }
-    if (lane == 0) mask[size_t(i) * words + w] = bits;
-  }
-}
-
-// K1 and K3 step 3 (warp 0): keep[i] for the row whose mask (K x words) and
-// valid flags are in shared memory.
-__device__ void walk(const u64* mask, const uint8_t* v, uint8_t* keep, int k) {
-  if (threadIdx.x >= 32) return;
-  const int words = num_words(k);
-  const int lane = threadIdx.x;
-  u64 removed = 0ull;  // word `lane` of the removed set
-  for (int i = 0; i < k; ++i) {
-    const u64 row = lane < words ? mask[size_t(i) * words + lane] : 0ull;
-    const u64 word = __shfl_sync(0xffffffffu, removed, i >> 6);
-    const bool kept = v[i] && !((word >> (i & 63)) & 1ull);
-    if (kept) removed |= row;
-    if (lane == 0) keep[i] = kept;
-  }
-}
-
-// K3: one block per row, all three steps.
-__global__ void __launch_bounds__(kThreads)
-nms_gathered_kernel(const float* __restrict__ planes, const int32_t* __restrict__ idx,
-                    const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
-                    float* __restrict__ cand, int k, int n, float thr) {
-  extern __shared__ u64 smem[];
-  const int64_t g = blockIdx.x;
-  u64* mask = smem;
-  Row r = carve_row(mask + size_t(k) * num_words(k), k);
-  load_row<Src::kGather>(r, planes, idx, valid, cand, g, k, n);
-  __syncthreads();
-  build_mask(r, k, 0, k, thr, mask);
-  __syncthreads();
-  walk(mask, r.v, keep + g * k, k);
-}
-
-// K1 step 2: block (rb, g) makes the mask words of rows [64 rb, 64 rb + 64) of row g.
-__global__ void __launch_bounds__(kMaskThreads)
-nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                u64* __restrict__ mask, int k, float thr) {
-  extern __shared__ u64 smem[];
-  const int64_t g = blockIdx.y;
-  Row r = carve_row(smem, k);
-  load_row<Src::kRows>(r, boxes, nullptr, valid, nullptr, g, k, 0);
-  __syncthreads();
-  const int i_begin = 64 * blockIdx.x;
-  build_mask(r, k, i_begin, min(i_begin + 64, k), thr, mask + g * k * num_words(k));
-}
-
-// K1 step 3: one block per row copies the row's mask into shared memory, then walks.
-__global__ void __launch_bounds__(kThreads)
-nms_walk_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
-                uint8_t* __restrict__ keep, int k) {
-  extern __shared__ u64 smem[];
-  const int64_t g = blockIdx.x;
-  const size_t n_words = size_t(k) * num_words(k);
-  uint8_t* v = reinterpret_cast<uint8_t*>(smem + n_words);
-  for (size_t t = threadIdx.x; t < n_words; t += blockDim.x) smem[t] = mask[g * n_words + t];
-  for (int i = threadIdx.x; i < k; i += blockDim.x) v[i] = valid[g * k + i] != 0;
-  __syncthreads();
-  walk(smem, v, keep + g * k, k);
-}
-
-// ---- K4 and K5 ------------------------------------------------------------
-
 // Box i of row g as (x1, y1, x2, y2): one 16-byte load from (G, K, 4) boxes
-// (four where a caller's view is not 16-byte aligned), or four coalesced
-// loads from (G, 4, K) planes.
+// (four where a caller's view is not 16-byte aligned), four coalesced loads
+// from (G, 4, K) planes, or four loads from (G, 4, N) planes at idx[g, i] (the
+// zero box for an index outside [0, N)).
 template <Src kSrc>
-__device__ __forceinline__ float4 box_at(const float* __restrict__ src, int64_t g, int k, int i) {
-  if constexpr (kSrc == Src::kPlanes) {
+__device__ __forceinline__ float4 box_at(const float* __restrict__ src, const int32_t* __restrict__ idx,
+                                         int64_t g, int k, int n, int i) {
+  if constexpr (kSrc == Src::kGather) {
+    const int at = __ldg(idx + g * k + i);
+    if (at < 0 || at >= n) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float* p = src + g * 4 * int64_t(n) + at;
+    return make_float4(__ldg(p), __ldg(p + n), __ldg(p + 2 * int64_t(n)), __ldg(p + 3 * int64_t(n)));
+  } else if constexpr (kSrc == Src::kPlanes) {
     const float* p = src + g * 4 * int64_t(k) + i;
     return make_float4(p[0], p[k], p[2 * int64_t(k)], p[3 * int64_t(k)]);
   } else {
@@ -358,13 +215,15 @@ __device__ __forceinline__ u64 row_word(float4 a, float aarea, bool a_valid, con
   return ((static_cast<u64>(half[1]) << 32) | half[0]) & live;
 }
 
-// Step a over the card (K4 and K5): block (g, y) builds tiles 4 y .. 4 y + 3
-// of row g's upper tiles, word (w, i) of the row at mask[(g * T + w) * K + i].
-// The lower tiles are never written.
+// Step a over the card: block (g, y) builds tiles 4 y .. 4 y + 3 of row g's
+// upper tiles, word (w, i) of the row at mask[(g * T + w) * K + i]. The lower
+// tiles are never written. With kGather, the diagonal tiles' groups write the
+// gathered boxes to cand (G, 4, K).
 template <Src kSrc>
 __global__ void __launch_bounds__(kTileThreads)
-nms_tile_mask_kernel(const float* __restrict__ src, const uint8_t* __restrict__ valid,
-                     u64* __restrict__ mask, int k, float thr) {
+nms_tile_mask_kernel(const float* __restrict__ src, const int32_t* __restrict__ idx,
+                     const uint8_t* __restrict__ valid, u64* __restrict__ mask, float* __restrict__ cand,
+                     int k, int n, float thr) {
   __shared__ float4 cbox[kTilesPerBlock][64];
   __shared__ float carea[kTilesPerBlock][64];
   __shared__ unsigned cvalid[kTilesPerBlock][2];
@@ -375,20 +234,31 @@ nms_tile_mask_kernel(const float* __restrict__ src, const uint8_t* __restrict__ 
   const int u = blockIdx.y * kTilesPerBlock + grp;
   const bool live = u < words * (words + 1) / 2;  // the same for the group's 64 threads
   const int2 tile = live ? upper_tile(u, words) : make_int2(0, 0);
+  const bool diag = tile.x == tile.y;
   const int i = 64 * tile.x + t;
   const int j = 64 * tile.y + t;
-  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  bool a_valid = false;
-  if (live && i < k) {
-    a = box_at<kSrc>(src, g, k, i);
-    a_valid = valid[g * k + i] != 0;
-  }
+  float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   bool j_valid = false;
   if (live && j < k) {
-    const float4 b = box_at<kSrc>(src, g, k, j);
+    b = box_at<kSrc>(src, idx, g, k, n, j);
     cbox[grp][t] = b;
     carea[grp][t] = area_of(b);
     j_valid = valid[g * k + j] != 0;
+    if constexpr (kSrc == Src::kGather) {
+      if (diag) {
+        float* c = cand + g * 4 * int64_t(k) + j;
+        c[0] = b.x;
+        c[k] = b.y;
+        c[2 * int64_t(k)] = b.z;
+        c[3 * int64_t(k)] = b.w;
+      }
+    }
+  }
+  float4 a = b;  // on the diagonal, row box i is column box j
+  bool a_valid = j_valid;
+  if (live && !diag && i < k) {
+    a = box_at<kSrc>(src, idx, g, k, n, i);
+    a_valid = valid[g * k + i] != 0;
   }
   const unsigned half = __ballot_sync(0xffffffffu, j_valid);
   if ((threadIdx.x & 31) == 0) cvalid[grp][t >> 5] = half;
@@ -396,7 +266,7 @@ nms_tile_mask_kernel(const float* __restrict__ src, const uint8_t* __restrict__ 
   if (!live || i >= k) return;
   const u64 cv = cvalid[grp][0] | (static_cast<u64>(cvalid[grp][1]) << 32);
   mask[(g * words + tile.y) * int64_t(k) + i] =
-      row_word(a, area_of(a), a_valid, cbox[grp], carea[grp], cv, t, tile.x == tile.y, threshold(thr));
+      row_word(a, area_of(a), a_valid, cbox[grp], carea[grp], cv, t, diag, threshold(thr));
 }
 
 // Whole block: vbits[w] bit b set when box 64 w + b exists and is valid; the
@@ -464,7 +334,7 @@ __device__ __forceinline__ void or_into(u64* word, u64 v) {
   atomicOr(reinterpret_cast<unsigned*>(word) + 1, static_cast<unsigned>(v >> 32));
 }
 
-// Named barriers between K4's settling warp and the others (0 is __syncthreads).
+// Named barriers between K1's / K4's settling warp and the others (0 is __syncthreads).
 constexpr int kKeptBar = 1;  // + c % 2: chunk c's kept set is out
 constexpr int kOredBar = 3;  // + c % 2: chunk c's kept words are ORed into the words after c + 1
 
@@ -476,10 +346,11 @@ __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(static_cast<int>(blockDim.x)) : "memory");
 }
 
-// K4's walk bytes: the removed set, the valid bits, two kept sets, a chunk's diagonal words.
+// K1's / K4's walk bytes: the removed set, the valid bits, two kept sets, a
+// chunk's diagonal words; at most 12 KB, no attribute to raise.
 size_t tile_walk_bytes(int k) { return (2 * size_t(num_words(k)) + 2 + 64) * sizeof(u64); }
 
-// K4 step b: one block per row walks the mask in device memory. Warp 0
+// K1 and K4 step b: one block per row walks the mask in device memory. Warp 0
 // settles chunk after chunk: its lanes hold the chunk's diagonal words and
 // its words for c + 1, loaded while the chunk before settled; once chunk c
 // is settled it ORs the kept boxes' words into word c + 1 itself, so word
@@ -551,7 +422,7 @@ nms_tile_walk_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ v
   }
 }
 
-// K5's walk bytes: the row's mask, 64 zero words after it (the last chunk's
+// K3's / K5's walk bytes: the row's mask, 64 zero words after it (the last chunk's
 // diagonal words past the row's end), the removed set, the valid bits, the
 // kept set.
 size_t coords_walk_bytes(int k) {
@@ -559,7 +430,7 @@ size_t coords_walk_bytes(int k) {
   return (words * k + 64 + 2 * words + 1) * sizeof(u64);
 }
 
-// K5 step b: one block per row copies the row's mask (the upper tiles the
+// K3 and K5 step b: one block per row copies the row's mask (the upper tiles the
 // mask pass wrote) into shared memory and walks it there: thread 0 settles a
 // chunk, then the warps OR its kept words into the later words.
 __global__ void __launch_bounds__(kCoordsThreads)
@@ -615,11 +486,30 @@ cudaError_t allow_smem(Kernel kernel, SmemSet& set, size_t bytes) {
 
 // Step a over the card for G rows of K boxes.
 template <Src kSrc>
-cudaError_t launch_tile_mask(const float* src, const uint8_t* valid, u64* mask, int g, int k, float thr,
-                             cudaStream_t stream) {
+cudaError_t launch_tile_mask(const float* src, const int32_t* idx, const uint8_t* valid, u64* mask, float* cand,
+                             int g, int k, int n, float thr, cudaStream_t stream) {
   const int tiles = num_words(k) * (num_words(k) + 1) / 2;
   nms_tile_mask_kernel<kSrc><<<dim3(g, (tiles + kTilesPerBlock - 1) / kTilesPerBlock), kTileThreads, 0, stream>>>(
-      src, valid, mask, k, thr);
+      src, idx, valid, mask, cand, k, n, thr);
+  return cudaGetLastError();
+}
+
+// Whether K3's and K5's walk takes rows of K (a row's mask in one block's
+// shared memory), its shared memory allowed; asked before anything is launched.
+cudaError_t coords_walk_fits(int k) {
+  static SmemSet set;  // one for the kernel, whichever entry launches it
+  const size_t bytes = coords_walk_bytes(k);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  return allow_smem(nms_coords_walk_kernel, set, bytes);
+}
+
+// K1 and K4: boxes (G, K, 4); the mask pass, then the walk from device memory.
+cudaError_t keep_rows(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* m, int g, int k, float thr,
+                      cudaStream_t stream) {
+  if (num_words(k) > kMaxTileWords) return cudaErrorInvalidValue;
+  cudaError_t err = launch_tile_mask<Src::kRows>(boxes, nullptr, valid, m, nullptr, g, k, 0, thr, stream);
+  if (err != cudaSuccess) return err;
+  nms_tile_walk_kernel<<<g, kRowThreads, tile_walk_bytes(k), stream>>>(m, valid, keep, k);
   return cudaGetLastError();
 }
 
@@ -627,21 +517,11 @@ cudaError_t launch_tile_mask(const float* src, const uint8_t* valid, u64* mask, 
 
 extern "C" {
 
-// boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool; mask is
-// (G, K, ceil(K/64)) uint64 scratch.
-int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g,
-                  int k, float thr, cudaStream_t stream) {
-  static SmemSet walk_set;
-  if (num_words(k) > kMaxWords) return int(cudaErrorInvalidValue);
-  auto* m = static_cast<u64*>(mask);
-  nms_mask_kernel<<<dim3(num_words(k), g), kMaskThreads, row_bytes(k), stream>>>(boxes, valid, m, k, thr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const size_t walk_bytes = size_t(k) * num_words(k) * sizeof(u64) + k;
-  err = allow_smem(nms_walk_kernel, walk_set, walk_bytes);
-  if (err != cudaSuccess) return int(err);
-  nms_walk_kernel<<<g, kThreads, walk_bytes, stream>>>(m, valid, keep, k);
-  return int(cudaGetLastError());
+// K1: boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool, K <= 46272
+// (the mask pass's grid); mask is (G, K, ceil(K/64)) uint64 scratch.
+int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask, int g, int k, float thr,
+                  cudaStream_t stream) {
+  return int(keep_rows(boxes, valid, keep, static_cast<u64*>(mask), g, k, thr, stream));
 }
 
 // K5: coords (G, 4, K) f32, valid (G, K) bool -> keep (G, K) bool, K <= 1344
@@ -649,42 +529,33 @@ int bags_nms_keep(const float* boxes, const uint8_t* valid, uint8_t* keep, void*
 // uint64 scratch.
 int bags_nms_keep_coords(const float* coords, const uint8_t* valid, uint8_t* keep, void* mask,
                          int g, int k, float thr, cudaStream_t stream) {
-  static SmemSet walk_set;
-  const size_t walk_bytes = coords_walk_bytes(k);
-  if (walk_bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(nms_coords_walk_kernel, walk_set, walk_bytes);
+  cudaError_t err = coords_walk_fits(k);
   if (err != cudaSuccess) return int(err);
   auto* m = static_cast<u64*>(mask);
-  err = launch_tile_mask<Src::kPlanes>(coords, valid, m, g, k, thr, stream);
+  err = launch_tile_mask<Src::kPlanes>(coords, nullptr, valid, m, nullptr, g, k, 0, thr, stream);
   if (err != cudaSuccess) return int(err);
-  nms_coords_walk_kernel<<<g, kCoordsThreads, walk_bytes, stream>>>(m, valid, keep, k);
+  nms_coords_walk_kernel<<<g, kCoordsThreads, coords_walk_bytes(k), stream>>>(m, valid, keep, k);
   return int(cudaGetLastError());
 }
 
-// K4: boxes (G, K, 4) f32, valid (G, K) bool -> keep (G, K) bool, K <= 46272
-// (the mask pass's grid); mask is (G, K, ceil(K/64)) uint64 scratch.
+// K4: the K1 keep for the training RPN's rows of K = 2000, on the same kernels.
 int bags_nms_keep_tiled(const float* boxes, const uint8_t* valid, uint8_t* keep, void* mask,
                         int g, int k, float thr, cudaStream_t stream) {
-  if (num_words(k) > kMaxTileWords) return int(cudaErrorInvalidValue);
-  const size_t walk_bytes = tile_walk_bytes(k);  // at most 12 KB: no attribute to raise
-  auto* m = static_cast<u64*>(mask);
-  cudaError_t err = launch_tile_mask<Src::kRows>(boxes, valid, m, g, k, thr, stream);
-  if (err != cudaSuccess) return int(err);
-  nms_tile_walk_kernel<<<g, kRowThreads, walk_bytes, stream>>>(m, valid, keep, k);
-  return int(cudaGetLastError());
+  return int(keep_rows(boxes, valid, keep, static_cast<u64*>(mask), g, k, thr, stream));
 }
 
-// planes (G, 4, N) f32, idx (G, K) i32, valid (G, K) bool
-//   -> keep (G, K) bool, cand (G, 4, K) f32 with cand[g, :, k] = planes[g, :, idx[g, k]].
-int bags_nms_keep_gathered(const float* planes, const int32_t* idx, const uint8_t* valid,
-                           uint8_t* keep, float* cand, int g, int k, int n, float thr,
-                           cudaStream_t stream) {
-  static SmemSet set;
-  if (num_words(k) > kMaxWords) return int(cudaErrorInvalidValue);
-  const size_t bytes = size_t(k) * num_words(k) * sizeof(u64) + row_bytes(k);
-  cudaError_t err = allow_smem(nms_gathered_kernel, set, bytes);
+// K3: planes (G, 4, N) f32, idx (G, K) i32, valid (G, K) bool -> keep (G, K)
+// bool, cand (G, 4, K) f32 with cand[g, :, k] = planes[g, :, idx[g, k]] (0 for
+// an index outside [0, N)), K <= 1344 (K5's walk); mask is (G, K, ceil(K/64))
+// uint64 scratch.
+int bags_nms_keep_gathered(const float* planes, const int32_t* idx, const uint8_t* valid, uint8_t* keep,
+                           float* cand, void* mask, int g, int k, int n, float thr, cudaStream_t stream) {
+  cudaError_t err = coords_walk_fits(k);
   if (err != cudaSuccess) return int(err);
-  nms_gathered_kernel<<<g, kThreads, bytes, stream>>>(planes, idx, valid, keep, cand, k, n, thr);
+  auto* m = static_cast<u64*>(mask);
+  err = launch_tile_mask<Src::kGather>(planes, idx, valid, m, cand, g, k, n, thr, stream);
+  if (err != cudaSuccess) return int(err);
+  nms_coords_walk_kernel<<<g, kCoordsThreads, coords_walk_bytes(k), stream>>>(m, valid, keep, k);
   return int(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""Where K7's, K2b's, K4's and K5's time goes, and what one launch costs on the card's host.
+"""Where K7's, K2b's and the NMS kernels' time goes, and what one launch costs on the card's host.
 
     python3 -m balancedgroupsoftmax_torch.kernel_study
 
@@ -23,16 +23,19 @@ the package's own build alone. It prints:
    or its writes cut out, beside the f32 buffer's memset and cast alone:
    what the scatter's atomics cost; and how many updates a scatter makes by
    sample corner, by distinct pixel of each bin and of each roi;
-5. K4 at the training RPN's shape (G = 10 rows of K = 2000) and K5 at the
-   cascade's (G = 600 rows of K = 300), on `chip_smoke.py`'s tie boxes,
+5. K1 and K4 at the RPN's shapes (G = 10 rows of K = 1000 at test time,
+   2000 in training) and K3 and K5 at the multiclass NMS's (G = 600 rows of
+   K = 300; K3 gathering from N = 1000), on `chip_smoke.py`'s tie boxes,
    whole and with one part cut out at a time: each one's mask pass alone
-   and walk alone (on the mask the whole kernel left in the scratch); K4
+   and walk alone (on the mask the whole kernel left in the scratch); K1/K4
    with the settling warp's loads made plain (a chunk's words loaded when
    it settles, not while the chunk before settles), and without the other
    warps' OR (its result is then wrong; it shows whether the settling warp
-   waits for them); and the design's choices each undone: the IoU test by
-   division on every pair, eight tiles a mask block, a 256-thread K4 walk,
-   the chain as a predicated OR in inline PTX.
+   waits for them); and the design's choices each undone, each held to the
+   plain version: K1 walking in K5's shared-memory walk, K3 gathering
+   its candidates first with a small pass and then running K5's kernels on
+   them, the IoU test by division on every pair, eight tiles a mask block,
+   a 256-thread K1/K4 walk, the chain as a predicated OR in inline PTX.
 
 Its inputs are seeded; offsets have a spread of 2 cells, as in
 `chip_smoke.py`'s HTC phase.
@@ -73,29 +76,60 @@ K2B_CUTS = {  # K2b's part cut out: (text in roi_align.cu, its replacement)
     "writes": ("            if (c0 < channels) add4<VEC>(dst + c0, min(4, channels - c0), sum[u]);",
                "            if (c0 < channels && sum[u][0] == 1.0e30f) add4<VEC>(dst + c0, min(4, channels - c0), sum[u]);"),
 }
-NMS_CUTS = {  # part of nms.cu cut out: (its text, the replacement)
-    "K4 walk": ("  nms_tile_walk_kernel<<<g, kRowThreads, walk_bytes, stream>>>(m, valid, keep, k);",
-                "  if (0) nms_tile_walk_kernel<<<g, kRowThreads, walk_bytes, stream>>>(m, valid, keep, k);"),
-    "K4 mask pass": ("  cudaError_t err = launch_tile_mask<Src::kRows>(boxes, valid, m, g, k, thr, stream);",
-                     "  cudaError_t err = cudaSuccess;"),
-    "K4 prefetch (loads on the chain)": (
+ROWS_WALK = "  nms_tile_walk_kernel<<<g, kRowThreads, tile_walk_bytes(k), stream>>>(m, valid, keep, k);"
+COORDS_WALK = "  nms_coords_walk_kernel<<<g, kCoordsThreads, coords_walk_bytes(k), stream>>>(m, valid, keep, k);"
+K3_MASK = "  err = launch_tile_mask<Src::kGather>(planes, idx, valid, m, cand, g, k, n, thr, stream);"
+GATHER_FIRST = r"""// K3 gathering its candidates into cand first, for K5's kernels to read
+__global__ void gather_cand_kernel(const float* __restrict__ planes, const int32_t* __restrict__ idx,
+                                   float* __restrict__ cand, int g, int k, int n) {
+  const int64_t e = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
+  if (e >= int64_t(g) * k) return;
+  const int64_t r = e / k;
+  const int s = int(e % k);
+  const float4 b = box_at<Src::kGather>(planes, idx, r, k, n, s);
+  float* c = cand + r * 4 * int64_t(k) + s;
+  c[0] = b.x;
+  c[k] = b.y;
+  c[2 * int64_t(k)] = b.z;
+  c[3 * int64_t(k)] = b.w;
+}
+
+}  // namespace
+"""
+NMS_CUTS = {  # part of nms.cu cut out or done another way: edits (its text, the replacement[, text before it])
+    "K1/K4 walk": (ROWS_WALK, "  if (0)" + ROWS_WALK[1:]),
+    "K1/K4 mask pass": (
+        "  cudaError_t err = launch_tile_mask<Src::kRows>(boxes, nullptr, valid, m, nullptr, g, k, 0, thr, stream);",
+        "  cudaError_t err = cudaSuccess;"),
+    "K1/K4 prefetch (loads on the chain)": (
         "      diag[lane] = d0;\n",
         "      d0 = word(c, c, lane), d1 = word(c, c, lane + 32), e0 = word(c + 1, c, lane), e1 = word(c + 1, c, lane + 32);\n"
         "      diag[lane] = d0;\n"),
-    "K4 other warps' OR": ("          if (lane == 0 && v != 0ull) or_into(removed + w, v);", ""),
-    "K4/K5 bounds (every pair divides)": ("          thr >= 0x1p-100f && thr <= 0x1p100f};", "          false};"),
-    "K4/K5 four tiles a block (eight)": (
-        "constexpr int kTileThreads = 256;  // K4 / K5 mask pass: four 64 x 64 tiles a block",
+    "K1/K4 other warps' OR": ("          if (lane == 0 && v != 0ull) or_into(removed + w, v);", ""),
+    "K1 walk from device memory (K5's shared-memory walk)": (
+        ROWS_WALK, "  err = coords_walk_fits(k);\n  if (err != cudaSuccess) return err;\n" + COORDS_WALK),
+    "K1/K3/K4/K5 bounds (every pair divides)": ("          thr >= 0x1p-100f && thr <= 0x1p100f};", "          false};"),
+    "K1/K3/K4/K5 four tiles a block (eight)": (
+        "constexpr int kTileThreads = 256;  // the mask pass: four 64 x 64 tiles a block",
         "constexpr int kTileThreads = 512;"),
-    "K4 512-thread walk (256)": ("constexpr int kRowThreads = 512;     // K4 walk blocks, one row each",
-                                 "constexpr int kRowThreads = 256;"),
-    "K4/K5 C++ chain (a predicated OR in inline PTX)": (
+    "K1/K4 512-thread walk (256)": ("constexpr int kRowThreads = 512;     // K1 / K4 walk blocks, one row each",
+                                    "constexpr int kRowThreads = 256;"),
+    "K1/K3/K4/K5 C++ chain (a predicated OR in inline PTX)": (
         "    if (!(lo & (1u << b))) {\n      lo |= x.x;\n      hi |= x.y;\n    }\n",
         '    asm("{\\n\\t.reg .pred p;\\n\\t.reg .b32 t;\\n\\tand.b32 t, %0, %4;\\n\\tsetp.eq.u32 p, t, 0;\\n\\t"\n        "@p or.b32 %0, %0, %2;\\n\\t@p or.b32 %1, %1, %3;\\n\\t}"\n        : "+r"(lo), "+r"(hi) : "r"(x.x), "r"(x.y), "r"(1u << b));\n'),
-    "K5 walk": ("  nms_coords_walk_kernel<<<g, kCoordsThreads, walk_bytes, stream>>>(m, valid, keep, k);",
-                "  if (0) nms_coords_walk_kernel<<<g, kCoordsThreads, walk_bytes, stream>>>(m, valid, keep, k);"),
-    "K5 mask pass": ("  err = launch_tile_mask<Src::kPlanes>(coords, valid, m, g, k, thr, stream);", "  err = cudaSuccess;"),
+    "K3 walk": (COORDS_WALK, "  if (0)" + COORDS_WALK[1:], "int bags_nms_keep_gathered("),
+    "K3 mask pass": (K3_MASK, "  err = cudaSuccess;"),
+    "K3 gather in the mask pass (gathered first)": [
+        ("}  // namespace\n", GATHER_FIRST),
+        (K3_MASK, "  gather_cand_kernel<<<(g * k + 255) / 256, 256, 0, stream>>>(planes, idx, cand, g, k, n);\n"
+                  "  err = launch_tile_mask<Src::kPlanes>(cand, nullptr, valid, m, nullptr, g, k, 0, thr, stream);"),
+    ],
+    "K5 walk": (COORDS_WALK, "  if (0)" + COORDS_WALK[1:], "int bags_nms_keep_coords("),
+    "K5 mask pass": ("  err = launch_tile_mask<Src::kPlanes>(coords, nullptr, valid, m, nullptr, g, k, 0, thr, stream);",
+                     "  err = cudaSuccess;"),
 }
+NMS_PARTIAL = {"K1/K4 walk", "K1/K4 mask pass", "K1/K4 other warps' OR", "K3 walk", "K3 mask pass", "K5 walk",
+               "K5 mask pass"}  # variants that compute only part of the result
 LAUNCH_BENCH = r"""
 #include <cuda_runtime.h>
 #include <chrono>
@@ -132,22 +166,33 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def edited(src: str, edits, source: str, name: str) -> str:
+    """`src` with one cut's edits made. An edit is (text, replacement) for a
+    text that occurs once, or (text, replacement, anchor) for the first text
+    after an anchor that occurs once; a cut is one edit or a list of them."""
+    for old, new, *anchor in [edits] if isinstance(edits, tuple) else edits:
+        start = src.find(anchor[0]) if anchor else 0
+        if src.count(anchor[0] if anchor else old) != 1 or old not in src[start:]:
+            raise RuntimeError(f"{source} no longer holds the {name} text this study cuts out")
+        at = src.index(old, start)
+        src = src[:at] + new + src[at + len(old):]
+    return src
+
+
 def build_variants(tmp: Path, source: str, symbols, cuts: dict, extra: dict = {}) -> dict:
     """The packed launchers `symbols` (one name, or several) of each variant
-    of `source`: whole, with each cut of `cuts` (name: (text, its
-    replacement)), and with each set of cuts in `extra` (name: cut names)
-    made together. Returns {variant: address}, or {variant: {symbol:
-    address}} for several symbols."""
+    of `source`: whole, with each cut of `cuts` (name: edits, see `edited`)
+    made, and with each set of cuts in `extra` (name: cut names) made
+    together. Returns {variant: address}, or {variant: {symbol: address}}
+    for several symbols."""
     src = (cuda.CSRC / source).read_text()
     texts = {"whole": src}
-    for name, (old, new) in cuts.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"{source} no longer holds the {name} text this study cuts out")
-        texts[f"no {name}"] = src.replace(old, new)
+    for name, edits in cuts.items():
+        texts[f"no {name}"] = edited(src, edits, source, name)
     for name, parts in extra.items():
         text = src
         for part in parts:
-            text = text.replace(*cuts[part])
+            text = edited(text, cuts[part], source, part)
         texts[name] = text
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
@@ -268,38 +313,64 @@ def study_k2b(fns: dict) -> None:
     print("K2b, training shape: ms " + ", ".join(f"{v} {t:.4f}" for v, t in times.items()), flush=True)
 
 
-def study_nms(fns: dict) -> None:
-    """K4 and K5 at their paths' shapes, each variant's launch timed (medians
-    of 3 runs of 20 launches) in the order built, on buffers the variants
-    share: the whole kernel runs first, so a walk alone reads the mask the
-    whole kernel left."""
+def nms_case(label: str, g: int, k: int, thr: float):
+    """`chip_smoke.py`'s tie boxes at a kernel's path shape: the launcher's
+    arguments (tensors, which the caller keeps alive while it launches, and
+    numbers), the outputs to zero, a check of the outputs against the plain
+    version, the plain keep and valid. K3 gathers its rows from (G, 4, 1000)
+    planes through distinct indices, as `chip_smoke.py` times it."""
     from chip_smoke import tie_boxes  # the repository's root is on the path under `python3 -m`
 
     from .ops import nms as ops_nms
 
+    gen = torch.Generator().manual_seed(6)
+    keep = torch.empty(g, k, dtype=torch.bool, device="cuda")
+    mask = torch.empty(g, k, -(-k // 64), dtype=torch.int64, device="cuda")
+    if label == "K3":
+        n = 1000
+        boxes, _ = tie_boxes(gen, g, n, thr, "cpu")
+        planes = boxes.transpose(1, 2).contiguous().cuda()
+        idx = torch.argsort(torch.rand(g, n, generator=gen), dim=1)[:, :k].to(torch.int32).cuda()
+        valid = (torch.rand(g, k, generator=gen) > 0.1).cuda()
+        cand = torch.empty(g, 4, k, device="cuda")
+        ref_keep, ref_cand = ops_nms.nms_keep_gathered_reference(planes, idx, valid, thr)
+        same = lambda: torch.equal(keep, ref_keep) and torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32))
+        return (planes, idx, valid, keep, cand, mask, g, k, n, thr), (keep, cand), same, ref_keep, valid
+    boxes, valid = tie_boxes(gen, g, k, thr, "cuda")
+    src = boxes.transpose(1, 2).contiguous() if label == "K5" else boxes
+    ref = ops_nms.nms_keep_reference(boxes, valid, thr)
+    return (src, valid, keep, mask, g, k, thr), (keep,), lambda: torch.equal(keep, ref), ref, valid
+
+
+def study_nms(fns: dict) -> None:
+    """K1 and K4 (the RPN at test time and in training) and K3 and K5 (the
+    class-specific and the class-agnostic multiclass NMS) at their paths'
+    shapes, each variant's launch timed (medians of 3 runs of 20 launches) in
+    the order built, on buffers the variants share: the whole kernel runs
+    first, so a walk alone reads the mask the whole kernel left. Every
+    variant that computes the whole result is held to the plain version."""
     launch = cuda.launch_module().launch
     cases = (
-        ("K4", "bags_nms_keep_tiled", cuda.NMS_KEEP_TILED, 10, 2000, 0.7, False),
-        ("K5", "bags_nms_keep_coords", cuda.NMS_KEEP_COORDS, 600, 300, 0.5, True),
+        ("K1", "bags_nms_keep", cuda.NMS_KEEP, 10, 1000, 0.7),
+        ("K4", "bags_nms_keep_tiled", cuda.NMS_KEEP_TILED, 10, 2000, 0.7),
+        ("K3", "bags_nms_keep_gathered", cuda.NMS_KEEP_GATHERED, 600, 300, 0.5),
+        ("K5", "bags_nms_keep_coords", cuda.NMS_KEEP_COORDS, 600, 300, 0.5),
     )
-    for label, symbol, kernel, g, k, thr, planes in cases:
-        boxes, valid = tie_boxes(torch.Generator().manual_seed(6), g, k, thr, "cuda")
-        src = boxes.transpose(1, 2).contiguous() if planes else boxes
-        keep = torch.empty(g, k, dtype=torch.bool, device="cuda")
-        mask = torch.empty(g, k, -(-k // 64), dtype=torch.int64, device="cuda")
-        ref = ops_nms.nms_keep_reference(boxes, valid, thr)
-        args = (src.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), g, k, thr)
+    for label, symbol, kernel, g, k, thr in cases:
+        inputs, outs, same, ref, valid = nms_case(label, g, k, thr)
+        args = tuple(x.data_ptr() if isinstance(x, torch.Tensor) else x for x in inputs)
         times = {}
         for name, by_symbol in fns.items():
-            if name != "whole" and label not in name.split(" ")[1]:  # "no K4 ...", "no K4/K5 ..."
+            if name != "whole" and label not in name.split(" ")[1]:  # "no K1/K4 ...", "no K3 ..."
                 continue
             call = lambda: launch(by_symbol[symbol], kernel.kinds, *args, cuda.current_stream())
-            keep.zero_()
+            for out in outs:
+                out.zero_()
             if call():
                 raise RuntimeError(f"{label} variant '{name}' refused the launch")
             torch.cuda.synchronize()
-            if name == "whole" and not torch.equal(keep, ref):
-                raise AssertionError(f"{label}: the whole kernel differs from the plain version")
+            if name.removeprefix("no ") not in NMS_PARTIAL and not same():
+                raise AssertionError(f"{label}: the variant '{name}' differs from the plain version")
             times[name] = statistics.median(cuda_time_ms(call, 20) for _ in range(3))
         print(f"{label} (G={g} K={k} kept {int(ref.sum())} of {int(valid.sum())}): ms "
               + ", ".join(f"{v} {t:.4f}" for v, t in times.items()), flush=True)
@@ -345,7 +416,8 @@ def main() -> int:
         study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
                                 {"no weights, sampling, copies": ("weights", "sampling", "copies")}))
         study_k2b(build_variants(Path(tmp), "roi_align.cu", "bags_roi_align_backward", K2B_CUTS))
-        study_nms(build_variants(Path(tmp), "nms.cu", ("bags_nms_keep_tiled", "bags_nms_keep_coords"), NMS_CUTS))
+        symbols = ("bags_nms_keep", "bags_nms_keep_tiled", "bags_nms_keep_gathered", "bags_nms_keep_coords")
+        study_nms(build_variants(Path(tmp), "nms.cu", symbols, NMS_CUTS))
         study_launch(Path(tmp))
     return 0
 

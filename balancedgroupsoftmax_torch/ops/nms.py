@@ -55,8 +55,10 @@ def _launch_keep(
 
 
 def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
-    """K1: greedy keep mask per row. boxes (G, K, 4) f32, valid (G, K) bool;
-    the walk holds a row's mask in shared memory, so K <= ~1350."""
+    """K1: greedy keep mask per row (the test-time RPN's K = 1000). boxes (G,
+    K, 4) f32, valid (G, K) bool; K <= 46272 (the mask pass's grid): the mask
+    pass builds the upper 64 x 64 tiles of each row's mask over the card, then
+    a block a row walks it 64 boxes a chunk from device memory, as K4 does."""
     if boxes.device.type == "cpu":
         return nms_keep_reference(boxes, valid, iou_thr)
     return _launch_keep(cuda.NMS_KEEP, boxes, valid, iou_thr)
@@ -64,8 +66,7 @@ def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -
 
 def nms_keep_tiled(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
     """K4: the K1 keep mask for long rows (the training RPN's K = 2000; K <=
-    46272): the mask pass builds the upper 64 x 64 tiles of each row's mask
-    over the card, then a block a row walks it 64 boxes a chunk."""
+    46272), on K1's kernels."""
     if boxes.device.type == "cpu":
         return nms_keep_reference(boxes, valid, iou_thr)
     return _launch_keep(cuda.NMS_KEEP_TILED, boxes, valid, iou_thr)
@@ -101,7 +102,9 @@ def nms_keep_gathered_reference(
 def nms_keep_gathered(
     planes: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor, iou_thr: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: fused candidate gather + greedy keep, (keep, cand) as above."""
+    """K3: candidate gather + greedy keep, (keep, cand) as above; K <= 1344
+    (K5's walk holds a row's mask in one block's shared memory). The mask
+    pass gathers each box through idx and writes cand, then K5's walk runs."""
     if planes.device.type == "cpu":
         return nms_keep_gathered_reference(planes, idx, valid, iou_thr)
     g, k = valid.shape
@@ -111,10 +114,11 @@ def nms_keep_gathered(
     cuda.check(valid, torch.bool, (g, k), "valid")
     keep = torch.empty(g, k, dtype=torch.bool, device=planes.device)
     cand = torch.empty(g, 4, k, dtype=torch.float32, device=planes.device)
+    mask = torch.empty(g, k, -(-k // 64), dtype=torch.int64, device=planes.device)  # scratch
     if g and k:
         cuda.NMS_KEEP_GATHERED(
             planes.data_ptr(), idx.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-            cand.data_ptr(), g, k, n, float(iou_thr),
+            cand.data_ptr(), mask.data_ptr(), g, k, n, float(iou_thr),
         )
     return keep, cand
 

@@ -6,16 +6,21 @@
 Phases, each timed, any failure ending the run with a non-zero exit:
 1. build the CUDA kernels of balancedgroupsoftmax_torch/csrc with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it, and time both: K1-K3 at inference's, K2b (the
-   RoIAlign gradient) at training's, K4 (the training RPN's NMS) on inputs
-   with exact ties at K = 1 to 4097 (timed at the training RPN's shape),
-   K5 and K6 (the class-agnostic multiclass NMS) on inputs with exact ties
-   and out-of-range indices at the cascade's shapes;
+   shapes its path gives it, and time both: K2 at inference's, K2b (the
+   RoIAlign gradient) at training's, K1 (the test-time RPN's NMS) on inputs
+   with exact ties at K = 1 to 1280 and K3 (the class-specific multiclass
+   NMS) on gathered ones with indices outside the plane at K = 1 to 1344
+   (K = 1345 refused), each also timed at its path's shape, K4 (the
+   training RPN's NMS) on inputs with exact ties at K = 1 to 4097 (timed at
+   the training RPN's shape), K5 and K6 (the class-agnostic multiclass NMS)
+   on inputs with exact ties and out-of-range indices at the cascade's
+   shapes;
 3. run BAGS Faster R-CNN R50-FPN (gs_faster_rcnn_r50_fpn_lvis: 1231 classes,
    800 x 1344, bf16, batch 2, seeded random weights and synthetic partition)
    through `init_detector` and `predict`, check that K1-K3 were launched and
    that the detections are well formed, and profile one `predict` (device
-   time by kernel, idle share);
+   time by kernel, idle share); hold K1 and K3 bit for bit against their
+   plain versions, and time them, on what one more `predict` handed them;
 4. run the same model in f32 on a small image on the card and on the CPU
    (the plain versions) and compare the detections;
 5. train the same model (bf16 compute, f32 parameters, batch 2 at 800 x
@@ -31,9 +36,9 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    configuration, and compare the loss dicts;
 7-10. the same four phases for BAGS Cascade R-CNN R50-FPN
    (cascade_rcnn_r50_fpn_lvis with GS heads, built through `build_model`):
-   `predict` must launch K1, K2 (once a stage), K6 and K5 and not K3; K5
-   and K6 are held to their plain versions again, and timed, on the inputs
-   that predict gave them (K6 in turns with `torch.gather`, with both device
+   `predict` must launch K1, K2 (once a stage), K6 and K5 and not K3; K1,
+   K5 and K6 are held to their plain versions again, and timed, on the
+   inputs that predict gave them (K6 in turns with `torch.gather`, with both device
    times from the profiler and the host's cost of K6's launch path part by
    part, beside the plainer ways to do each part); the BAGS phase-2
    step (selectp=3) must move the three stages' fc_cls alone;
@@ -44,8 +49,8 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    times, K2 8 times, K1, K6 and K5 once and K3 never a call; check the
    detections and that the masks are probabilities; profile one call; then
    hold K7 against its plain version, and time it, on the inputs that one
-   call gave each of the 30 deformable layers, and K5 on the candidates one
-   call gave it;
+   call gave each of the 30 deformable layers, K1 on its RPN's boxes and K5
+   on the candidates one call gave it;
 12. run a reduced HTC-DCN (depth 50, the same widths) in f32 on a small
    image on the card and on the CPU and compare detections and masks.
 
@@ -170,28 +175,57 @@ def tie_boxes(gen, g: int, k: int, thr: float, device):
     return boxes.to(device), valid.to(device)
 
 
-def check_k1(torch, ops_nms, dev):
-    g, k = 5 * MAIN_BATCH, 1000
-    boxes, valid = tie_boxes(torch.Generator().manual_seed(1), g, k, 0.7, dev)
-    keep = ops_nms.nms_keep_batched(boxes, valid, 0.7)
-    ref = ops_nms.nms_keep_reference(boxes, valid, 0.7)
+RPN_ROWS = 5 * MAIN_BATCH  # the test-time RPN's rows: five FPN levels an image
+K1_EDGES = (1, 63, 64, 65, 819, 1000, 1280)  # 819: the stride-64 level's anchors at 800 x 1344
+
+
+def check_k1_ties(torch, ops_nms, dev) -> None:
+    """K1 on tie boxes at the test-time RPN's G = 10, at K of one box,
+    around one 64-box chunk, the stride-64 level's 819, the RPN's 1000 and
+    1280, the longest row `batched_nms_topk` sends it; then timed at K = 1000
+    (the shape earlier runs timed it at). Its row in the kernels line comes
+    from the Faster predict's own inputs (`check_k1`)."""
+    from balancedgroupsoftmax_torch import cuda
+
+    gen = torch.Generator().manual_seed(1)
+    for kk in K1_EDGES:
+        boxes, valid = tie_boxes(gen, RPN_ROWS, kk, 0.7, dev)
+        before = cuda.NMS_KEEP.launches
+        keep = ops_nms.nms_keep_batched(boxes, valid, 0.7)
+        ref = ops_nms.nms_keep_reference(boxes, valid, 0.7)
+        torch.cuda.synchronize()
+        if cuda.NMS_KEEP.launches != before + 1:
+            raise AssertionError(f"K1 at K={kk} did not count one launch")
+        if not torch.equal(keep, ref):
+            raise AssertionError(f"K1 keep at K={kk} differs from the plain version in {(keep != ref).sum().item()} slots")
+        log(f"  K1 ties K={kk}: keep equal to the plain version ({int(keep.sum())} kept of {int(valid.sum())})")
+    boxes, valid = tie_boxes(torch.Generator().manual_seed(1), RPN_ROWS, 1000, 0.7, dev)
+    b_ms, _ = bound(boxes.numel() * 4 + valid.numel() * 2, valid_pairs(valid) * IOU_OPS)
+    log(f"  K1 ties G={RPN_ROWS} K=1000: kernel {cuda_time_ms(lambda: ops_nms.nms_keep_batched(boxes, valid, 0.7), 50):.4f}"
+        f" ms, bound {b_ms:.5f} ms")
+
+
+def check_k1(torch, ops_nms, boxes, valid, thr, path="Faster"):
+    """K1 on the boxes and validity a predict handed the RPN's NMS."""
+    keep = ops_nms.nms_keep_batched(boxes, valid, thr)
+    ref = ops_nms.nms_keep_reference(boxes, valid, thr)
     torch.cuda.synchronize()
     if not torch.equal(keep, ref):
-        raise AssertionError(f"K1 keep differs from the plain version in {(keep != ref).sum().item()} slots")
-    nbytes = boxes.numel() * 4 + valid.numel() * 2
-    b_ms, b_by = bound(nbytes, valid_pairs(valid) * IOU_OPS)
+        raise AssertionError(f"K1 keep on the {path} predict's data differs in {(keep != ref).sum().item()} slots")
+    g, k = valid.shape
+    b_ms, b_by = bound(boxes.numel() * 4 + valid.numel() * 2, valid_pairs(valid) * IOU_OPS)
     return dict(
         name="nms_keep",
         route="cuda",
         source="balancedgroupsoftmax_torch/csrc/nms.cu",
         replaces="balancedgroupsoftmax_tpu/pallas/nms.py:304",
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops_nms.nms_keep_batched(boxes, valid, 0.7), 50),
-        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_reference(boxes, valid, 0.7), 3),
+        ms=cuda_time_ms(lambda: ops_nms.nms_keep_batched(boxes, valid, thr), 50),
+        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_reference(boxes, valid, thr), 3),
         bound_ms=b_ms,
         bound_by=b_by,
         library_ms=None,
-        shape=f"G={g} K={k} kept={int(keep.sum())}",
+        shape=f"G={g} K={k} valid={int(valid.sum())} pairs={valid_pairs(valid)} kept={int(keep.sum())}",
     )
 
 
@@ -534,34 +568,117 @@ def check_k2(torch, ops_roi, dev):
     return row
 
 
-def check_k3(torch, ops_nms, dev):
-    g, k, n = 300 * MAIN_BATCH, 300, 1000
+K3_EDGES = (1, 64, 65, 300, 1280, 1344)  # 1344: the most K5's walk holds; 1345 is refused
+K3_PLANE = 1000  # N: the test-time RCNN's rois an image, the candidates' plane
+
+
+def gathered_ties(gen, g: int, k: int, thr: float, dev):
+    """K3's inputs at G rows of K: (G, 4, N) planes of tie boxes, N = max(1000,
+    K), and (G, K) indices -- even rows the first K slots in order (so
+    duplicates and exact-threshold pairs meet as neighbours), odd rows a
+    random K of the N -- with about 5% of the slots sent outside [0, N), to
+    -1, -7, N and N + 3, valid or not; about 10% of slots invalid, and the
+    first row all invalid."""
+    import torch
+
+    n = max(K3_PLANE, k)
+    boxes, _ = tie_boxes(gen, g, n, thr, "cpu")
+    planes = boxes.transpose(1, 2).contiguous()
+    idx = torch.argsort(torch.rand(g, n, generator=gen), dim=1)[:, :k]
+    idx[0::2] = torch.arange(k)
+    outside = torch.rand(g, k, generator=gen) < 0.05
+    far = torch.tensor([-1, -7, n, n + 3])[torch.randint(0, 4, (g, k), generator=gen)]
+    idx = torch.where(outside, far, idx).to(torch.int32)
+    valid = torch.rand(g, k, generator=gen) > 0.1
+    valid[0] = False
+    return planes.to(dev), idx.to(dev), valid.to(dev)
+
+
+def k3_matches(torch, ops_nms, planes, idx, valid, thr, label):
+    """K3 bit for bit against its plain version, keep and the candidates;
+    returns the keep mask."""
+    keep, cand = ops_nms.nms_keep_gathered(planes, idx, valid, thr)
+    ref_keep, ref_cand = ops_nms.nms_keep_gathered_reference(planes, idx, valid, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, ref_keep):
+        raise AssertionError(f"K3 keep {label} differs in {(keep != ref_keep).sum().item()} slots")
+    if not torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32)):
+        raise AssertionError(f"K3 candidates {label} are not bit-equal to the plain gather")
+    return keep
+
+
+def check_k3_ties(torch, ops_nms, dev) -> None:
+    """K3 on gathered tie boxes at K of one box, around one 64-box chunk, the
+    multiclass NMS's 300 (its 600 rows), 1280 and 1344, thresholds 0.5 and
+    0.7, with indices outside [0, N) on valid slots and an all-invalid row;
+    K = 1345 refused with no launch counted; then timed at the multiclass
+    NMS's shape, on distinct indices in range (the inputs earlier runs timed
+    it on). Its row in the kernels line comes from the Faster predict's own
+    inputs (`check_k3`)."""
+    from balancedgroupsoftmax_torch import cuda
+
+    gen = torch.Generator().manual_seed(3)
+    for kk in K3_EDGES:
+        for thr in (0.5, 0.7):
+            planes, idx, valid = gathered_ties(gen, MAX_PER_IMG * MAIN_BATCH if kk == 300 else 7, kk, thr, dev)
+            before = cuda.NMS_KEEP_GATHERED.launches
+            keep = k3_matches(torch, ops_nms, planes, idx, valid, thr, f"at K={kk} thr={thr}")
+            if cuda.NMS_KEEP_GATHERED.launches != before + 1:
+                raise AssertionError(f"K3 at K={kk} did not count one launch")
+            n = planes.shape[-1]
+            log(f"  K3 ties K={kk} thr={thr}: keep and candidates equal to the plain version ({int(keep.sum())} kept "
+                f"of {int(valid.sum())}; {int((valid & ((idx < 0) | (idx >= n))).sum())} valid slots outside the plane)")
+    planes, idx, valid = gathered_ties(gen, 2, 1345, 0.5, dev)
+    before = cuda.NMS_KEEP_GATHERED.launches
+    try:
+        ops_nms.nms_keep_gathered(planes, idx, valid, 0.5)
+    except RuntimeError as e:
+        if "bags_nms_keep_gathered" not in str(e):
+            raise
+    else:
+        raise AssertionError("K3 took K = 1345, beyond its walk's shared memory")
+    torch.cuda.synchronize()
+    if cuda.NMS_KEEP_GATHERED.launches != before:
+        raise AssertionError("K3's refusal at K = 1345 counted a launch")
+    log("  K3 at K=1345: refused, no launch counted")
+
+    g, k, n = MAX_PER_IMG * MAIN_BATCH, 300, K3_PLANE
     gen = torch.Generator().manual_seed(3)
     boxes, _ = tie_boxes(gen, g, n, 0.5, "cpu")
     planes = boxes.permute(0, 2, 1).contiguous().to(dev)
     idx = torch.argsort(torch.rand(g, n, generator=gen), dim=1)[:, :k].to(torch.int32).to(dev)
     valid = (torch.rand(g, k, generator=gen) > 0.1).to(dev)
-    keep, cand = ops_nms.nms_keep_gathered(planes, idx, valid, 0.5)
-    ref_keep, ref_cand = ops_nms.nms_keep_gathered_reference(planes, idx, valid, 0.5)
-    torch.cuda.synchronize()
-    if not torch.equal(keep, ref_keep):
-        raise AssertionError(f"K3 keep differs in {(keep != ref_keep).sum().item()} slots")
-    if not torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32)):
-        raise AssertionError("K3 candidates are not bit-equal to the plain gather")
-    nbytes = g * k * 4 * 4 + idx.numel() * 4 + valid.numel() * 2 + cand.numel() * 4
-    b_ms, b_by = bound(nbytes, valid_pairs(valid) * IOU_OPS)
+    k3_matches(torch, ops_nms, planes, idx, valid, 0.5, "at the timed ties")
+    b_ms, _ = k3_bound(planes, idx, valid)
+    log(f"  K3 ties G={g} K={k} N={n}: kernel "
+        f"{cuda_time_ms(lambda: ops_nms.nms_keep_gathered(planes, idx, valid, 0.5), 50):.4f} ms, bound {b_ms:.5f} ms")
+
+
+def k3_bound(planes, idx, valid) -> tuple[float, str]:
+    """The gathered coordinates, the indices, valid and keep, and cand, each
+    moved once; 17 operations an IoU test over the valid pairs."""
+    g, k = valid.shape
+    return bound(g * k * 4 * 4 + idx.numel() * 4 + valid.numel() * 2 + g * 4 * k * 4, valid_pairs(valid) * IOU_OPS)
+
+
+def check_k3(torch, ops_nms, planes, idx, valid, thr):
+    """K3 on what the Faster predict's multiclass NMS handed it."""
+    keep = k3_matches(torch, ops_nms, planes, idx, valid, thr, "on the Faster predict's data")
+    g, k = valid.shape
+    b_ms, b_by = k3_bound(planes, idx, valid)
     return dict(
         name="nms_keep_gathered",
         route="cuda",
         source="balancedgroupsoftmax_torch/csrc/nms.cu",
         replaces="balancedgroupsoftmax_tpu/pallas/nms.py:371",
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: ops_nms.nms_keep_gathered(planes, idx, valid, 0.5), 50),
-        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_gathered_reference(planes, idx, valid, 0.5), 3),
+        ms=cuda_time_ms(lambda: ops_nms.nms_keep_gathered(planes, idx, valid, thr), 50),
+        plain_ms=cuda_time_ms(lambda: ops_nms.nms_keep_gathered_reference(planes, idx, valid, thr), 3),
         bound_ms=b_ms,
         bound_by=b_by,
         library_ms=None,
-        shape=f"G={g} K={k} N={n} kept={int(keep.sum())}",
+        shape=f"G={g} K={k} N={planes.shape[-1]} valid={int(valid.sum())} pairs={valid_pairs(valid)} "
+              f"kept={int(keep.sum())}",
     )
 
 
@@ -764,6 +881,11 @@ def run_predicts(torch, model, per_predict: dict, call=None):
 
 
 def run_main_path(torch, bgs, dev):
+    """Faster R-CNN predicts at the main shape (K1, K2 and K3 at least once
+    each), a profiled one, then K1 and K3 held to their plain versions, and
+    timed, on what one more predict handed them."""
+    from balancedgroupsoftmax_torch.ops import nms as ops_nms
+
     t0 = time.perf_counter()
     detector = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0)
     model = detector.model
@@ -772,7 +894,11 @@ def run_main_path(torch, bgs, dev):
         torch, model, {"bags_nms_keep": None, "bags_roi_align_forward": None, "bags_nms_keep_gathered": None}
     )
     profile_device(torch, "predict", lambda: model.predict(*inputs))
-    return launches, model
+    seen = capture_calls(("nms_keep_batched", "nms_keep_gathered"), lambda: model.predict(*inputs))
+    (boxes, valid, thr), _ = seen["nms_keep_batched"]
+    (planes, idx, cand_valid, cls_thr), _ = seen["nms_keep_gathered"]
+    rows = [check_k1(torch, ops_nms, boxes, valid, thr), check_k3(torch, ops_nms, planes, idx, cand_valid, cls_thr)]
+    return launches, model, rows
 
 
 def cascade_model(torch, dev):
@@ -789,8 +915,8 @@ def cascade_model(torch, dev):
 
 def run_cascade_path(torch, dev):
     """Cascade predicts at the main shape: K1 once, K2 once a stage, K6 and
-    K5 once, K3 never. Then K5 and K6 against their plain versions on the
-    inputs one more predict gave them."""
+    K5 once, K3 never. Then K1, K5 and K6 against their plain versions on
+    the inputs one more predict gave them."""
     from balancedgroupsoftmax_torch.ops import gather as ops_gather
     from balancedgroupsoftmax_torch.ops import nms as ops_nms
 
@@ -805,8 +931,11 @@ def run_cascade_path(torch, dev):
     )
     profile_device(torch, "cascade predict", lambda: model.predict(*inputs))
 
-    # record what the class-agnostic multiclass NMS hands K6 and K5
-    seen = capture_calls(("gather_lanes", "nms_keep_batched_coords"), lambda: model.predict(*inputs))
+    # record what the RPN's NMS hands K1 and the class-agnostic multiclass NMS K6 and K5
+    seen = capture_calls(("nms_keep_batched", "gather_lanes", "nms_keep_batched_coords"),
+                         lambda: model.predict(*inputs))
+    k1 = check_k1(torch, ops_nms, *seen["nms_keep_batched"][0], path="cascade")
+    log(f"  K1 on the cascade's RPN boxes ({k1['shape']}): equal to the plain version, kernel {k1['ms']:.4f} ms")
     (planes, idx), kw6 = seen["gather_lanes"]
     (coords, valid, thr), _ = seen["nms_keep_batched_coords"]
     rows = [
@@ -1533,7 +1662,7 @@ def run_htc_path(torch, dev):
     times, K2 8 times (three stages and the masks, each over the FPN and the
     semantic feature), K1, K6 and K5 once and K3 never a call. Then K7
     against its plain version, and timed, on the inputs one more predict gave
-    each deformable layer, and K5 on the candidates one more predict gave it."""
+    each deformable layer, and K1 and K5 on what one more predict gave them."""
     from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
     from balancedgroupsoftmax_torch.ops import nms as ops_nms
     from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
@@ -1564,8 +1693,10 @@ def run_htc_path(torch, dev):
     layers = capture_dcn(torch, lambda: model.predict_with_masks(*inputs))
     row = check_k7_path(torch, ops_dcn, layers)
     del layers
-    (coords, valid, thr), _ = capture_calls(("nms_keep_batched_coords",),
-                                            lambda: model.predict_with_masks(*inputs))["nms_keep_batched_coords"]
+    seen = capture_calls(("nms_keep_batched", "nms_keep_batched_coords"), lambda: model.predict_with_masks(*inputs))
+    k1 = check_k1(torch, ops_nms, *seen["nms_keep_batched"][0], path="HTC")
+    log(f"  K1 on HTC's RPN boxes ({k1['shape']}): equal to the plain version, kernel {k1['ms']:.4f} ms")
+    (coords, valid, thr), _ = seen["nms_keep_batched_coords"]
     k5 = check_k5(torch, ops_nms, coords, valid, thr, path="HTC")
     log(f"  K5 on HTC's candidates ({k5['shape']}): equal to the plain version, kernel {k5['ms']:.4f} ms, "
         f"bound {k5['bound_ms']:.5f} ms")
@@ -1652,11 +1783,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = [
-        check_k1(torch, ops_nms, dev),
         check_k2(torch, ops_roi, dev),
-        check_k3(torch, ops_nms, dev),
         check_k2b(torch, ops_roi, dev),
     ]
+    check_k1_ties(torch, ops_nms, dev)
+    check_k3_ties(torch, ops_nms, dev)
     check_k4_ties(torch, ops_nms, dev)
     check_k5_ties(torch, ops_nms, dev)
     check_k6_ties(torch, ops_gather, dev)
@@ -1666,7 +1797,10 @@ def main() -> int:
     log(f"phase kernels vs plain: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches, model = run_main_path(torch, bgs, dev)
+    launches, model, main_rows = run_main_path(torch, bgs, dev)
+    for r in main_rows:
+        log_row(r)
+    rows += main_rows
     log(f"phase main path: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -55,14 +55,22 @@ def tie_rows(seed, g, k, thr, spread=300):
     return boxes, valid
 
 
-def gathered_case(seed, g=6, k=40, n=100, thr=0.5):
+def gathered_case(seed, g=6, k=40, n=100, thr=0.5, outside=0.0):
     """Coordinate planes (G, 4, N), distinct candidate indices (G, K) and
-    validity for the gathered NMS."""
+    validity for the gathered NMS. With `outside` > 0, about that share of
+    the indices lies outside [0, N) (-1, -7, N, N + 3 or 2^31 - 1), and slot
+    0 of row 0 (-1) and the last slot of the last row (N) always do, both
+    valid: each gathers the zero box."""
     rng = np.random.RandomState(seed)
     boxes, _ = tie_rows(seed, g, n, thr, spread=120)
     planes = np.ascontiguousarray(boxes.transpose(0, 2, 1))
     idx = np.stack([rng.permutation(n)[:k] for _ in range(g)]).astype(np.int32)
     valid = rng.rand(g, k) > 0.15
+    if outside > 0:
+        far = np.array([-1, -7, n, n + 3, 2**31 - 1], np.int64)[rng.randint(0, 5, (g, k))]
+        idx = np.where(rng.rand(g, k) < outside, far, idx).astype(np.int32)
+        idx[0, 0], idx[-1, -1] = -1, n
+        valid[0, 0] = valid[-1, -1] = True
     return planes, idx, valid
 
 
@@ -115,7 +123,7 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k", [60, 1000])
+@pytest.mark.parametrize("k", [1, 60, 64, 65, 819, 1000, 1280])
 def test_nms_keep_matches_plain(dev, k):
     boxes, valid = (torch.from_numpy(x).to(dev) for x in tie_rows(k, 5, k, 0.7))
     before = cuda.NMS_KEEP.launches
@@ -136,11 +144,11 @@ def test_nms_keep_tiled_matches_plain(dev, k):
 NMS_ROWS = ["scattered", "all_valid", "all_invalid", "invalid_tail"]
 
 
-def nms_rows(seed, g, k, thr, rows, spread=600):
-    """`tie_rows` with the validity of `rows`: tie_rows' scattered ~10%
-    invalid slots, all valid, none valid, or the last third invalid (the
-    padding top-k leaves)."""
-    boxes, valid = tie_rows(seed, g, k, thr, spread=spread)
+def with_rows(valid, rows):
+    """`valid` as the kind of row `rows` asks for: its own scattered invalid
+    slots, all valid, none valid, or the last third invalid (the padding
+    top-k leaves)."""
+    k = valid.shape[1]
     if rows == "all_valid":
         valid[:] = True
     elif rows == "all_invalid":
@@ -148,7 +156,13 @@ def nms_rows(seed, g, k, thr, rows, spread=600):
     elif rows == "invalid_tail":
         valid[:] = True
         valid[:, k - k // 3:] = False
-    return boxes, valid
+    return valid
+
+
+def nms_rows(seed, g, k, thr, rows, spread=600):
+    """`tie_rows` with the validity of `rows` (`with_rows`)."""
+    boxes, valid = tie_rows(seed, g, k, thr, spread=spread)
+    return boxes, with_rows(valid, rows)
 
 
 def _one_launch_of(kernel, before):
@@ -222,6 +236,42 @@ def test_nms_keep_gathered_matches_plain(dev):
     ref_keep, ref_cand = ops_nms.nms_keep_gathered_reference(planes, idx, valid, 0.5)
     assert torch.equal(keep, ref_keep)
     assert torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", NMS_ROWS)
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+@pytest.mark.parametrize("k", [1, 64, 65, 300, 1280, 1344])
+def test_nms_keep_gathered_edges_match_plain(dev, k, thr, rows):
+    """K3 bit for bit, keep and candidates, at K of one box, one 64-box
+    chunk, the multiclass NMS's 300 (its 600 rows), 1280 and 1344, its
+    largest, with indices outside [0, N) and every kind of row."""
+    g = 600 if k == 300 else 7
+    planes, idx, valid = gathered_case(k + 7, g, k, max(1000, k), thr, outside=0.1)
+    planes, idx, valid = (torch.from_numpy(x).to(dev) for x in (planes, idx, with_rows(valid, rows)))
+    before = [kk.launches for kk in cuda.KERNELS]
+    keep, cand = ops_nms.nms_keep_gathered(planes, idx, valid, thr)
+    _one_launch_of(cuda.NMS_KEEP_GATHERED, before)
+    ref_keep, ref_cand = ops_nms.nms_keep_gathered_reference(planes, idx, valid, thr)
+    assert torch.equal(keep, ref_keep)
+    assert torch.equal(cand.view(torch.int32), ref_cand.view(torch.int32))
+
+
+def test_nms_keep_gathered_refuses_rows_beyond_its_limit(dev):
+    """K3 walks a row's mask in one block's shared memory, as K5 does, so K
+    = 1345 raises, with no launch counted and nothing computed; K = 1344
+    runs."""
+    for k, fits in ((1344, True), (1345, False), (2000, False)):
+        planes, idx, valid = (torch.from_numpy(x).to(dev) for x in gathered_case(k, 2, k, k + 10))
+        before = cuda.NMS_KEEP_GATHERED.launches
+        if fits:
+            keep, _ = ops_nms.nms_keep_gathered(planes, idx, valid, 0.5)
+            assert torch.equal(keep, ops_nms.nms_keep_gathered_reference(planes, idx, valid, 0.5)[0])
+            assert cuda.NMS_KEEP_GATHERED.launches == before + 1
+        else:
+            with pytest.raises(RuntimeError, match="bags_nms_keep_gathered"):
+                ops_nms.nms_keep_gathered(planes, idx, valid, 0.5)
+            torch.cuda.synchronize()  # and nothing was left running that fails later
+            assert cuda.NMS_KEEP_GATHERED.launches == before
 
 
 @pytest.mark.parametrize("k", [300, 1000])

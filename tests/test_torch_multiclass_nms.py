@@ -19,9 +19,21 @@ from balancedgroupsoftmax_torch.ops.nms import nms_keep_gathered
 from test_torch_cuda import gathered_case
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_gathered_keep_and_candidates_match_pallas_interpret(seed):
-    planes, idx, valid = gathered_case(seed)
+@pytest.mark.parametrize(
+    "seed,k,n,outside",
+    [
+        pytest.param(0, 40, 100, 0.0, id="0"),
+        pytest.param(1, 40, 100, 0.0, id="1"),
+        # indices outside [0, N), negative and >= N, on valid slots: the zero box
+        pytest.param(2, 1, 100, 0.2, id="outside-k1"),
+        pytest.param(3, 65, 100, 0.2, id="outside-k65"),
+        pytest.param(4, 300, 1000, 0.2, id="outside-k300"),
+    ],
+)
+def test_gathered_keep_and_candidates_match_pallas_interpret(seed, k, n, outside):
+    planes, idx, valid = gathered_case(seed, k=k, n=n, outside=outside)
+    if outside:
+        assert (valid & ((idx < 0) | (idx >= n))).any()
     jk, jc = pallas_nms_keep_gathered(
         jnp.asarray(planes), jnp.asarray(idx), jnp.asarray(valid), 0.5, interpret=True
     )
