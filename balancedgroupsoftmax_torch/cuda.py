@@ -70,8 +70,10 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,
     ),
-    "bags_fused_bottleneck": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "bags_fused_layer": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "bags_fused_bottleneck": (
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "bags_fused_layer": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,6 +1,8 @@
-"""Where K7's, K2b's and the NMS kernels' time goes, and what one launch costs on the card's host.
+"""Where K7's, K2b's, the NMS kernels' and K8's time goes, and what one launch costs on the card's host.
 
-    python3 -m balancedgroupsoftmax_torch.kernel_study
+    python3 -m balancedgroupsoftmax_torch.kernel_study [k7] [k2b] [nms] [launch] [fused]
+
+(all five parts when none is named)
 
 Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu`,
 `csrc/roi_align.cu` and `csrc/nms.cu` into a temporary directory and leaves
@@ -37,6 +39,20 @@ the package's own build alone. It prints:
    them, the IoU test by division on every pair, eight tiles a mask block,
    a 256-thread K1/K4 walk, the chain as a predicated OR in inline PTX.
 
+6. K8 and K9 (the fused bottleneck, bf16) at the R50's four stride-1 runs
+   at 800 x 1344, batch 2, with random weights: K8 on each run's first block
+   with every plan that fits (the halo route at each tile height, the phase
+   route at 64- and 128-pixel units), each held bit for bit to the computed
+   plan's output where the plans share a route and size and to the plain
+   version otherwise; K9 over each run with the computed plans and with each
+   route forced; with the computed plans, the pipeline's choices undone (a
+   ring of one or two stages, not up to four, the producer waiting for each chunk's
+   copies to land before it copies the next, the consumers freeing a stage
+   one chunk late with wait_group 1, which makes ptxas serialize the wgmmas)
+   and one part cut out at a time (the products, the epilogues, the copies:
+   what each costs, as the difference). It prints what `ptxas -v` reports
+   for the kernels (registers, spills, serialized wgmma).
+
 Its inputs are seeded; offsets have a spread of 2 cells, as in
 `chip_smoke.py`'s HTC phase.
 """
@@ -47,6 +63,7 @@ import ctypes
 import itertools
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -152,6 +169,35 @@ extern "C" int one(cudaStream_t s) {
 }
 extern "C" int one_packed(const long long* slots) { return one(reinterpret_cast<cudaStream_t>(slots[0])); }
 """
+
+
+FUSED_CUTS = {  # a choice of csrc/fused_block.cu undone: edits (its text, the replacement)
+    "ring (one stage)": ("  a.ring = int(std::min<size_t>(kMaxRing, (room - a.ring_off) / a.stage_bytes));",
+                         "  a.ring = 1;"),
+    "wait for each chunk's products (the chunk before's, wait_group 1)": [
+        ("    for (int c = 0; c < j.taps * kchunks; ++c, ++chunk) {\n      const int slot = chunk % a.ring, tap",
+         "    int prev = -1;\n    for (int c = 0; c < j.taps * kchunks; ++c, ++chunk) {\n"
+         "      const int slot = chunk % a.ring, tap", "struct Consumer {"),
+        ('        if (nmb > 0) asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");\n'
+         "#pragma unroll\n        for (int i = 0; i < kMaxMb; ++i) fence_acc(acc[i]);\n      }\n      release(slot);\n    }",
+         '        if (prev >= 0 && nmb > 0) asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");\n'
+         "        if (prev >= 0) release(prev);\n        prev = slot;\n      } else {\n        release(slot);\n      }\n    }\n"
+         '    if constexpr (sizeof(T) == 2) {\n      if (nmb > 0) asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");\n'
+         "#pragma unroll\n      for (int i = 0; i < kMaxMb; ++i) fence_acc(acc[i]);\n      if (prev >= 0) release(prev);\n    }"),
+    ],
+    "ring of up to four (two stages)": ("  a.ring = int(std::min<size_t>(kMaxRing, (room - a.ring_off) / a.stage_bytes));",
+                                        "  a.ring = 2;"),
+    "copies in flight across chunks (waited for a chunk at a time)": (
+        "      cp_arrive(full + slot);\n", '      cp_arrive(full + slot);\n      asm volatile("cp.async.wait_all;" ::: "memory");\n'),
+    # parts cut out (the result is then wrong): what each costs
+    "products": ("      if (nmb > 0) mma(acc, nmb,", "      if (0) mma(acc, nmb,"),
+    "epilogues": ("    epilogue(acc, st, j, l, nmb, mb0, mbstep, col0);\n", ""),
+    "copies": [("          if (j.n0 + g * e < j.n) cp16(", "          if (0) cp16("),
+               ("          for (int g = pt & 1; g < pieces; g += 2) cp16(",
+                "          for (int g = pt & 1; g < pieces && 0; g += 2) cp16(")],
+}
+FUSED_PARTIAL = {"no products", "no epilogues", "no copies"}  # variants whose result is not held
+R50_RUNS = [(200, 336), (100, 168), (50, 84), (25, 42)]  # (H, W) of each stride-1 run's input at 800 x 1344
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -405,6 +451,121 @@ def study_launch(tmp: Path) -> None:
     print(f"launch through _bags_launch.launch: {module_call:.3f} us", flush=True)
 
 
+def fused_weights(run, gen):
+    """Folded weights of one R50 run, kernel-ready (bf16 weights, f32
+    biases), each product scaled to keep unit variance."""
+    from .ops.fused_block import FusedBlockParams
+
+    def wt(*shape):
+        return (torch.randn(*shape, generator=gen) / shape[-2] ** 0.5 / (3.0 if len(shape) == 3 else 1.0)).to(
+            "cuda", torch.bfloat16)
+
+    def bias(c):
+        return (torch.randn(1, c, generator=gen) * 0.1).cuda()
+
+    blocks = []
+    for cin, cm, cout in run:
+        ds = cin != cout
+        blocks.append(FusedBlockParams(wt(cin, cm), bias(cm), wt(9, cm, cm), bias(cm), wt(cm, cout), bias(cout),
+                                       wt(cin, cout) if ds else None, bias(cout) if ds else None))
+    return blocks
+
+
+def fused_plans(b, h, w, cin, cm, cout):
+    """Every plan that fits one block: the halo route at each tile height,
+    the phase route at 64 and 128 pixels a unit."""
+    from .ops import fused_block as ops_fb
+
+    plans = []
+    for route, rows in [("halo", th) for th in (8, 6, 4, 2)] + [("phase", 128), ("phase", 64)]:
+        try:
+            plans.append(ops_fb.fused_plan(b, h, w, cin, cm, cout, torch.bfloat16, route=route, rows=rows))
+        except ValueError:
+            pass
+    return plans
+
+
+def fused_launch(address, x, p, out, scratch, barrier, plan):
+    """A K8 launch of the packed entry at `address` with `plan`."""
+    from .ops import fused_block as ops_fb
+
+    b, hp, w, cin = x.shape
+    launch = cuda.launch_module().launch
+    args = (1, x.data_ptr(), *[0 if t is None else t.data_ptr() for t in p], out.data_ptr(), scratch.data_ptr(),
+            barrier.data_ptr(), b, hp - 2, w, cin, p.w1.shape[1], p.w3.shape[1], ops_fb._ROUTES[plan.route],
+            plan.rows)
+
+    def call():
+        barrier.zero_()
+        if launch(address, cuda.FUSED_BOTTLENECK.kinds, *args, cuda.current_stream()):
+            raise RuntimeError(f"K8 variant refused plan {plan}")
+
+    return call
+
+
+def study_fused(fns: dict, tmp: Path) -> None:
+    from .ops import fused_block as ops_fb
+
+    src = cuda.CSRC / "fused_block.cu"
+    log = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(cuda.CSRC), "-c", str(src), "-o",
+                          str(tmp / "fused_ptxas.o")], capture_output=True, text=True).stderr
+    for line in log.splitlines():
+        if "C7519" not in line and ("registers" in line or "spill" in line or "Compiling entry" in line
+                                    or "Performance Loss" in line):
+            print(f"ptxas: {line.strip()[:220]}", flush=True)
+    print(f"ptxas: warpgroup.arrive injected at {log.count('warpgroup.arrive is injected')} places, "
+          f"warpgroup.wait at {log.count('warpgroup.wait is injected')}", flush=True)
+    gen = torch.Generator().manual_seed(21)
+    resnet_runs = [[(64, 64, 256)] + [(256, 64, 256)] * 2, [(512, 128, 512)] * 3, [(1024, 256, 1024)] * 5,
+                   [(2048, 512, 2048)] * 2]
+    sms = ops_fb._sm_count(0)
+    for name, (h, w), run in zip(["layer1", "layer2", "layer3", "layer4"], R50_RUNS, resnet_runs):
+        blocks = fused_weights(run, gen)
+        cin, cm, cout = run[0]
+        x = torch.randn(2, h, w, cin, generator=gen).to("cuda", torch.bfloat16)
+        xp = ops_fb.pad_rows(x)
+        computed = ops_fb.fused_plan(2, h, w, cin, cm, cout, torch.bfloat16, sms)
+        ref = ops_fb.unpad_rows(ops_fb.fused_bottleneck_reference(xp, blocks[0])).float()
+        limit = 2 * 2.0**-7 * ref.abs().max().item()
+        scratch = torch.empty(2 * 2 * h * w * cm, dtype=torch.bfloat16, device="cuda")
+        barrier = torch.zeros(1, dtype=torch.int32, device="cuda")
+        want = torch.empty(2, h + 2, w, cout, dtype=torch.bfloat16, device="cuda")
+        fused_launch(fns["whole"], xp, blocks[0], want, scratch, barrier, computed)()
+        print(f"K8 {name} block 0, {cin} -> {cm} -> {cout} at {h} x {w}; computed plan {computed.route} "
+              f"{computed.rows}", flush=True)
+        for plan in fused_plans(2, h, w, cin, cm, cout):
+            times = {}
+            for variant, address in fns.items():
+                if variant != "whole" and plan != computed:
+                    continue
+                out = torch.empty_like(want)
+                call = fused_launch(address, xp, blocks[0], out, scratch, barrier, plan)
+                call()
+                torch.cuda.synchronize()
+                if variant in FUSED_PARTIAL:
+                    pass
+                elif (plan.route, plan.rows) == (computed.route, computed.rows):
+                    if not torch.equal(ops_fb.unpad_rows(out), ops_fb.unpad_rows(want)):
+                        raise AssertionError(f"K8 {name} variant '{variant}' differs from the whole kernel")
+                elif not (ops_fb.unpad_rows(out).float() - ref).abs().max().item() <= limit:
+                    raise AssertionError(f"K8 {name} plan {plan} is not within two bf16 steps of the plain version")
+                times[variant] = statistics.median(cuda_time_ms(call, 10) for _ in range(3))
+            print(f"  {plan.route} {plan.rows}: units {plan.units}, shared {plan.smem} B: "
+                  + ", ".join(f"{v} {t:.4f} ms" for v, t in times.items()), flush=True)
+        k9 = {"computed": None}
+        for route in ("halo", "phase"):
+            try:
+                k9[route] = [ops_fb.fused_plan(2, h, w, c_in, c_m, c_out, torch.bfloat16, route=route)
+                             for c_in, c_m, c_out in run]
+            except ValueError:
+                pass
+        line = []
+        for label, plans in k9.items():
+            t = statistics.median(cuda_time_ms(lambda: ops_fb.fused_layer(x, blocks, plans), 10) for _ in range(3))
+            line.append(f"{label} {t:.4f} ms")
+        print(f"  K9 over the run of {len(run)}: " + ", ".join(line), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_study: no CUDA device")
@@ -412,13 +573,20 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"{card}; torch {torch.__version__}", flush=True)
+    parts = set(sys.argv[1:]) or {"k7", "k2b", "nms", "launch", "fused"}
     with tempfile.TemporaryDirectory() as tmp:
-        study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
-                                {"no weights, sampling, copies": ("weights", "sampling", "copies")}))
-        study_k2b(build_variants(Path(tmp), "roi_align.cu", "bags_roi_align_backward", K2B_CUTS))
-        symbols = ("bags_nms_keep", "bags_nms_keep_tiled", "bags_nms_keep_gathered", "bags_nms_keep_coords")
-        study_nms(build_variants(Path(tmp), "nms.cu", symbols, NMS_CUTS))
-        study_launch(Path(tmp))
+        if "k7" in parts:
+            study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
+                                    {"no weights, sampling, copies": ("weights", "sampling", "copies")}))
+        if "k2b" in parts:
+            study_k2b(build_variants(Path(tmp), "roi_align.cu", "bags_roi_align_backward", K2B_CUTS))
+        if "nms" in parts:
+            symbols = ("bags_nms_keep", "bags_nms_keep_tiled", "bags_nms_keep_gathered", "bags_nms_keep_coords")
+            study_nms(build_variants(Path(tmp), "nms.cu", symbols, NMS_CUTS))
+        if "launch" in parts:
+            study_launch(Path(tmp))
+        if "fused" in parts:
+            study_fused(build_variants(Path(tmp), "fused_block.cu", "bags_fused_bottleneck", FUSED_CUTS), Path(tmp))
     return 0
 
 

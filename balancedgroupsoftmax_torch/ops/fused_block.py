@@ -21,7 +21,15 @@ Cout) and biases (1, C). `fused_bottleneck` takes and returns row-padded
 tensors, (B, H + 2, W, C): the halo rows of the input are never read into the
 math and those of the output are unspecified, so chained blocks need no
 re-padding. `fused_layer` takes and returns unpadded (B, H, W, C), at any H
-and W (the kernel picks its own tiles).
+and W.
+
+`fused_plan` is the kernels' tile plan, from the shapes and the card's SM
+count alone: the "halo" route (a tile of TH x 30 output pixels with its halo
+on chip, where such tiles fill the card) or the "phase" route (each product a
+GEMM over all pixels in work units of 64 or 128 pixels, y1 and y2 in a device
+scratch). Both wrappers take the computed plan unless one is passed (the card
+tests and `kernel_study` pass them); K9 runs each block with the plan K8
+would take for it, so the two agree bit for bit.
 
 As in the JAX package, neither kernel is wired into a model: the port's
 backbone runs the unfused `Bottleneck` modules. `stride1_runs` picks the
@@ -31,6 +39,7 @@ blocks a backbone could hand to `fused_layer`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -163,9 +172,143 @@ def _kernel_weights(p: FusedBlockParams, dt: torch.dtype, cin: int, stage: str) 
     return out
 
 
-def fused_bottleneck(x: torch.Tensor, p: FusedBlockParams) -> torch.Tensor:
+# csrc/fused_block.cu's geometry, mirrored for the plan
+_TW, _HW = 30, 32  # a halo tile's output columns and its row pitch
+_MAX_SHARED = 232448  # a block's shared memory on the H100
+_BAR_BYTES = 64
+_CHUNK_ROW = 128  # bytes of one row of a K-chunk
+_B_BYTES = 16384  # a weight chunk
+_MAX_MB = 2  # 64-row blocks a warpgroup holds of one job
+_MAX_RING = 4
+_ROUTES = {"halo": 0, "phase": 1}
+H100_SMS = 132
+
+
+class FusedPlan(NamedTuple):
+    """How K8 and K9 tile one block (`fused_plan`)."""
+
+    route: str  # "halo" or "phase"
+    rows: int  # halo: output rows a tile (TH); phase: pixels a work unit
+    smem: int  # shared memory of one block of threads, bytes
+    units: tuple  # work units of each phase: (tiles,) or (conv1, conv2, conv3)
+    note: str  # why a phase has fewer units than the card has SMs, or ""
+
+
+def _unit_cols(n: int) -> int:
+    return 128 if n % 128 == 0 else 64
+
+
+def _part_rows(n: int) -> int:
+    """Rows of one job: a product's rows run in parts of _MAX_MB 64-row
+    blocks a warpgroup."""
+    return (1 if _unit_cols(n) == 128 else 2) * _MAX_MB * 64
+
+
+def _align(x: int) -> int:
+    return (x + 127) & ~127
+
+
+def _stage_smem(route: str, rows: int, cm: int, cout: int, es: int) -> tuple[int, int]:
+    """(bytes before the ring, rows of the ring's A region) of one block."""
+    ident = 256 * _MAX_MB * 32 * es  # the downsample's sum: 32 values a 64-row block and consumer thread
+    if route == "halo":
+        y1 = ((rows + 2) * _HW + 8) * cm * es
+        arows = max(min((rows + 2) * _HW, _part_rows(cm)), min(rows * _HW, _part_rows(cout)))
+        return _align(max(y1, ident)) + _align(rows * _HW * cm * es), arows
+    return _align(ident), rows
+
+
+def _plan_ok(route: str, rows: int, cm: int, cout: int) -> bool:
+    if route == "halo":
+        return rows >= 2 and rows % 2 == 0
+    return rows >= 64 and rows % 64 == 0 and rows <= min(_part_rows(cm), _part_rows(cout))
+
+
+def _shared_bytes(stages: Sequence[tuple], es: int) -> Optional[int]:
+    """A launch's shared memory over its blocks' (route, rows, cm, cout), as
+    the kernel lays it out (the ring takes 2-4 stages), or None if it does
+    not fit."""
+    fixed, arows = zip(*(_stage_smem(*st, es) for st in stages))
+    ring_off, stage = _align(max(fixed)), _align(max(arows) * _CHUNK_ROW) + _B_BYTES
+    room = _MAX_SHARED - _BAR_BYTES
+    if room < ring_off + 2 * stage:
+        return None
+    ring = min(_MAX_RING, (room - ring_off) // stage)
+    return ring_off + ring * stage + 16 * ring
+
+
+def _units(route: str, rows: int, b: int, h: int, w: int, cm: int, cout: int) -> tuple:
+    if route == "halo":
+        return (b * -(-h // rows) * -(-w // _TW),)
+    mt = -(-(b * h * w) // rows)
+    return tuple(mt * -(-n // _unit_cols(n)) for n in (cm, cm, cout))
+
+
+@functools.cache
+def fused_plan(b: int, h: int, w: int, cin: int, cm: int, cout: int, dtype: torch.dtype, sms: int = H100_SMS,
+               route: Optional[str] = None, rows: Optional[int] = None) -> FusedPlan:
+    """The tile plan of one stride-1 block of (b, h, w) pixels, cin -> cm ->
+    cout channels, in `dtype`, on a card of `sms` SMs.
+
+    The rule: the halo route with the tallest TH of 8 and 6 (conv1 on at most
+    1.42x the output pixels) that fits shared memory and gives at least four
+    tiles an SM (a tile is a large unit of work, so fewer waves leave the
+    last one's idle SMs a large share); else the phase route, with 128-pixel
+    work units if every phase then has one an SM, else 64. On the H100 this
+    takes the halo route for the R50's layer1 only: `kernel_study` times
+    every plan at each run. `route` (and `rows`) force a route
+    (and its size; by default the tallest TH or the larger unit that fits).
+    Raises ValueError for a plan that fits nothing. Cached: the wrappers ask
+    for it at every launch."""
+    es = 2 if dtype == torch.bfloat16 else 4
+
+    def fits(rt, r):
+        return _plan_ok(rt, r, cm, cout) and _shared_bytes([(rt, r, cm, cout)], es) is not None
+
+    if route is None:
+        for th in (8, 6):
+            if fits("halo", th) and _units("halo", th, b, h, w, cm, cout)[0] >= 4 * sms:
+                route, rows = "halo", th
+                break
+        else:
+            route = "phase"
+            rows = 128 if fits("phase", 128) and min(_units("phase", 128, b, h, w, cm, cout)) >= sms else 64
+    if route not in _ROUTES:
+        raise ValueError(f"a fused plan's route is 'halo' or 'phase', not {route!r}")
+    if rows is None:
+        rows = next((r for r in ((8, 6, 4, 2) if route == "halo" else (128, 64)) if fits(route, r)), None)
+        if rows is None:
+            raise ValueError(f"no {route} plan fits a block of {cin} -> {cm} -> {cout} channels in {dtype}")
+    if not fits(route, rows):
+        raise ValueError(f"the {route} plan with {rows} rows does not fit a block of {cin} -> {cm} -> {cout} "
+                         f"channels in {dtype}")
+    units = _units(route, rows, b, h, w, cm, cout)
+    note = ""
+    if min(units) < sms:
+        note = (f"{min(units)} work units in a phase, fewer than the {sms} SMs: "
+                + ("the plan was forced" if route == "halo" else f"{b * h * w} pixels in units of {rows}"))
+    return FusedPlan(route, rows, _shared_bytes([(route, rows, cm, cout)], es), units, note)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def run_plans(b: int, h: int, w: int, cin: int, blocks: Sequence[FusedBlockParams], dtype: torch.dtype,
+              sms: int = H100_SMS) -> list:
+    """The plan of each block of a run on (b, h, w, cin), as K8 takes it for
+    that block alone: what K9 runs each block with."""
+    plans = []
+    for p in blocks:
+        plans.append(fused_plan(b, h, w, cin, p.w1.shape[1], p.w3.shape[1], dtype, sms))
+        cin = p.w3.shape[1]
+    return plans
+
+
+def fused_bottleneck(x: torch.Tensor, p: FusedBlockParams, plan: Optional[FusedPlan] = None) -> torch.Tensor:
     """K8: one stride-1 block on row-padded (B, H + 2, W, Cin) -> (B, H + 2,
-    W, Cout) in x's dtype (f32 or bf16)."""
+    W, Cout) in x's dtype (f32 or bf16), with `plan` or the computed one."""
     if x.device.type == "cpu":
         return fused_bottleneck_reference(x, p)
     if x.dtype not in _DTYPE_CODES:
@@ -179,14 +322,22 @@ def fused_bottleneck(x: torch.Tensor, p: FusedBlockParams) -> torch.Tensor:
     out = torch.empty(b, hp, w, cout, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = plan or fused_plan(b, hp - 2, w, cin, cm, cout, x.dtype, _sm_count(x.device.index or 0))
+    scratch = torch.empty(2 * b * (hp - 2) * w * cm, dtype=x.dtype, device=x.device) if plan.route == "phase" else None
+    barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
     ptrs = [0 if t is None else t.data_ptr() for t in wts]
-    cuda.FUSED_BOTTLENECK(_DTYPE_CODES[x.dtype], x.data_ptr(), *ptrs, out.data_ptr(), b, hp - 2, w, cin, cm, cout)
+    cuda.FUSED_BOTTLENECK(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), *ptrs, out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+        barrier.data_ptr(), b, hp - 2, w, cin, cm, cout, _ROUTES[plan.route], plan.rows,
+    )
     return out
 
 
-def fused_layer(x: torch.Tensor, blocks: Sequence[FusedBlockParams]) -> torch.Tensor:
+def fused_layer(x: torch.Tensor, blocks: Sequence[FusedBlockParams],
+                plans: Optional[Sequence[FusedPlan]] = None) -> torch.Tensor:
     """K9: N stride-1 blocks chained in one launch, unpadded (B, H, W, Cin0)
-    -> (B, H, W, Cout_last) in x's dtype (f32 or bf16). The kernel takes at
+    -> (B, H, W, Cout_last) in x's dtype (f32 or bf16), each block with its
+    plan in `plans` or the one K8 would compute for it. The kernel takes at
     most 32 blocks (`kMaxStages`) and refuses more at launch."""
     blocks = list(blocks)
     if not blocks:
@@ -197,23 +348,33 @@ def fused_layer(x: torch.Tensor, blocks: Sequence[FusedBlockParams]) -> torch.Te
         raise ValueError(f"fused_layer takes f32 or bf16 input, got {x.dtype}")
     b, h, w, cin = x.shape
     cuda.check(x, x.dtype, (b, h, w, cin), "x")
-    weights, dims, kept = [], [], []  # kept: the converted weights stay alive until the launch is queued
+    if plans is None:
+        plans = run_plans(b, h, w, cin, blocks, x.dtype, _sm_count(x.device.index or 0))
+    if len(plans) != len(blocks):
+        raise ValueError(f"fused_layer got {len(plans)} plans for {len(blocks)} blocks")
+    weights, dims, routes, kept = [], [], [], []  # kept: the converted weights stay alive until the launch is queued
     for s, p in enumerate(blocks):
         wts = _kernel_weights(p, x.dtype, cin, f"block {s}")
         kept.append(wts)
         weights += [0 if t is None else t.data_ptr() for t in wts]
         dims += [cin, p.w1.shape[1], p.w3.shape[1]]
+        routes += [_ROUTES[plans[s].route], plans[s].rows]
         cin = p.w3.shape[1]
     out = torch.empty(b, h, w, cin, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     inner = max((p.w3.shape[1] for p in blocks[:-1]), default=0)
     act = [torch.empty(b * h * w * inner, dtype=x.dtype, device=x.device) for _ in range(2)]
+    scratch = None
+    if _ROUTES["phase"] in routes[::2]:
+        scratch = torch.empty(2 * b * h * w * max(p.w1.shape[1] for p in blocks), dtype=x.dtype, device=x.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
     ptrs = (ctypes.c_uint64 * len(weights))(*weights)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
+    plan_arr = (ctypes.c_int * len(routes))(*routes)
     cuda.FUSED_LAYER(
         _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
-        barrier.data_ptr(), ctypes.addressof(ptrs), ctypes.addressof(dim_arr), len(blocks), b, h, w,
+        0 if scratch is None else scratch.data_ptr(), barrier.data_ptr(), ctypes.addressof(ptrs),
+        ctypes.addressof(dim_arr), ctypes.addressof(plan_arr), len(blocks), b, h, w,
     )
     return out

@@ -59,12 +59,15 @@ K9)": a seeded R50 (FrozenBN scales and variances in [0.5, 2]) runs once in
 bf16 at 800 x 1344, batch 2, and the input and output of each of its four
 runs of stride-1 blocks (3, 3, 5, 2 blocks) are captured; one pass over the
 runs launches `fused_layer` (K9) once a run and `fused_bottleneck` (K8) once
-a block, and must count K9 4 and K8 13 launches; each K8 output is held to
-its plain version on the same input, each K9 output to the K8 chain (bit for
-bit), to the plain chain and to the captured module output, again in f32 at
-256 x 384;
-K8, K9, the plain versions and the unfused module chain are timed. As in the
-JAX package, neither kernel is wired into `predict`.
+a block with the plans `fused_plan` computes (the halo route for layer1,
+the phase route for layer2-4), and must count K9 4 and K8 13 launches;
+each K8 output is held to its plain version on the same input,
+each K9 output to the K8 chain (bit for bit), to the plain chain and to the
+captured module output, again in f32 at 256 x 384 with the computed plans and
+with the halo route wherever it fits; K8 (per block) and K9 (per run) are
+timed on parameters cast once beside their bounds, the plain versions, the
+unfused module chain and the folded cuDNN chain. As in the JAX package,
+neither kernel is wired into `predict`.
 
 Phase 2 also holds K7 against its plain version on edge cases: the clamp,
 the border bands, D = 0, stride 2, v2 with a mask, groups of 4 channels with
@@ -1478,16 +1481,18 @@ def fused_bound(torch, x, blocks, out) -> tuple[float, str]:
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
-def fused_pass(torch, ops_fb, xs, folded):
+def fused_pass(torch, ops_fb, xs, folded, plans=None):
     """The fused path over the four runs: `fused_layer` once a run (K9) and
-    `fused_bottleneck` block by block (K8). Returns the K9 outputs and, per
-    run, the row-padded inputs and outputs of each K8 call."""
+    `fused_bottleneck` block by block (K8), with `plans` (per run, per block)
+    or the computed ones. Returns the K9 outputs and, per run, the row-padded
+    inputs and outputs of each K8 call."""
     k9, k8 = [], []
-    for x, ps in zip(xs, folded):
-        k9.append(ops_fb.fused_layer(x, ps))
+    for i, (x, ps) in enumerate(zip(xs, folded)):
+        run_plans = None if plans is None else plans[i]
+        k9.append(ops_fb.fused_layer(x, ps, run_plans))
         chain = [ops_fb.pad_rows(x)]
-        for p in ps:
-            chain.append(ops_fb.fused_bottleneck(chain[-1], p))
+        for s, p in enumerate(ps):
+            chain.append(ops_fb.fused_bottleneck(chain[-1], p, None if run_plans is None else run_plans[s]))
         k8.append(chain)
     return k9, k8
 
@@ -1538,11 +1543,65 @@ def check_fused_runs(torch, ops_fb, caps, folded, k9, k8, dtype) -> dict:
     return w
 
 
+def kernel_params(torch, ops_fb, p):
+    """`p` as the kernels take it, cast once: weights in bf16, biases f32, so
+    that a timed launch casts nothing."""
+    return ops_fb.FusedBlockParams(*(None if t is None else t.to(torch.bfloat16 if i % 2 == 0 else torch.float32)
+                                     for i, t in enumerate(p)))
+
+
+def folded_chain(torch, p):
+    """The folded cuDNN chain of one block: `F.conv2d` on the folded bf16
+    weights with their biases, relu and the residual add, channels-last NCHW
+    bf16. A timing yardstick only (its biases round to bf16)."""
+    import torch.nn.functional as F
+
+    def conv(w):  # (Cin, Cout) or (9, Cm, Cm) -> (Cout, Cin, kh, kw)
+        w = w.to(torch.bfloat16)
+        if w.dim() == 3:
+            return w.reshape(3, 3, *w.shape[1:]).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return w.t()[:, :, None, None].contiguous(memory_format=torch.channels_last)
+
+    w1, w2, w3 = conv(p.w1), conv(p.w2), conv(p.w3)
+    b1, b2, b3 = (t.reshape(-1).to(torch.bfloat16) for t in (p.b1, p.b2, p.b3))
+    wd = None if p.wd is None else conv(p.wd)
+    bd = None if p.bd is None else p.bd.reshape(-1).to(torch.bfloat16)
+
+    def block(x):
+        y = F.relu(F.conv2d(x, w1, b1))
+        y = F.relu(F.conv2d(y, w2, b2, padding=1))
+        y = F.conv2d(y, w3, b3)
+        return F.relu(y + (x if wd is None else F.conv2d(x, wd, bd)))
+
+    return block
+
+
+def halo_where_it_fits(ops_fb, xs, folded, dtype):
+    """Per run and block, the halo plan where one fits, else the computed plan."""
+    plans = []
+    for x, ps in zip(xs, folded):
+        b, h, w, cin = x.shape
+        run = []
+        for p in ps:
+            args = (b, h, w, cin, p.w1.shape[1], p.w3.shape[1], dtype)
+            try:
+                run.append(ops_fb.fused_plan(*args, route="halo"))
+            except ValueError:
+                run.append(ops_fb.fused_plan(*args))
+            cin = p.w3.shape[1]
+        plans.append(run)
+    return plans
+
+
 def run_fused_path(torch, dev):
     """K8 and K9 over the 13 stride-1 bottlenecks of the R50 at 800 x 1344,
-    batch 2, bf16: one pass launches K9 4 times and K8 13 times; each run is
-    held to the plain versions and the module chain, then the same in f32 at
-    FUSED_SMALL; K8, K9, the plain versions and the module chain timed."""
+    batch 2, bf16, with the computed plans (halo route for layer1, phase
+    route for layer2-4): one pass launches K9 4 times
+    and K8 13 times; each run is held to the plain versions and the module
+    chain, then the same in f32 at FUSED_SMALL with the computed plans (the
+    phase route) and with the halo route wherever it fits; K8 and K9 timed
+    per block and run on parameters cast once, beside their bounds, the plain
+    versions, the module chain and the folded cuDNN chain."""
     from balancedgroupsoftmax_torch import cuda
     from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
 
@@ -1571,9 +1630,13 @@ def run_fused_path(torch, dev):
 
     t9 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by={"bytes": 0.0, "operations": 0.0})
     t8 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by={"bytes": 0.0, "operations": 0.0})
-    module_ms = 0.0
+    module_ms = folded_ms = 0.0
+    routes = set()
     for i, ((x_nchw, _), x, ps, run, out) in enumerate(zip(caps, xs, folded, runs, k9)):
-        ms = cuda_time_ms(lambda: ops_fb.fused_layer(x, ps), 5)
+        kps = [kernel_params(torch, ops_fb, p) for p in ps]
+        plans = ops_fb.run_plans(*x.shape, kps, x.dtype, ops_fb._sm_count(dev.index or 0))
+        routes |= {pl.route for pl in plans}
+        ms = cuda_time_ms(lambda: ops_fb.fused_layer(x, kps), 5)
         plain = cuda_time_ms(lambda: ops_fb.fused_layer_reference(x, ps), 2)
         b_ms, b_by = fused_bound(torch, x, ps, out)
         t9["ms"] += ms
@@ -1588,13 +1651,24 @@ def run_fused_path(torch, dev):
                     y = blk(y)
             return y
 
+        chain = [folded_chain(torch, p) for p in ps]
+
+        def folded_run(x_nchw=x_nchw, chain=chain):
+            with torch.no_grad():
+                y = x_nchw
+                for blk in chain:
+                    y = blk(y)
+            return y
+
         mod = cuda_time_ms(modules, 5)
+        fold = cuda_time_ms(folded_run, 5)
         module_ms += mod
+        folded_ms += fold
         xp = ops_fb.pad_rows(x)
         per_block = []
-        for p in ps:
-            out_p = ops_fb.fused_bottleneck(xp, p)
-            bms = cuda_time_ms(lambda: ops_fb.fused_bottleneck(xp, p), 5)
+        for p, kp, plan in zip(ps, kps, plans):
+            out_p = ops_fb.fused_bottleneck(xp, kp)
+            bms = cuda_time_ms(lambda: ops_fb.fused_bottleneck(xp, kp), 5)
             t8["ms"] += bms
             t8["plain_ms"] += cuda_time_ms(lambda: ops_fb.fused_bottleneck_reference(xp, p), 2)
             bb_ms, bb_by = fused_bound(torch, ops_fb.unpad_rows(xp), [p], ops_fb.unpad_rows(out_p))
@@ -1602,29 +1676,47 @@ def run_fused_path(torch, dev):
             t8["by"][bb_by] += bb_ms
             per_block.append(f"{bms:.4f} (bound {bb_ms:.4f} {bb_by[0]})")
             xp = out_p
-        log(f"  run {i} x {tuple(x.shape)} -> {tuple(out.shape)}, {len(ps)} blocks: K9 {ms:.4f} ms "
+        log(f"  run {i} x {tuple(x.shape)} -> {tuple(out.shape)}, {len(ps)} blocks, route "
+            f"{'/'.join(sorted({f'{pl.route} {pl.rows}' for pl in plans}))}: K9 {ms:.4f} ms "
             f"(bound {b_ms:.4f}, {b_by}), K8 blocks {', '.join(per_block)} ms, plain {plain:.3f} ms, "
-            f"module chain {mod:.4f} ms")
+            f"module chain {mod:.4f} ms, folded cuDNN chain {fold:.4f} ms")
+    if routes != {"halo", "phase"}:
+        raise AssertionError(f"the bf16 pass must take both routes, took {routes}")
     log(f"  a backbone pass: K9 {t9['ms']:.4f} ms (plain {t9['plain_ms']:.3f}, bound {t9['bound_ms']:.4f}), "
         f"K8 {t8['ms']:.4f} ms (plain {t8['plain_ms']:.3f}, bound {t8['bound_ms']:.4f}), "
-        f"module chain {module_ms:.4f} ms ({card_line()})")
-    profile_device(torch, "K9 over the four runs", lambda: [ops_fb.fused_layer(x, ps) for x, ps in zip(xs, folded)],
+        f"module chain {module_ms:.4f} ms, folded cuDNN chain {folded_ms:.4f} ms ({card_line()})")
+    kxs = [[kernel_params(torch, ops_fb, p) for p in ps] for ps in folded]
+    profile_device(torch, "K9 over the four runs", lambda: [ops_fb.fused_layer(x, ps) for x, ps in zip(xs, kxs)],
                    top=6)
-    del caps, xs, k9
+
+    def k8_pass():
+        for x, ps in zip(xs, kxs):
+            y = ops_fb.pad_rows(x)
+            for p in ps:
+                y = ops_fb.fused_bottleneck(y, p)
+
+    profile_device(torch, "K8 over the 13 blocks", k8_pass, top=6)
+    del caps, xs, k9, kxs
 
     # f32 at a reduced size, TF32 off for the modules' convolutions and the plain versions' products
     allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = {}
     try:
         caps = capture_runs(torch, net, runs, FUSED_SMALL, torch.float32)
         xs = [x.permute(0, 2, 3, 1).contiguous() for x, _ in caps]
-        k9, k8 = fused_pass(torch, ops_fb, xs, folded)
-        f32 = check_fused_runs(torch, ops_fb, caps, folded, k9, k8, torch.float32)
+        for label, plans in (("computed", None), ("halo where it fits", halo_where_it_fits(ops_fb, xs, folded,
+                                                                                          torch.float32))):
+            k9, k8 = fused_pass(torch, ops_fb, xs, folded, plans)
+            f32[label] = check_fused_runs(torch, ops_fb, caps, folded, k9, k8, torch.float32)
+            taken = plans or [ops_fb.run_plans(*x.shape, ps, torch.float32, ops_fb._sm_count(dev.index or 0))
+                              for x, ps in zip(xs, folded)]
+            log(f"  f32 at {FUSED_SMALL}, plans {label} ({[[f'{p.route} {p.rows}' for p in r] for r in taken]}): "
+                f"K8 within {f32[label]['rel8']:.3e} a block, K9 within {f32[label]['rel9']:.3e} a run of the "
+                f"plain versions' largest |output|; fused within {f32[label]['mod']:.3e} of the modules' "
+                f"(limit {FUSED_MODULE_TOL['float32']})")
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
-    log(f"  f32 at {FUSED_SMALL}: K8 within {f32['rel8']:.3e} a block, K9 within {f32['rel9']:.3e} a run of the "
-        f"plain versions' largest |output|; fused within {f32['mod']:.3e} of the modules' "
-        f"(limit {FUSED_MODULE_TOL['float32']})")
 
     def row(name, t, err):
         return dict(
@@ -1638,8 +1730,10 @@ def run_fused_path(torch, dev):
             bound_ms=t["bound_ms"],
             bound_by=max(t["by"], key=t["by"].get),
             library_ms=None,
+            module_chain_ms=module_ms,
+            folded_chain_ms=folded_ms,
             shape=f"the R50's 13 stride-1 blocks at {MAIN_SIZE}, batch {MAIN_BATCH}, bf16, summed; "
-                  f"module chain {module_ms:.4f} ms",
+                  f"module chain {module_ms:.4f} ms, folded cuDNN chain {folded_ms:.4f} ms",
         )
 
     return launches, [row("fused_bottleneck", t8, bf16["abs8"]), row("fused_layer", t9, bf16["abs9"])]

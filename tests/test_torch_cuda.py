@@ -650,6 +650,80 @@ def test_fused_layer_matches_plain(dev, exact_f32, dtype, run):
     assert torch.equal(out, ops_fb.unpad_rows(chain))  # K9 runs K8's tile body, so bit for bit
 
 
+# each route forced at the R50's widths (the halo route where it fits shared
+# memory), at ragged sizes: H and W not multiples of a tile, W < 16, one image
+FUSED_ROUTES = [(route, width, dtype) for route in ("halo", "phase") for width in R50_WIDTHS
+                for dtype in (torch.float32, torch.bfloat16)
+                if route == "phase" or width.startswith(("layer1", "layer2")) or
+                (width == "layer3" and dtype == torch.bfloat16)]
+FUSED_RAGGED = {"13x37": (2, (13, 37)), "5x7-one-image": (1, (5, 7)), "31x61": (1, (31, 61))}
+
+
+def _forced_plan(route, b, hw, width, dtype):
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    cin, cm, cout, _ = R50_WIDTHS[width]
+    return ops_fb.fused_plan(b, *hw, cin, cm, cout, dtype, route=route)
+
+
+@pytest.mark.parametrize("size", list(FUSED_RAGGED))
+@pytest.mark.parametrize("route,width,dtype", FUSED_ROUTES)
+def test_fused_route_matches_plain(dev, exact_f32, route, width, dtype, size):
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    b, hw = FUSED_RAGGED[size]
+    x, p = fused_block_case(len(width) + b, *R50_WIDTHS[width], b=b, hw=hw)
+    x, p = torch.from_numpy(x).to(dev, dtype), _fused_params(p, dev)
+    plan = _forced_plan(route, b, hw, width, dtype)
+    before = cuda.FUSED_BOTTLENECK.launches
+    out = ops_fb.unpad_rows(ops_fb.fused_bottleneck(x, p, plan))
+    assert cuda.FUSED_BOTTLENECK.launches == before + 1
+    ref = ops_fb.unpad_rows(ops_fb.fused_bottleneck_reference(x, p))
+    assert out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _fused_limit(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["halo", "phase"])
+def test_fused_layer_route_equals_the_k8_chain(dev, exact_f32, route, dtype):
+    """layer1's run (a downsample at stride 1, then two identities) with every
+    block forced onto one route: K9 equals the K8 chain bit for bit and the
+    plain chain within its limit."""
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    widths, b, hw = ["layer1.0", "layer1", "layer1"], 1, (19, 45)
+    blocks = [_fused_params(fused_block_case(60 + i, *R50_WIDTHS[wd], b=b, hw=hw)[1], dev)
+              for i, wd in enumerate(widths)]
+    plans = [_forced_plan(route, b, hw, wd, dtype) for wd in widths]
+    x = fused_block_case(70, *R50_WIDTHS[widths[0]], b=b, hw=hw)[0][:, 1:-1]
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+    before = cuda.FUSED_LAYER.launches
+    out = ops_fb.fused_layer(x, blocks, plans)
+    assert cuda.FUSED_LAYER.launches == before + 1
+    ref = ops_fb.fused_layer_reference(x, blocks)
+    assert (out.float() - ref.float()).abs().max().item() <= _fused_limit(dtype, ref, len(blocks))
+    chain = ops_fb.pad_rows(x)
+    for p, plan in zip(blocks, plans):
+        chain = ops_fb.fused_bottleneck(chain, p, plan)
+    assert torch.equal(out, ops_fb.unpad_rows(chain))
+
+
+def test_fused_refuses_a_plan_that_does_not_fit(dev):
+    """The plan refuses the halo route at layer4's widths before any launch;
+    a plan the kernel does not take (odd tile rows) is refused at launch,
+    with no launch counted."""
+    from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
+
+    with pytest.raises(ValueError):
+        _forced_plan("halo", 1, (6, 8), "layer4", torch.bfloat16)
+    before = cuda.FUSED_BOTTLENECK.launches
+    bad = _forced_plan("halo", 1, (6, 8), "layer1", torch.bfloat16)._replace(rows=3)
+    x, p = fused_block_case(4, *R50_WIDTHS["layer1"], b=1, hw=(6, 8))
+    with pytest.raises(RuntimeError):
+        ops_fb.fused_bottleneck(torch.from_numpy(x).to(dev, torch.bfloat16), _fused_params(p, dev), bad)
+    assert cuda.FUSED_BOTTLENECK.launches == before
+
+
 def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from balancedgroupsoftmax_torch.ops import fused_block as ops_fb
 

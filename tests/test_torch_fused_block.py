@@ -167,3 +167,82 @@ def test_stride1_runs_of_the_r50():
     dims = [[(p.w1.shape[0], p.w1.shape[1], p.w3.shape[1]) for p in map(fb.fold_bottleneck, r)] for r in runs]
     assert dims[0] == [(64, 64, 256), (256, 64, 256), (256, 64, 256)]
     assert dims[3] == [(2048, 512, 2048)] * 2
+
+
+# the R50's stride-1 runs at 800 x 1344, batch 2: (H, W) of each run's input
+R50_RUN_SIZES = [(200, 336), (100, 168), (50, 84), (25, 42)]
+SMEM = 232448  # a block's shared memory on the H100
+
+
+def _check_plan(plan, b, h, w, sms=fb.H100_SMS):
+    assert plan.smem <= SMEM
+    if plan.route == "halo":  # conv1 over (TH + 2) rows of 32 halo pixels, the rest over TH rows of 32
+        assert (plan.rows + 2) * 32 % 64 == 0 and plan.rows * 32 % 64 == 0
+    else:
+        assert plan.rows % 64 == 0
+    assert min(plan.units) >= sms or plan.note
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("run", range(4), ids=["layer1", "layer2", "layer3", "layer4"])
+def test_plan_of_the_r50_blocks(run, dtype):
+    """Every plan of the R50's 13 stride-1 blocks at 800 x 1344, batch 2, fits
+    shared memory, runs whole 64-row blocks and gives every phase at least
+    one work unit an SM; in bf16 layer1 takes the halo route, layer2-4 the
+    phase route."""
+    h, w = R50_RUN_SIZES[run]
+    blocks = [fb.fold_bottleneck(blk) for blk in fb.stride1_runs(ResNet(depth=50))[run]]
+    cin = blocks[0].w1.shape[0]
+    plans = fb.run_plans(2, h, w, cin, blocks, dtype)
+    for plan in plans:
+        _check_plan(plan, 2, h, w)
+        assert not plan.note
+        if dtype == torch.bfloat16:
+            assert plan.route == ("halo" if run == 0 else "phase")
+
+
+# the card tests' sizes (tests/test_torch_cuda.py FUSED_RAGGED) and widths
+CARD_SIZES = [(2, 13, 37), (1, 5, 7), (1, 31, 61), (1, 19, 45), (2, 19, 35), (2, 11, 21), (2, 7, 18)]
+CARD_WIDTHS = [(64, 64, 256), (256, 64, 256), (512, 128, 512), (1024, 256, 1024), (2048, 512, 2048)]
+
+
+@pytest.mark.parametrize("route", [None, "halo", "phase"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_plan_at_the_card_tests_sizes(dtype, route):
+    """At ragged sizes (H and W not multiples of a tile, W < 16, one image)
+    every plan that is given fits; a forced halo route is refused only where
+    its y1 and y2 cannot fit (layer3 in f32, layer4)."""
+    for b, h, w in CARD_SIZES:
+        for cin, cm, cout in CARD_WIDTHS:
+            try:
+                plan = fb.fused_plan(b, h, w, cin, cm, cout, dtype, route=route)
+            except ValueError:
+                assert route == "halo" and (cm == 512 or (cm == 256 and dtype == torch.float32))
+                continue
+            _check_plan(plan, b, h, w)
+            assert route is None or plan.route == route
+
+
+def test_k8_and_k9_take_the_same_plan():
+    """K9 runs each block of a run with the plan K8 computes for that block
+    alone (`fused_plan` on the block's own cin), at every R50 run and size."""
+    runs = fb.stride1_runs(ResNet(depth=50))
+    for run, (h, w) in zip(runs, R50_RUN_SIZES):
+        blocks = [fb.fold_bottleneck(blk) for blk in run]
+        for dtype in (torch.bfloat16, torch.float32):
+            plans = fb.run_plans(2, h, w, blocks[0].w1.shape[0], blocks, dtype)
+            for p, plan in zip(blocks, plans):
+                assert plan == fb.fused_plan(2, h, w, p.w1.shape[0], p.w1.shape[1], p.w3.shape[1], dtype)
+
+
+@pytest.mark.parametrize("case", ["halo-layer4", "odd-rows", "phase-32-rows", "route"])
+def test_plan_refuses_what_fits_nothing(case):
+    with pytest.raises(ValueError):
+        if case == "halo-layer4":  # y1 and y2 of 512 channels do not fit 227 KB
+            fb.fused_plan(2, 25, 42, 2048, 512, 2048, torch.bfloat16, route="halo")
+        elif case == "odd-rows":  # conv1's halo would not be whole 64-row blocks
+            fb.fused_plan(2, 200, 336, 256, 64, 256, torch.bfloat16, route="halo", rows=5)
+        elif case == "phase-32-rows":
+            fb.fused_plan(2, 25, 42, 2048, 512, 2048, torch.bfloat16, route="phase", rows=32)
+        else:
+            fb.fused_plan(2, 25, 42, 2048, 512, 2048, torch.bfloat16, route="cluster")
