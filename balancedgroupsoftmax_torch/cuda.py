@@ -59,7 +59,7 @@ SIGNATURES = {
     "bags_nms_keep_tiled": (_P, _P, _P, _P, _I, _I, _F, _P),
     "bags_nms_keep_gathered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "bags_nms_keep_coords": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "bags_gather_lanes": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bags_gather_lanes": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bags_roi_align_forward": (
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),

@@ -1,12 +1,13 @@
-"""Where K7's, K2b's, the NMS kernels' and K8's time goes, and what one launch costs on the card's host.
+"""Where K7's, K2b's, the NMS kernels', K8's and K6's time goes, and what one launch costs on the card's host.
 
-    python3 -m balancedgroupsoftmax_torch.kernel_study [k7] [k2b] [nms] [launch] [fused]
+    python3 -m balancedgroupsoftmax_torch.kernel_study [k7] [k2b] [nms] [launch] [fused] [k6]
 
-(all five parts when none is named)
+(all six parts when none is named)
 
 Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu`,
-`csrc/roi_align.cu` and `csrc/nms.cu` into a temporary directory and leaves
-the package's own build alone. It prints:
+`csrc/roi_align.cu`, `csrc/nms.cu`, `csrc/fused_block.cu` and `csrc/gather.cu`
+into a temporary directory and leaves the package's own build alone. It
+prints:
 
 1. K7 (bf16, D = 4) at the HTC X101's four kinds of deformable layer at
    800 x 1344, batch 2 (c3's stride-2 first layer, c3, c4, c5), with the
@@ -17,7 +18,7 @@ the package's own build alone. It prints:
 2. every launch plan that fits at those layers, fastest first, each checked
    to give the same output as the picked plan (the sums run in one order
    whatever the plan);
-3. the host's cost of one launch: an empty kernel with K6's nine arguments
+3. the host's cost of one launch: an empty kernel with nine arguments
    launched from C in a loop, through the static and the shared CUDA
    runtime, the same launch through one ctypes call, and through
    `_bags_launch.launch` (cuda.py's launch path);
@@ -52,6 +53,21 @@ the package's own build alone. It prints:
    and one part cut out at a time (the products, the epilogues, the copies:
    what each costs, as the difference). It prints what `ptxas -v` reports
    for the kernels (registers, spills, serialized wgmma).
+
+7. K6 (the class-agnostic candidate gather) at the cascade's shape (P = 2
+   images of N = 1000 boxes, G = 600 groups of K = 300 distinct indices, as
+   top-k gives them): its first kernel (`FIRST_GATHER`: one thread a slot,
+   int64 index arithmetic, planes only) on planes, and with the transpose
+   copy from the boxes' rows that had to run before it; the kernel of
+   `csrc/gather.cu` on the rows (16-byte aligned, and one float off
+   alignment: the scalar route) and on planes; and the same kernel with each
+   choice of its design undone (scalar index loads, four scalar loads a
+   candidate, scalar stores, int64 index arithmetic; and all four; blocks of
+   128 or 256 threads, not 64), and cut to the launch of its grid alone. Each variant
+   that computes the result is held bit for bit to the plain version, and
+   timed by its device time a
+   call under the profiler (the kernels' sum, the copy included) and by
+   CUDA events a call (which the host's launch cost sets).
 
 Its inputs are seeded; offsets have a spread of 2 cells, as in
 `chip_smoke.py`'s HTC phase.
@@ -171,6 +187,60 @@ extern "C" int one_packed(const long long* slots) { return one(reinterpret_cast<
 """
 
 
+FIRST_GATHER = r"""// K6's first kernel: one thread a (group, slot), int64 index arithmetic, planes only
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "launch.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+gather_lanes_kernel(const float* __restrict__ planes, const int32_t* __restrict__ idx,
+                    float* __restrict__ out, int64_t gk, int r, int k, int n,
+                    int groups_per_plane) {
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= gk) return;
+  const int64_t g = t / k;
+  const int64_t slot = t - g * k;
+  const int j = idx[t];
+  const bool in = j >= 0 && j < n;
+  const float* src = planes + (g / groups_per_plane) * r * int64_t(n);
+  float* dst = out + g * r * int64_t(k) + slot;
+  for (int q = 0; q < r; ++q) dst[int64_t(q) * k] = in ? src[int64_t(q) * n + j] : 0.0f;
+}
+
+}  // namespace
+
+extern "C" int bags_gather_lanes(const float* planes, const int32_t* idx, float* out, int g, int r, int k,
+                                 int n, int groups_per_plane, cudaStream_t stream) {
+  const int64_t gk = int64_t(g) * k;
+  const int64_t blocks = (gk + kThreads - 1) / kThreads;
+  gather_lanes_kernel<<<unsigned(blocks), kThreads, 0, stream>>>(planes, idx, out, gk, r, k, n,
+                                                                  groups_per_plane);
+  return int(cudaGetLastError());
+}
+
+BAGS_PACKED(bags_gather_lanes)
+"""
+K6_CUTS = {  # a choice of csrc/gather.cu undone: (its text, the replacement)
+    "int4 index loads (scalar)": ("    j = __ldg(reinterpret_cast<const int4*>(ids));",
+                                  "    j = make_int4(__ldg(ids), __ldg(ids + 1), __ldg(ids + 2), __ldg(ids + 3));"),
+    "float4 candidate loads (four scalar)": (
+        "  return __ldg(reinterpret_cast<const float4*>(table) + j);",
+        "  return make_float4(__ldg(table + 4 * j), __ldg(table + 4 * j + 1), __ldg(table + 4 * j + 2),\n"
+        "                     __ldg(table + 4 * j + 3));"),
+    "float4 stores (scalar)": ("    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);",
+                               "    dst[0] = a, dst[1] = b, dst[2] = c, dst[3] = d;"),
+    "32-bit index arithmetic (int64)": ("typedef int Index;", "typedef int64_t Index;"),
+    "64-thread blocks (128)": ("constexpr int kThreads = 64;", "constexpr int kThreads = 128;"),
+    "64-thread blocks (256)": ("constexpr int kThreads = 64;", "constexpr int kThreads = 256;"),
+    # cut out (the result is then wrong): the launch of the same grid, every thread returning at once
+    "work (the grid's launch alone)": ("  if (t >= Index(groups_per_plane) * quads) return;", "  if (t >= 0) return;"),
+}
+K6_PARTIAL = {"no work (the grid's launch alone)"}  # variants whose result is not held
 FUSED_CUTS = {  # a choice of csrc/fused_block.cu undone: edits (its text, the replacement)
     "ring (one stage)": ("  a.ring = int(std::min<size_t>(kMaxRing, (room - a.ring_off) / a.stage_bytes));",
                          "  a.ring = 1;"),
@@ -225,14 +295,14 @@ def edited(src: str, edits, source: str, name: str) -> str:
     return src
 
 
-def build_variants(tmp: Path, source: str, symbols, cuts: dict, extra: dict = {}) -> dict:
+def build_variants(tmp: Path, source: str, symbols, cuts: dict, extra: dict = {}, others: dict = {}) -> dict:
     """The packed launchers `symbols` (one name, or several) of each variant
     of `source`: whole, with each cut of `cuts` (name: edits, see `edited`)
-    made, and with each set of cuts in `extra` (name: cut names) made
-    together. Returns {variant: address}, or {variant: {symbol: address}}
-    for several symbols."""
+    made, with each set of cuts in `extra` (name: cut names) made together,
+    and of each source text in `others` (name: text). Returns {variant:
+    address}, or {variant: {symbol: address}} for several symbols."""
     src = (cuda.CSRC / source).read_text()
-    texts = {"whole": src}
+    texts = {"whole": src, **others}
     for name, edits in cuts.items():
         texts[f"no {name}"] = edited(src, edits, source, name)
     for name, parts in extra.items():
@@ -566,6 +636,79 @@ def study_fused(fns: dict, tmp: Path) -> None:
         print(f"  K9 over the run of {len(run)}: " + ", ".join(line), flush=True)
 
 
+def device_ms_a_call(fn, calls: int = 200) -> float:
+    """Device time of one call of `fn` under the profiler: every CUDA kernel
+    it launches, summed, over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    self_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    return sum(self_us(e) for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
+
+
+def study_k6(fns: dict) -> None:
+    """K6 at the cascade's shape, each variant on the layouts it takes, held
+    to the plain version and timed (medians of 3)."""
+    from .ops import gather as ops_gather
+
+    gen = torch.Generator().manual_seed(14)
+    p, n, g, k = 2, 1000, 600, 300
+    boxes = (torch.rand(p, n, 4, generator=gen) * 1333 + 2.0**-13).cuda()
+    idx = torch.argsort(torch.rand(g, n, generator=gen), dim=1)[:, :k].to(torch.int32).cuda()
+    flat = torch.empty(p * n * 4 + 1, device="cuda")
+    flat[1:] = boxes.ravel()
+    tables = {
+        "rows": boxes.transpose(1, 2),
+        "rows off 16-byte alignment": flat[1:].view(p, n, 4).transpose(1, 2),
+        "planes": boxes.transpose(1, 2).contiguous(),
+    }
+    ref = ops_gather.gather_lanes_reference(tables["planes"], idx, g // p)
+    out = torch.empty(g, 4, k, device="cuda")
+    launch = cuda.launch_module().launch
+    first_kinds = cuda.GATHER_LANES.kinds[:8] + cuda.GATHER_LANES.kinds[9:]  # no layout argument
+    copy = torch.empty(p, 4, n, device="cuda")
+
+    def first(address, with_copy):
+        def call():
+            if with_copy:
+                copy.copy_(tables["rows"])
+            return launch(address, first_kinds, copy.data_ptr(), idx.data_ptr(), out.data_ptr(), g, 4, k, n, g // p,
+                          cuda.current_stream())
+        if not with_copy:
+            copy.copy_(tables["planes"])
+        return call
+
+    def current(address, table):
+        rows = ops_gather.table_layout(table)
+        return lambda: launch(address, cuda.GATHER_LANES.kinds, table.data_ptr(), idx.data_ptr(), out.data_ptr(), g, 4,
+                              k, n, g // p, rows, cuda.current_stream())
+
+    cases = {"first kernel, planes": first(fns["first kernel"], False),
+             "first kernel, transpose copy from the rows and planes": first(fns["first kernel"], True)}
+    for name, address in fns.items():
+        if name == "first kernel":
+            continue
+        for layout in (("rows", "rows off 16-byte alignment", "planes") if name == "whole" else ("rows", "planes")):
+            cases[f"{name}, {layout}"] = current(address, tables[layout])
+    print(f"K6 (P={p} N={n} G={g} K={k}): device ms a call (profiler, 200 calls) / ms a call by events (300 calls), "
+          "medians of 3", flush=True)
+    for name, call in cases.items():
+        out.zero_()
+        if call():
+            raise RuntimeError(f"K6 variant '{name}' refused the launch")
+        torch.cuda.synchronize()
+        if name.split(", ")[0] not in K6_PARTIAL and not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K6: the variant '{name}' differs from the plain version")
+        dev = statistics.median(device_ms_a_call(call) for _ in range(3))
+        ev = statistics.median(cuda_time_ms(call, 300) for _ in range(3))
+        print(f"  {name}: {dev:.5f} / {ev:.5f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_study: no CUDA device")
@@ -573,7 +716,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"{card}; torch {torch.__version__}", flush=True)
-    parts = set(sys.argv[1:]) or {"k7", "k2b", "nms", "launch", "fused"}
+    parts = set(sys.argv[1:]) or {"k7", "k2b", "nms", "launch", "fused", "k6"}
     with tempfile.TemporaryDirectory() as tmp:
         if "k7" in parts:
             study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
@@ -587,6 +730,9 @@ def main() -> int:
             study_launch(Path(tmp))
         if "fused" in parts:
             study_fused(build_variants(Path(tmp), "fused_block.cu", "bags_fused_bottleneck", FUSED_CUTS), Path(tmp))
+        if "k6" in parts:
+            study_k6(build_variants(Path(tmp), "gather.cu", "bags_gather_lanes", K6_CUTS,
+                                    {"all four undone": tuple(K6_CUTS)[:4]}, {"first kernel": FIRST_GATHER}))
     return 0
 
 

@@ -73,9 +73,9 @@ def batched_multiclass_nms(
     foreground class, valid (B, M) bool), M = max_per_img, by score.
 
     Class-specific boxes go through K3, which gathers each class's
-    candidates from its own coordinate planes. Class-agnostic boxes form
-    one (4, N) plane per image, which K6 gathers from for all of the
-    image's classes and K5 then suppresses within (kernels.py:170-184).
+    candidates from its own coordinate planes. For class-agnostic boxes,
+    K6 gathers every class's candidates from its image's (N, 4) box rows as
+    they lie, and K5 then suppresses within (kernels.py:170-184).
     Soft-NMS is not ported and raises NotImplementedError."""
     if nms_type != "nms":
         raise NotImplementedError(f"nms_type={nms_type!r} is not ported yet")
@@ -100,8 +100,10 @@ def batched_multiclass_nms(
     cand_idx = top_idx.reshape(b * num_fg, k).to(torch.int32)
     flat_valid = cand_valid.reshape(b * num_fg, k)
     if boxes.shape[-1] == 4:
-        # one shared (4, N) plane per image, never replicated per class
-        cand = gather_lanes(boxes.float().transpose(1, 2).contiguous(), cand_idx, groups_per_plane=num_fg)
+        # each image's decoded (N, 4) rows, shared by its classes and read
+        # where they lie: K6 takes the (B, 4, N) transposed view with no copy
+        # (`.float()` is a no-op for the decoders' f32 boxes)
+        cand = gather_lanes(boxes.float().transpose(1, 2), cand_idx, groups_per_plane=num_fg)
         keep = nms_keep_batched_coords(cand, flat_valid, iou_thr)
     else:
         # (B, C, 4, N) coordinate planes of the selected classes (bg is class 0)

@@ -300,6 +300,51 @@ def test_gather_lanes_is_bit_equal_to_plain(dev, groups_per_plane, k, n):
     assert (out[0, :, :3] == 0).all()
 
 
+def rows_on(dev, planes, offset=0):
+    """(P, R, N) numpy planes as the transposed view of contiguous (P, N, R)
+    rows on `dev`, the rows starting `offset` floats into their buffer."""
+    rows = np.ascontiguousarray(planes.transpose(0, 2, 1))
+    flat = torch.zeros(rows.size + offset, device=dev)
+    flat[offset:] = torch.from_numpy(rows.ravel()).to(dev)
+    return flat[offset:].view(rows.shape).transpose(1, 2)
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: rows not 16-byte aligned, the scalar route
+@pytest.mark.parametrize("groups_per_plane,k,n", [(300, 300, 1000), (1, 77, 50), (3, 4, 5), (300, 301, 1000)])
+def test_gather_lanes_rows_are_bit_equal_to_plain(dev, groups_per_plane, k, n, offset):
+    """K6 on the decoded boxes' own rows, in both routes; K not a multiple
+    of 4 (77, 301) takes the scalar tail; indices outside [0, N) give 0."""
+    from balancedgroupsoftmax_torch.ops import gather as ops_gather
+
+    planes, idx = lane_gather_case(k + offset, 2, groups_per_plane, k, n)
+    idx[0, :3] = [-1, n, n + 7]
+    idx[-1, -1] = -2**31
+    rows, idx = rows_on(dev, planes, offset), torch.from_numpy(idx).to(dev)
+    assert ops_gather.table_layout(rows) == ops_gather.ROWS and (rows.data_ptr() % 16 == 0) == (offset == 0)
+    before = cuda.GATHER_LANES.launches
+    out = ops_gather.gather_lanes(rows, idx, groups_per_plane)
+    assert cuda.GATHER_LANES.launches == before + 1
+    ref = ops_gather.gather_lanes_reference(torch.from_numpy(planes).to(dev), idx, groups_per_plane)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(out, ops_gather.gather_lanes(rows.contiguous(), idx, groups_per_plane))
+    assert (out[0, :, :3] == 0).all() and (out[-1, :, -1] == 0).all()
+
+
+def test_gather_lanes_refuses_other_layouts_with_no_launch(dev):
+    from balancedgroupsoftmax_torch.ops import gather as ops_gather
+
+    planes, idx = lane_gather_case(9, 2, 3, 8, 40)
+    idx = torch.from_numpy(idx).to(dev)
+    rows = rows_on(dev, planes)
+    before = cuda.GATHER_LANES.launches
+    interleaved = torch.stack(list(rows), 2).permute(2, 0, 1)  # (P, R, N) with strides (1, N P, P)
+    for bad in (rows[:, :, :30], torch.from_numpy(planes).to(dev)[:, :, :30], interleaved, rows.double()):
+        assert bad.dtype is torch.float64 or ops_gather.table_layout(bad) is None
+        with pytest.raises(ValueError):
+            ops_gather.gather_lanes(bad, idx, 3)
+    assert cuda.GATHER_LANES.launches == before
+
+
 def test_launches_go_on_the_current_stream(dev):
     """The raw stream every launch is queued on is PyTorch's current one, on
     the default stream and inside `torch.cuda.stream`."""
