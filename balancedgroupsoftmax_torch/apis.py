@@ -1,6 +1,6 @@
-"""User API: build (and load) a detector and run single-image inference
-(JAX `apis.py` `init_detector` :79,
-`inference_detector` :116).
+"""User API: build (and load) a detector, run single-image inference, and
+tau-normalise its classifier (JAX `apis.py` `init_detector` :79,
+`inference_detector` :116; JAX tools/test_lvis.py `tau_norm` :99-115).
 
 The detector runs on the card: with no `device`, `init_detector` takes
 "cuda" and raises where there is none. Tests pass device="cpu".
@@ -8,6 +8,7 @@ The detector runs on the card: with no `device`, `init_detector` takes
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -16,12 +17,19 @@ import torch
 from . import zoo
 from .data.pipeline import preprocess_image
 from .gs.partition import load_partition, synthetic_partition
-from .models.detector import FasterRCNN, build_detector
+from .models.detector import FasterRCNN, build_model
+from .utils.checkpoint import restore_checkpoint
 
-BUILDERS = {
-    "faster_rcnn_r50": zoo.faster_rcnn_r50_fpn_lvis,
-    "gs_faster_rcnn_r50": zoo.gs_faster_rcnn_r50_fpn_lvis,
-    "faster_rcnn_x101": zoo.faster_rcnn_x101_64x4d_fpn_lvis,
+# the model names of the CLIs -> (zoo constructor, its TrainConfig in zoo.TRAIN_CONFIGS)
+MODELS = {
+    "faster_rcnn_r50": (zoo.faster_rcnn_r50_fpn_lvis, "faster_rcnn_r50_fpn_lvis"),
+    "gs_faster_rcnn_r50": (zoo.gs_faster_rcnn_r50_fpn_lvis, "gs_faster_rcnn_r50_fpn_lvis"),
+    "faster_rcnn_x101": (zoo.faster_rcnn_x101_64x4d_fpn_lvis, "faster_rcnn_x101_64x4d_fpn_lvis"),
+    "cascade_rcnn_r50": (zoo.cascade_rcnn_r50_fpn_lvis, "cascade_rcnn_r50_fpn_lvis"),
+    "gs_cascade_rcnn_r50": (
+        functools.partial(zoo.cascade_rcnn_r50_fpn_lvis, use_gs=True),
+        "gs_cascade_rcnn_r50_fpn_lvis",
+    ),
 }
 
 
@@ -75,10 +83,11 @@ def init_detector(
     device: Optional[str | torch.device] = None,
     seed: int = 0,
 ) -> Detector:
-    """Build a detector with seeded weights, or those of `checkpoint` (a
-    `torch.save`d state_dict, e.g. from `convert.params_from_flax`)."""
+    """Build a detector with seeded weights, or those of `checkpoint` (one
+    the train CLI wrote, or a `torch.save`d state_dict such as
+    `convert.params_from_flax` gives)."""
     device = resolve_device(device)
-    det_cfg = BUILDERS[model_name]()
+    det_cfg = MODELS[model_name][0]()
     partition = None
     if det_cfg.bbox_head.use_gs:
         partition = (
@@ -86,12 +95,24 @@ def init_detector(
             if partition_path
             else synthetic_partition(det_cfg.bbox_head.num_classes)
         )
-    model = build_detector(det_cfg, partition=partition, dtype=dtype).init_weights(seed)
+    model = build_model(det_cfg, partition=partition, dtype=dtype).init_weights(seed)
     if checkpoint:
-        model.load_state_dict(torch.load(checkpoint, map_location="cpu", weights_only=True))
+        model.load_state_dict(restore_checkpoint(checkpoint)["model"])
     return Detector(model.to(device).eval(), device)
 
 
 def inference_detector(detector: Detector, image: np.ndarray) -> List[dict]:
     """Single-image inference (apis/inference.py inference_detector parity)."""
     return detector(image)
+
+
+@torch.no_grad()
+def tau_norm(model: FasterRCNN, tau: float, skip_bg: bool = False) -> None:
+    """Scale each row of `bbox_head.fc_cls.weight` by 1 / ||row||^tau, in
+    place, the bias untouched (the reference's reweight_cls); with `skip_bg`
+    row 0 (background) stays as it is."""
+    w = model.bbox_head.fc_cls.weight  # (logits, in)
+    scale = 1.0 / w.norm(dim=1, keepdim=True).clamp_min(1e-12) ** tau
+    if skip_bg:
+        scale[0] = 1.0
+    w.mul_(scale)

@@ -197,6 +197,7 @@ class TrainConfig:
     warmup_iters: int = 500
     warmup_ratio: float = 1.0 / 3.0
     lr_step_epochs: Tuple[int, ...] = (8, 11)
+    total_epochs: int = 12
     # 0: everything but the frozen backbone stages; 1: only fc_cls (BAGS
     # phase 2); 2: the whole bbox head; 3: every cascade stage's fc_cls
     # (tools/train.py:143-158)

@@ -15,7 +15,9 @@ kernel in the opposite spatial order to `torch.nn.ConvTranspose2d`).
 `utils/checkpoint.py:119-196` of the JAX package maps names the other way.
 
 The RoI features flatten H-W-C in both packages, so `shared_fc0` needs no
-permutation.
+permutation. `save_flax_checkpoint` writes the converted weights as a
+checkpoint of the train CLI's format, which `tools.test_lvis --checkpoint`,
+`--load-from` and `apis.init_detector` read.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from .utils.checkpoint import save_checkpoint
 
 
 def _conv(sd, dst, node) -> None:
@@ -134,3 +138,8 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 _conv(sd, f"{dst}.convs.{m[1]}" if m else f"{dst}.{name}", node)
 
     return _tensors(sd)
+
+
+def save_flax_checkpoint(variables: Dict[str, Any], path: str) -> None:
+    """The JAX detector's variables (numpy) -> a port checkpoint at `path`."""
+    save_checkpoint(path, {"model": params_from_flax(variables)}, meta={"converted_from": "flax variables"})

@@ -1,7 +1,8 @@
 """Group partition of the BAGS head, in numpy.
 
-A copy of JAX `gs/partition.py` (`GSPartition` :34,
-`make_partition` :58, `load_partition` :136, `synthetic_partition` :161).
+A copy of JAX `gs/partition.py` (`GSPartition` :34, `make_partition` :58,
+`partition_from_lvis` :108, `save_partition` :126, `load_partition` :136,
+`synthetic_partition` :161); the files of both packages are the same `.npz`.
 Layout (B bins, C classes incl. background label 0, L = C + B logits):
 - label2binlabel (B, C): global label -> within-bin label (0 = others/bg);
   row 0 is the {bg, fg} bin.
@@ -91,6 +92,30 @@ def make_partition(
         pred_slice=pred_slice,
         label2logit=label2logit,
         label2bin=label2bin,
+    )
+
+
+def partition_from_lvis(ann_file: str, num_classes: int = 1231, thresholds=(10, 100, 1000)) -> GSPartition:
+    """The partition of an LVIS annotation JSON, from each category's
+    `instance_count` (lvis_analyse.py:23-25), category ids mapped to 1-based
+    labels by ascending id."""
+    import json
+
+    with open(ann_file) as f:
+        cats = sorted(json.load(f)["categories"], key=lambda x: x["id"])
+    counts = np.zeros(num_classes, dtype=np.int64)
+    for i, cat in enumerate(cats):
+        counts[i + 1] = cat.get("instance_count", 0)
+    return make_partition(counts, thresholds)
+
+
+def save_partition(path: str, p: GSPartition) -> None:
+    np.savez(
+        path,
+        label2binlabel=p.label2binlabel,
+        pred_slice=p.pred_slice,
+        label2logit=p.label2logit,
+        label2bin=p.label2bin,
     )
 
 

@@ -71,13 +71,14 @@ def htc_x101_64x4d_fpn_lvis(
 
 
 # the BAGS recipe trains phase 2 with only fc_cls (bg8.py:193,198); the GS
-# cascade and the GS HTC train every stage's fc_cls (selectp=3)
+# cascade and the GS HTC train every stage's fc_cls (selectp=3); HTC runs 20
+# epochs (the _20e configs)
 TRAIN_CONFIGS = {
     "faster_rcnn_r50_fpn_lvis": TrainConfig(),
     "gs_faster_rcnn_r50_fpn_lvis": TrainConfig(selectp=1),
     "cascade_rcnn_r50_fpn_lvis": TrainConfig(),
     "gs_cascade_rcnn_r50_fpn_lvis": TrainConfig(selectp=3),
     "faster_rcnn_x101_64x4d_fpn_lvis": TrainConfig(),
-    "htc_x101_64x4d_fpn_lvis": TrainConfig(),
-    "gs_htc_x101_64x4d_fpn_lvis": TrainConfig(selectp=3),
+    "htc_x101_64x4d_fpn_lvis": TrainConfig(total_epochs=20),
+    "gs_htc_x101_64x4d_fpn_lvis": TrainConfig(selectp=3, total_epochs=20),
 }

@@ -57,7 +57,17 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    and K6 (in both layouts) on the candidates one call gave them; count the
    device kernels a call as for the cascade;
 12. run a reduced HTC-DCN (depth 50, the same widths) in f32 on a small
-   image on the card and on the CPU and compare detections and masks.
+   image on the card and on the CPU and compare detections and masks;
+13. drive the BAGS two-phase recipe through the CLIs' `main(argv)` at full
+   width (`run_flow`): an LVIS-shaped fixture of 8 JPEGs in both buckets
+   with 1230 classes, the partition, phase 1 (K4, K2 and K2b once a step),
+   phase 2 warm-started from it (only fc_cls fresh, only fc_cls moves), a
+   resume (at the saved step, with the optimizer's state), the test CLI
+   with and without --tau 0.5 (K1, K2 and K3 once a batch; the records
+   finite and inside their images) and the eval CLI (the same table); K1-K4
+   and K2 are held to their plain versions on the CLIs' inputs, and the
+   train CLI's images/s from JPEG files and the test CLI's time split are
+   printed.
 
 Between the Faster R-CNN and the cascade phases, "fused bottlenecks (K8,
 K9)": a seeded R50 (FrozenBN scales and variances in [0.5, 2]) runs once in
@@ -981,40 +991,61 @@ def run_cascade_path(torch, dev):
     return launches, model, rows
 
 
-def capture_calls(names, fn) -> dict:
-    """Run `fn` with the kernel wrappers `names` of `kernels.py` recording
-    what they are handed: {name: (args, kwargs)} of each one's last call.
-    The wrappers still run (and count their launches)."""
+def capture_calls(names, fn, module=None) -> dict:
+    """Run `fn` with the kernel wrappers `names` of `kernels.py` (or of
+    `module`) recording what they are handed: {name: (args, kwargs)} of
+    each one's last call. The wrappers still run (and count their
+    launches)."""
     from balancedgroupsoftmax_torch import kernels
 
+    module = module or kernels
     seen, wrapped = {}, {}
     for name in names:
-        fn_k = getattr(kernels, name)
+        fn_k = getattr(module, name)
 
         def record(*args, _name=name, _fn=fn_k, **kw):
             seen[_name] = (args, kw)
             return _fn(*args, **kw)
 
         wrapped[name] = fn_k
-        setattr(kernels, name, record)
+        setattr(module, name, record)
     try:
         fn()
     finally:
         for name, fn_k in wrapped.items():
-            setattr(kernels, name, fn_k)
+            setattr(module, name, fn_k)
     return seen
 
 
-def kernels_per_call(torch, fn) -> int:
-    """The device kernels one call of `fn` launches, from the profiler."""
+def capture_path(names, fn) -> dict:
+    """`capture_calls` of the kernel wrappers `names` and of the detector's
+    RoIAlign around `fn()`, whose result is under "out"."""
+    from balancedgroupsoftmax_torch.models import detector
+
+    seen = {}
+    roi = lambda: seen.update(out=fn())
+    seen.update(capture_calls(names, lambda: seen.update(capture_calls(("batched_multilevel_roi_align",), roi, detector))))
+    return seen
+
+
+def kernels_per_call(torch, fn, calls: int = 3) -> int:
+    """The device kernels one call of `fn` launches, from the profiler: the
+    most common count over `calls` profiled calls. A profiled HTC call now
+    and then comes back some 90 kernel events short (2562 against 2653-2654
+    at the same inputs on an H100), so one count is not enough."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    counts = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA))
+    if len(set(counts)) > 1:
+        log(f"  profiled kernel counts differ between calls: {counts}")
+    return max(counts, key=counts.count)
 
 
 def kernels_without_and_with_the_copy(torch, label: str, fn) -> tuple[int, int]:
@@ -1141,7 +1172,8 @@ def run_train_path(torch, model, phase2):
     batch 2, then one BAGS phase-2 step with the TrainConfig `phase2`, which
     must move the fc_cls tensors alone. Each step launches K4 once, and K2
     and K2b once a stage. Returns the launches of the selectp=0 steps and
-    what the first of them handed K4 (boxes, valid, iou_thr)."""
+    what the first of them handed K4 (boxes, valid, iou_thr) and the mean
+    ms of the timed steps."""
     from balancedgroupsoftmax_torch import cuda
     from balancedgroupsoftmax_torch.config import TrainConfig
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
@@ -1208,7 +1240,7 @@ def run_train_path(torch, model, phase2):
         raise AssertionError(f"selectp={phase2.selectp} moved {moved}")
     log(f"  selectp={phase2.selectp} step {(time.perf_counter() - t0) * 1e3:.3f} ms moved only {moved}, "
         f"loss {metrics['loss'].item():.5f}")
-    return launches, k4_inputs
+    return launches, k4_inputs, ms
 
 
 def compare_small_train(torch, model) -> None:
@@ -1906,6 +1938,209 @@ def compare_small_htc(torch, model) -> None:
         raise AssertionError("card and CPU detections or masks disagree")
 
 
+FLOW_PHASE1_STEPS = 4
+FLOW_PHASE2_STEPS = 2
+FLOW_BATCH = 2
+
+
+def run_cli(fn, argv) -> tuple:
+    """`fn(argv)` (a CLI's main) with its standard output captured and shown
+    indented: (what it returned, what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"    | {line}")
+    return out, text
+
+
+def counted(torch, fn):
+    """`fn()` with every kernel's count set to 0 just before and read just
+    after: (what it returned, {symbol: launches})."""
+    from balancedgroupsoftmax_torch import cuda
+
+    for k in cuda.KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.symbol: k.launches for k in cuda.KERNELS}
+
+
+def expect_launches(launches: dict, each: dict, calls: int, what: str) -> None:
+    for sym, n in each.items():
+        if launches[sym] != n * calls:
+            raise AssertionError(f"{sym} launched {launches[sym]} times in {calls} {what}, not {n} each")
+
+
+def check_records(records, ann: str) -> None:
+    """Finite boxes inside their images, scores in [0, 1], known classes."""
+    import json
+    import math
+
+    with open(ann) as f:
+        gt = json.load(f)
+    sizes = {i["id"]: (i["width"], i["height"]) for i in gt["images"]}
+    cats = {c["id"] for c in gt["categories"]}
+    if not records or {r["image_id"] for r in records} != set(sizes):
+        raise AssertionError(f"{len(records)} records, not covering the {len(sizes)} images")
+    for r in records:
+        x, y, w, h = r["bbox"]
+        iw, ih = sizes[r["image_id"]]
+        if not all(math.isfinite(v) for v in (x, y, w, h, r["score"])):
+            raise AssertionError(f"a record is not finite: {r}")
+        # xywh with mmdet's +1: the box's last pixel is x + w - 1 (a box
+        # clipped at the border can have w, h a rounding under 1)
+        if not (x >= 0 and y >= 0 and w > 0 and h > 0 and x + w - 1 <= iw + 1e-3 and y + h - 1 <= ih + 1e-3):
+            raise AssertionError(f"a record outside its {iw} x {ih} image: {r}")
+        if not (0 <= r["score"] <= 1 and r["category_id"] in cats):
+            raise AssertionError(f"a record's score or class is wrong: {r}")
+
+
+def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float) -> dict:
+    """The BAGS two-phase recipe through the CLIs' `main(argv)` on the card,
+    gs_faster_rcnn_r50_fpn_lvis at full width (1230 classes, bf16,
+    800 x 1344 and 1344 x 800, batch 2), on an LVIS-shaped fixture of 8 JPEGs
+    (`tools.mini_lvis` "full": both buckets, 20 boxes an image, the
+    federated fields filled in): the partition; phase 1 (selectp=0, K4, K2
+    and K2b once a step); phase 2 warm-started from it (only fc_cls fresh,
+    only fc_cls moves); a resume (restarts at the saved step with the
+    optimizer's state); the test CLI with and without --tau 0.5 (K1, K2 and
+    K3 once a batch; records finite and inside their images); the eval CLI,
+    whose table must equal the test CLI's. K1-K4 and K2 are held to their
+    plain versions again on what the CLIs handed them (the portrait bucket
+    too). Returns the flow's numbers."""
+    import math
+    import os
+    import tempfile
+
+    from balancedgroupsoftmax_torch import zoo
+    from balancedgroupsoftmax_torch.models.detector import build_model
+    from balancedgroupsoftmax_torch.parallel.train import TrainState
+    from balancedgroupsoftmax_torch.tools import eval_lvis, gs_partition, mini_lvis, test_lvis, train
+    from balancedgroupsoftmax_torch.utils.checkpoint import restore_checkpoint
+
+    numbers = {}
+    with tempfile.TemporaryDirectory() as root:
+        ann, imgs = mini_lvis.write_full_fixture(os.path.join(root, "lvis"))
+        part_path = os.path.join(root, "part.npz")
+        part, _ = run_cli(gs_partition.main, ["--ann", ann, "--out", part_path])
+        if part.num_logits != 1236 or sorted(set(part.label2bin[1:].tolist())) != [1, 2, 3, 4]:
+            raise AssertionError(f"partition: {part.num_logits} logits, bins {part.bin_sizes}")
+        common = ["--ann", ann, "--img-prefix", imgs, "--dtype", "bfloat16", "--batch-size", str(FLOW_BATCH)]
+        train_args = [*common, "--log-interval", "1", "--warmup-iters", "500"]
+
+        # phase 1, recording what the last step handed K4 and K2
+        t0 = time.perf_counter()
+        seen, launches = counted(torch, lambda: capture_path(("nms_keep_tiled",), lambda: run_cli(train.main, [
+            "--model", "faster_rcnn_r50", *train_args, "--selectp", "0", "--work-dir", os.path.join(root, "w1"),
+            "--max-steps", str(FLOW_PHASE1_STEPS)])))
+        r1 = seen["out"][0]
+        log(f"  phase 1: {FLOW_PHASE1_STEPS} steps, wall {time.perf_counter() - t0:.1f} s; launches {launches}")
+        expect_launches(launches, {"bags_nms_keep_tiled": 1, "bags_roi_align_forward": 1, "bags_roi_align_backward": 1},
+                        FLOW_PHASE1_STEPS, "phase-1 steps")
+        boxes, valid, thr = seen["nms_keep_tiled"][0]
+        if not torch.equal(ops_nms.nms_keep_tiled(boxes, valid, thr), ops_nms.nms_keep_reference(boxes, valid, thr)):
+            raise AssertionError("K4 differs from its plain version on the train CLI's boxes")
+        feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
+        k2_matches(torch, ops_roi, [f.detach() for f in feats], rois, strides, out_size, "on the train CLI's step")
+        steady = r1["log"][1:]
+        numbers["train_images_per_s"] = sum(l["imgs_per_sec"] for l in steady) / len(steady)
+        numbers["train_data_wait_s"] = sum(l["data_wait_s"] for l in steady) / len(steady)
+        log(f"  train CLI from JPEG files: {numbers['train_images_per_s']:.3f} images/s over steps 2-"
+            f"{FLOW_PHASE1_STEPS} (data wait {numbers['train_data_wait_s'] * 1e3:.3f} ms a step); the preloaded "
+            f"batch above {FLOW_BATCH / preloaded_ms * 1e3:.3f} images/s ({card_line()})")
+        losses = r1["log"][-1]
+        if not all(math.isfinite(v) for k, v in losses.items() if "loss" in k):
+            raise AssertionError(f"phase 1 loss not finite: {losses}")
+
+        # phase 2: the GS head warm-started from phase 1, only fc_cls trains
+        (r2, _), launches = counted(torch, lambda: run_cli(train.main, [
+            "--model", "gs_faster_rcnn_r50", *train_args, "--partition", part_path, "--selectp", "1",
+            "--load-from", r1["checkpoint"], "--work-dir", os.path.join(root, "w2"),
+            "--max-steps", str(FLOW_PHASE2_STEPS)]))
+        fc_cls = ["bbox_head.fc_cls.weight", "bbox_head.fc_cls.bias"]
+        if sorted(r2["fresh"]) != sorted(fc_cls):
+            raise AssertionError(f"phase 2 warm start left fresh {r2['fresh']}")
+        c1 = restore_checkpoint(r1["checkpoint"])["model"]
+        c2 = restore_checkpoint(r2["checkpoint"])["model"]
+        init = build_model(zoo.gs_faster_rcnn_r50_fpn_lvis(), partition=part).init_weights(0).state_dict()
+        moved = sorted(n for n, t in c2.items() if not torch.equal(t, c1[n] if n not in fc_cls else init[n]))
+        if moved != sorted(fc_cls):
+            raise AssertionError(f"phase 2 moved {moved}")
+        log(f"  phase 2: fresh {r2['fresh']}, moved only {moved}; launches {launches}")
+
+        # resume phase 2 from its checkpoint: step 2, the optimizer's state restored
+        ckpt2 = restore_checkpoint(r2["checkpoint"])
+        restored = []
+        load = TrainState.load_state_dict
+
+        def load_and_compare(self, state):
+            load(self, state)
+            mine = self.optimizer.state_dict()["state"]
+            saved = ckpt2["train"]["optimizer"]["state"]
+            restored.append(len(saved) > 0 and all(
+                torch.equal(mine[i]["momentum_buffer"].cpu(), saved[i]["momentum_buffer"]) for i in saved)
+                and self.generator.device.type == "cuda"
+                and torch.equal(self.generator.get_state(), ckpt2["train"]["generator"]))
+
+        TrainState.load_state_dict = load_and_compare
+        try:
+            r3, _ = run_cli(train.main, [
+                "--model", "gs_faster_rcnn_r50", *train_args, "--partition", part_path, "--selectp", "1",
+                "--resume-from", r2["checkpoint"], "--work-dir", os.path.join(root, "w3"),
+                "--max-steps", str(FLOW_PHASE2_STEPS + 1)])
+        finally:
+            TrainState.load_state_dict = load
+        if restored != [True] or r3["start_step"] != FLOW_PHASE2_STEPS or r3["state"].step != FLOW_PHASE2_STEPS + 1:
+            raise AssertionError(f"resume: restored {restored}, from step {r3['start_step']} to {r3['state'].step}")
+        log(f"  resume: restarted at step {r3['start_step']} with the momentum of {FLOW_PHASE2_STEPS} steps and "
+            f"the card's generator state, ended at {r3['state'].step}")
+        del r1, r2, c1, c2, init, ckpt2
+
+        # test, plain and tau-normalised, recording what the last batch (portrait) handed K1, K2 and K3
+        n_batches = 4
+        test_args = ["--model", "gs_faster_rcnn_r50", *common, "--partition", part_path, "--checkpoint", r3["checkpoint"]]
+        del r3
+        res = os.path.join(root, "results.json")
+        seen, launches = counted(torch, lambda: capture_path(
+            ("nms_keep_batched", "nms_keep_gathered"), lambda: run_cli(test_lvis.main, [*test_args, "--out", res])))
+        out, text = seen["out"]
+        expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 1},
+                        n_batches, "test batches")
+        boxes, valid, thr = seen["nms_keep_batched"][0]
+        if not torch.equal(ops_nms.nms_keep_batched(boxes, valid, thr), ops_nms.nms_keep_reference(boxes, valid, thr)):
+            raise AssertionError("K1 differs from its plain version on the test CLI's boxes")
+        k3_matches(torch, ops_nms, *seen["nms_keep_gathered"][0][:4], "on the test CLI's portrait batch")
+        feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
+        if feats[0].shape[1] <= feats[0].shape[2]:
+            raise AssertionError(f"the test CLI's last batch is not portrait: {tuple(feats[0].shape)}")
+        k2_matches(torch, ops_roi, feats, rois, strides, out_size, "on the test CLI's portrait batch")
+        check_records(out["records"], ann)
+        t = out["times"]
+        numbers["test"] = dict(t, images=8)
+        log(f"  test CLI: {len(out['records'])} records, launches {launches}; preprocess {t['preprocess']:.3f} s, "
+            f"predict {t['predict']:.3f} s, records {t['records']:.3f} s, evaluate {t['evaluate']:.3f} s over 8 images "
+            f"(first batch of each bucket included; {card_line()})")
+        (tau_out, _), launches = counted(torch, lambda: run_cli(test_lvis.main, [*test_args, "--tau", "0.5", "--no-eval"]))
+        expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 1},
+                        n_batches, "tau test batches")
+        check_records(tau_out["records"], ann)
+        numbers["test_tau"] = dict(tau_out["times"], images=8)
+        if tau_out["records"] == out["records"]:
+            raise AssertionError("--tau 0.5 changed no record")
+
+        ev, eval_text = run_cli(eval_lvis.main, ["--ann", ann, "--result", res])
+        table = text[text.index("bbox results:"):]
+        if eval_text.strip() != table.strip() or ev.results != out["evaluator"].results:
+            raise AssertionError("the eval CLI's table differs from the test CLI's")
+        log(f"  eval CLI: the same table as the test CLI's (AP {ev.results['AP']:.6f})")
+    return numbers
+
+
 def log_row(r: dict) -> None:
     lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
     log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
@@ -1967,7 +2202,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     train_model = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
-    train_launches, k4_inputs = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
+    train_launches, k4_inputs, train_ms = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
     k4_row = check_k4(torch, ops_nms, *k4_inputs)
     log_row(k4_row)
     rows.append(k4_row)
@@ -2016,6 +2251,11 @@ def main() -> int:
     compare_small_htc(torch, htc)
     log(f"phase small HTC-DCN predict_with_masks card vs CPU: wall {time.perf_counter() - t0:.1f} s")
     del htc
+
+    t0 = time.perf_counter()
+    flow = run_flow(torch, ops_nms, ops_roi, train_ms)
+    log(f"  flow numbers: {json.dumps(flow)}")
+    log(f"phase BAGS recipe through the CLIs: wall {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the path that runs it: the Faster R-CNN
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the

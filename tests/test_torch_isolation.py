@@ -35,6 +35,9 @@ def port_modules():
 def test_every_module_and_chip_smoke_import_without_jax():
     names = port_modules() + ["chip_smoke"]
     assert "balancedgroupsoftmax_torch.models.detector" in names
+    flow = ["data.lvis", "utils.checkpoint", "eval.results", "eval.lvis_eval", "tools.mini_lvis",
+            "tools.gs_partition", "tools.train", "tools.test_lvis", "tools.eval_lvis"]
+    assert {f"balancedgroupsoftmax_torch.{m}" for m in flow} <= set(names)
     out = subprocess.run(
         [sys.executable, "-c", IMPORT_WITHOUT_JAX, *names],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
@@ -53,7 +56,7 @@ def test_no_source_file_names_the_jax_package():
 def test_init_detector_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(apis.torch.cuda, "is_available", lambda: False)
     built = []
-    monkeypatch.setattr(apis, "build_detector", lambda *a, **k: built.append(a))
+    monkeypatch.setattr(apis, "build_model", lambda *a, **k: built.append(a))
     with pytest.raises(RuntimeError, match="CUDA"):
         apis.init_detector()
     assert not built  # refused before building anything on the CPU
