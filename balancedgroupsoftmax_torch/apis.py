@@ -107,11 +107,12 @@ def inference_detector(detector: Detector, image: np.ndarray) -> List[dict]:
 
 
 @torch.no_grad()
-def tau_norm(model: FasterRCNN, tau: float, skip_bg: bool = False) -> None:
-    """Scale each row of `bbox_head.fc_cls.weight` by 1 / ||row||^tau, in
-    place, the bias untouched (the reference's reweight_cls); with `skip_bg`
-    row 0 (background) stays as it is."""
-    w = model.bbox_head.fc_cls.weight  # (logits, in)
+def tau_norm(fc: torch.nn.Linear, tau: float, skip_bg: bool = False) -> None:
+    """Scale each row of the classifier `fc.weight` (a model's
+    `bbox_head.fc_cls`) by 1 / ||row||^tau, in place, the bias
+    untouched (the reference's reweight_cls); with `skip_bg` row 0
+    (background) stays as it is."""
+    w = fc.weight  # (logits, in)
     scale = 1.0 / w.norm(dim=1, keepdim=True).clamp_min(1e-12) ** tau
     if skip_bg:
         scale[0] = 1.0

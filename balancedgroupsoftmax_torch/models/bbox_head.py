@@ -1,9 +1,9 @@
 """Shared-FC bbox head and its losses (JAX `models/bbox_head.py`
-`SharedFCBBoxHead` :26, `bbox_reg_loss` :69, `bbox_head_loss` :91): two
-shared FCs, then fc_cls and fc_reg. The GS variant widens fc_cls to
-num_classes + num_bins logits. Regression is class-specific (4 deltas per
-class), or one set of 4 deltas with `reg_class_agnostic` (the cascade's
-stage heads).
+`SharedFCBBoxHead` :26, its `return_feature` hook :31-66, `bbox_reg_loss`
+:69, `bbox_head_loss` :91): two shared FCs, then fc_cls and fc_reg. The GS
+variant widens fc_cls to num_classes + num_bins logits. Regression is
+class-specific (4 deltas per class), or one set of 4 deltas with
+`reg_class_agnostic` (the cascade's stage heads).
 
 RoI features enter channels-last, (..., S, S, C), and flatten in H-W-C order
 as in the JAX head, so `shared_fc0` is the flax kernel transposed."""
@@ -31,11 +31,15 @@ class SharedFCBBoxHead(nn.Module):
         self.fc_cls = Linear(in_dim, num_logits)
         self.fc_reg = Linear(in_dim, 4 if cfg.reg_class_agnostic else 4 * cfg.num_classes)
 
-    def forward(self, roi_feats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(..., S, S, C) -> (cls_logits (..., L), bbox_deltas (..., 4K or 4))."""
+    def forward(self, roi_feats: torch.Tensor, return_feature: bool = False):
+        """(..., S, S, C) -> (cls_logits (..., L), bbox_deltas (..., 4K or 4));
+        with `return_feature` also the last shared FC's ReLU output, the
+        feature DCM classifies (`models/dcm.py`)."""
         x = roi_feats.flatten(-3)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
+        if return_feature:
+            return self.fc_cls(x), self.fc_reg(x), x
         return self.fc_cls(x), self.fc_reg(x)
 
 

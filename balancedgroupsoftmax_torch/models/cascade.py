@@ -29,7 +29,6 @@ from ..ops.boxes import delta2bbox
 from ..ops.losses import softmax_cross_entropy
 from .bbox_head import SharedFCBBoxHead, bbox_reg_loss
 from .detector import Detections, FasterRCNN
-from .rpn import rpn_proposals_batched
 
 
 class CascadeRCNN(FasterRCNN):
@@ -70,14 +69,15 @@ class CascadeRCNN(FasterRCNN):
     def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True, pool=None) -> Detections:
         c = self.cfg
         img_shapes = img_shapes.float()
-        proposals = rpn_proposals_batched(
-            self.rpn_head(feats), self._anchors(images), img_shapes, c.rpn_proposal_test
-        )
+        proposals = self._proposals(feats, images, img_shapes)
         rois, scores, deltas = self._run_stages(feats, proposals.boxes, img_shapes, pool)
         boxes = self._decode(rois, deltas, c.cascade.stage_target_stds[-1], img_shapes)
         if rescale:
             boxes = boxes / scale_factors.float()[:, None, None]
         return self._multiclass_nms(boxes, scores, proposals.valid)
+
+    def rescore(self, images, rois, img_shapes):
+        raise NotImplementedError("the cascade's rescore (JAX cascade.py:323) is not ported yet (ROADMAP A5)")
 
     def loss(
         self,

@@ -1,6 +1,7 @@
 """Faster R-CNN with the BAGS grouped-softmax head, inference and training
 losses (JAX `models/detector.py`: `FasterRCNN` :45, `loss` :138, `_loss_core`
-:169, `predict` :355, `build_detector` :537, `build_model` :543).
+:169, `predict` :355, `propose` :415, `rescore` :432, `build_detector` :537,
+`build_model` :543).
 
 Inference: ResNet -> FPN -> RPN proposals (K1) -> multi-level RoIAlign (K2)
 -> shared-FC head -> GS score merge -> per-class NMS (K3). Training: the RPN
@@ -210,27 +211,51 @@ class FasterRCNN(nn.Module):
         return self._predict_feats(self.extract_feats(images), images, img_shapes, scale_factors, rescale)
 
     def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True) -> Detections:
-        c = self.cfg
         img_shapes = img_shapes.float()
-        proposals = rpn_proposals_batched(
-            self.rpn_head(feats), self._anchors(images), img_shapes, c.rpn_proposal_test
+        proposals = self._proposals(feats, images, img_shapes)
+        boxes, scores = self._score_rois(feats, proposals.boxes, img_shapes)
+        if rescale:
+            boxes = boxes / scale_factors.float()[:, None, None]
+        return self._multiclass_nms(boxes, scores, proposals.valid)
+
+    def _proposals(self, feats, images, img_shapes):
+        """The test-time RPN's proposals (K1), in the input's frame."""
+        return rpn_proposals_batched(
+            self.rpn_head(feats), self._anchors(images), img_shapes, self.cfg.rpn_proposal_test
         )
-        cls_logits, bbox_deltas = self._bbox_forward(feats, proposals.boxes)
-        b, r = proposals.valid.shape
+
+    def _score_rois(self, feats, rois, img_shapes):
+        """The bbox head on rois (B, P, 4) (K2): (boxes (B, P, C * 4) decoded
+        and clipped to `img_shapes`, scores (B, P, C) from the GS merge or a
+        softmax)."""
+        c = self.cfg
+        cls_logits, bbox_deltas = self._bbox_forward(feats, rois)
+        b, r = rois.shape[:2]
         if c.bbox_head.use_gs:
             scores = gs_merge_scores(cls_logits.reshape(b * r, -1), self.partition).reshape(b, r, -1)
         else:
             scores = torch.softmax(cls_logits.float(), dim=-1)
         boxes = delta2bbox(
-            proposals.boxes,
+            rois,
             bbox_deltas.float(),
             c.bbox_head.target_means,
             c.bbox_head.target_stds,
             max_shape=(img_shapes[:, 0, None, None], img_shapes[:, 1, None, None]),
         )
-        if rescale:
-            boxes = boxes / scale_factors.float()[:, None, None]
-        return self._multiclass_nms(boxes, scores, proposals.valid)
+        return boxes, scores
+
+    @torch.inference_mode()
+    def propose(self, images: torch.Tensor, img_shapes: torch.Tensor):
+        """The RPN's proposals for one test view, in the view's frame (JAX
+        `detector.py:415`): `Proposals` (boxes (B, P, 4), scores, valid)."""
+        return self._proposals(self.extract_feats(images), images, img_shapes.float())
+
+    @torch.inference_mode()
+    def rescore(self, images: torch.Tensor, rois: torch.Tensor, img_shapes: torch.Tensor):
+        """A fixed proposal set scored on this view's features (JAX
+        `detector.py:432`): (boxes (B, P, C * 4) in the view's frame, not
+        rescaled, scores (B, P, C))."""
+        return self._score_rois(self.extract_feats(images), rois, img_shapes.float())
 
     def _multiclass_nms(self, boxes, scores, valid) -> Detections:
         t = self.cfg.rcnn_test

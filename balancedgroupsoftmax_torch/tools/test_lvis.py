@@ -8,22 +8,27 @@ records and score them with the federated evaluator (JAX tools/test_lvis.py
 
 Images are preprocessed in order and batched per bucket; a bucket's last
 batch is filled up by repeating its last image, whose detections are
-dropped. `--tau` tau-normalises the classifier first (`apis.tau_norm`). It
-prints the time split into preprocessing, prediction (with the copies to
-and from the card) and evaluation, then the evaluator's table. It runs on the
-card unless `--device cpu` is given.
+dropped. `--tau` tau-normalises the classifier first (`apis.tau_norm`).
+`--tau-select TAU` runs tau-norm-select (JAX :192-256): a copy of the
+classifier, tau-normalised with TAU but for its background row, rescores the
+same proposals, and takes a RoI's score row where its class has fewer than
+`--tail-threshold` training instances (`models/dual_head.py`). It prints the
+time split into preprocessing, prediction (with the copies to and from the
+card) and evaluation, then the evaluator's table. It runs on the card unless
+`--device cpu` is given.
 
 Not ported here: test-time augmentation (`--flip-aug`, `--aug-scales`,
-`--aug-rescore`, ROADMAP A5), `--tau-select` and the dual head (A7),
-`--distributed` (A6), and mask results (A4).
+`--aug-rescore`, ROADMAP A5), `--distributed` (A6), and mask results (A4).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import functools
 import json
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +39,8 @@ from ..data.pipeline import PipelineConfig, preprocess_image_file
 from ..eval.lvis_eval import LvisEvaluator
 from ..eval.results import detections_to_records, write_results_json
 from ..gs.partition import load_partition
-from ..models.detector import build_model
+from ..models.detector import Detections, FasterRCNN, build_model
+from ..models.dual_head import tail_class_mask_from_counts, update_scores_with_reweight
 from ..utils.checkpoint import restore_checkpoint
 
 
@@ -47,6 +53,11 @@ def parse_args(argv=None):
     p.add_argument("--partition", default=None)
     p.add_argument("--out", default=None, help="write the result records here (json)")
     p.add_argument("--tau", type=float, default=None, help="tau-normalise fc_cls rows by 1 / ||w||^tau")
+    p.add_argument("--tau-select", type=float, default=None,
+                   help="tau-norm-select: score with fc_cls and a copy tau-normalised by this tau (background row "
+                        "kept), and take a RoI's row from the copy where its class is a tail class")
+    p.add_argument("--tail-threshold", type=int, default=100,
+                   help="tau-select's tail classes: fewer training instances than this (instance_count)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32", help="compute dtype")
     p.add_argument("--scale", type=int, nargs=2, default=None, metavar=("LONG", "SHORT"),
                    help="keep-ratio resize target (1333 800); the one the checkpoint was trained at")
@@ -85,19 +96,41 @@ def bucket_batches(
             yield flush(bucket)
 
 
+@torch.inference_mode()
+def predict_tau_select(
+    model: FasterRCNN, back_cls: torch.nn.Linear, tail_mask: torch.Tensor,
+    images: torch.Tensor, img_shapes: torch.Tensor, scale_factors: torch.Tensor,
+) -> Detections:
+    """One batch of tau-norm-select: `propose` (K1), `rescore` with the
+    model's fc_cls and again with `back_cls` (K2 each), each image's rows
+    chosen by `update_scores_with_reweight`, the boxes rescaled, then the
+    multiclass NMS (K3)."""
+    proposals = model.propose(images, img_shapes)
+    boxes, scores_main = model.rescore(images, proposals.boxes, img_shapes)
+    main_cls, model.bbox_head.fc_cls = model.bbox_head.fc_cls, back_cls
+    try:
+        _, scores_back = model.rescore(images, proposals.boxes, img_shapes)
+    finally:
+        model.bbox_head.fc_cls = main_cls
+    scores = update_scores_with_reweight(scores_main, scores_back, tail_mask)
+    return model._multiclass_nms(boxes / scale_factors.float()[:, None, None], scores, proposals.valid)
+
+
 def infer_dataset(
-    model, ds: LvisDataset, pcfg: PipelineConfig, batch_size: int, limit: Optional[int] = None
+    model, ds: LvisDataset, pcfg: PipelineConfig, batch_size: int, limit: Optional[int] = None,
+    predict: Optional[Callable[..., Detections]] = None,
 ) -> Tuple[List[dict], Dict[str, float]]:
-    """`model.predict` over the dataset's first `limit` images (all by
-    default) on the model's device -> (result records, seconds spent in
-    "preprocess", "predict" and "records")."""
+    """`predict` (`model.predict` by default) over the dataset's first
+    `limit` images (all by default) on the model's device -> (result
+    records, seconds spent in "preprocess", "predict" and "records")."""
     device = next(model.parameters()).device
+    predict = predict or model.predict
     n = min(len(ds), limit or len(ds))
     times = dict(preprocess=0.0, predict=0.0, records=0.0)
     records: List[dict] = []
     for idxs, batch in bucket_batches(ds, pcfg, batch_size, n, times):
         t0 = time.perf_counter()
-        dets = model.predict(*(torch.from_numpy(batch[k]).to(device) for k in ("image", "img_shape", "scale_factor")))
+        dets = predict(*(torch.from_numpy(batch[k]).to(device) for k in ("image", "img_shape", "scale_factor")))
         boxes, scores, labels, valid = (t.cpu().numpy() for t in dets)
         t1 = time.perf_counter()
         for bi, idx in enumerate(idxs):
@@ -140,12 +173,24 @@ def main(argv=None) -> dict:
     model = build_model(det_cfg, partition=partition, dtype=getattr(torch, args.dtype))
     model.load_state_dict(restore_checkpoint(args.checkpoint)["model"])
     if args.tau is not None:
-        tau_norm(model, args.tau)
+        tau_norm(model.bbox_head.fc_cls, args.tau)
     model.to(device).eval()
+    predict = None
+    if args.tau_select is not None:
+        if not hasattr(model, "bbox_head"):
+            raise SystemExit(f"--tau-select needs a Faster R-CNN model, not {args.model}")
+        # tau_norm works in place: the copy alone is normalised
+        back_cls = copy.deepcopy(model.bbox_head.fc_cls)
+        tau_norm(back_cls, args.tau_select, skip_bg=True)
+        tail = tail_class_mask_from_counts(ds.instance_counts(), args.tail_threshold)
+        print(f"tau-select tau={args.tau_select}: {int(tail.sum())}/{num_classes - 1} tail classes "
+              f"(< {args.tail_threshold} instances)")
+        tail_mask = torch.from_numpy(tail).to(device)
+        predict = functools.partial(predict_tau_select, model, back_cls, tail_mask)
 
     n = min(len(ds), args.limit or len(ds))
     t0 = time.perf_counter()
-    records, times = infer_dataset(model, ds, pcfg, args.batch_size, n)
+    records, times = infer_dataset(model, ds, pcfg, args.batch_size, n, predict)
     wall = time.perf_counter() - t0
     print(f"inference done: {n} images in {wall:.3f} s ({n / wall:.3f} img/s): preprocess "
           f"{times['preprocess']:.3f} s, predict {times['predict']:.3f} s, records {times['records']:.3f} s")

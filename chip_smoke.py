@@ -67,7 +67,22 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    finite and inside their images) and the eval CLI (the same table); K1-K4
    and K2 are held to their plain versions on the CLIs' inputs, and the
    train CLI's images/s from JPEG files and the test CLI's time split are
-   printed.
+   printed;
+14. the BAGS ablation (`run_ablation`): a long-tailed fixture from
+   `tools.make_longtail` (120 train images and the injected tail ones, 24
+   val, 320 x 320, 48 classes) and its 4-bin partition, then
+   `tools.run_longtail_ablation.main` on the card (2 epochs, batch 8,
+   bf16), which calls the train and test CLIs' `main(argv)` in this
+   process, each row's launches counted (a training step K4, K2 and, but
+   at selectp 1, K2b once; a test batch K1 and K3 once and K2 once, twice
+   for tnorm-select): all seven rows in [0, 100], RFS upsampling some
+   image, the GS checkpoint differing from the baseline's in fc_cls alone;
+   K4, K2 and K2b held to their plain versions on the baseline's last
+   training step, and K1, K2 and K3 on tnorm-select's last batch (the
+   "/ablation-train" and "/tnorm-select" rows of the kernels line); then
+   `test_lvis_tnorm --taus 0.0 1.0` on the flow's fixture and final
+   checkpoint (K2 once an (800, 1344) image; the per-bin counts sum to those
+   images' boxes, at most 64 an image).
 
 Between the Faster R-CNN and the cascade phases, "fused bottlenecks (K8,
 K9)": a seeded R50 (FrozenBN scales and variances in [0.5, 2]) runs once in
@@ -107,6 +122,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -223,13 +239,13 @@ def check_k1_ties(torch, ops_nms, dev) -> None:
         f" ms, bound {b_ms:.5f} ms")
 
 
-def check_k1(torch, ops_nms, boxes, valid, thr, path="Faster"):
-    """K1 on the boxes and validity a predict handed the RPN's NMS."""
+def check_k1(torch, ops_nms, boxes, valid, thr, path="Faster predict"):
+    """K1 on the boxes and validity the `path` handed the RPN's NMS."""
     keep = ops_nms.nms_keep_batched(boxes, valid, thr)
     ref = ops_nms.nms_keep_reference(boxes, valid, thr)
     torch.cuda.synchronize()
     if not torch.equal(keep, ref):
-        raise AssertionError(f"K1 keep on the {path} predict's data differs in {(keep != ref).sum().item()} slots")
+        raise AssertionError(f"K1 keep on the {path}'s data differs in {(keep != ref).sum().item()} slots")
     g, k = valid.shape
     b_ms, b_by = bound(boxes.numel() * 4 + valid.numel() * 2, valid_pairs(valid) * IOU_OPS)
     return dict(
@@ -504,6 +520,26 @@ def k2_matches(torch, ops_roi, feats, rois, strides, out_size, label) -> float:
     return err
 
 
+def k2_row(torch, ops_roi, feats, rois, strides, out_size, name, label):
+    """K2 held to its plain version on `feats` and `rois`, and timed: a
+    kernels-line row named `name`."""
+    err = k2_matches(torch, ops_roi, feats, rois, strides, out_size, label)
+    b_ms, b_by = k2_bound(torch, ops_roi, feats, rois, strides, out_size)
+    return dict(
+        name=name,
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/roi_align.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/roi_align.py:511",
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: ops_roi.multilevel_roi_align(feats, rois, strides, out_size), 20),
+        plain_ms=cuda_time_ms(lambda: ops_roi.multilevel_roi_align_reference(feats, rois, strides, out_size), 3),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+        shape=f"B={rois.shape[0]} R={rois.shape[1]} S={out_size} C={feats[0].shape[-1]} {feats[0].dtype}",
+    )
+
+
 def roi_edges(torch, dev, gen, c=256):
     """K2's and K2b's edge cases on a 256 x 384 image, batch 2: name ->
     (features (f32) per level, rois, strides, out_size). S = 14; a one-level
@@ -572,25 +608,10 @@ def check_k2(torch, ops_roi, dev):
     gen = torch.Generator().manual_seed(2)
     rois = main_rois(torch, dev, gen)
     strides = (4, 8, 16, 32)
-    results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        feats = pyramid(torch, dtype, dev, gen)
-        results[dtype] = (feats, k2_matches(torch, ops_roi, feats, rois, strides, 7, f"{dtype}"))
-    feats, err = results[torch.bfloat16]
-    b_ms, b_by = k2_bound(torch, ops_roi, feats, rois, strides, 7)
-    row = dict(
-        name="roi_align_forward",
-        route="cuda",
-        source="balancedgroupsoftmax_torch/csrc/roi_align.cu",
-        replaces="balancedgroupsoftmax_tpu/pallas/roi_align.py:511",
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda: ops_roi.multilevel_roi_align(feats, rois, strides), 20),
-        plain_ms=cuda_time_ms(lambda: ops_roi.multilevel_roi_align_reference(feats, rois, strides), 3),
-        bound_ms=b_ms,
-        bound_by=b_by,
-        library_ms=None,
-        shape=f"B={MAIN_BATCH} R=1000 S=7 C=256 bf16, f32 err {results[torch.float32][1]:.3e}",
-    )
+    f32_err = k2_matches(torch, ops_roi, pyramid(torch, torch.float32, dev, gen), rois, strides, 7, f"{torch.float32}")
+    feats = pyramid(torch, torch.bfloat16, dev, gen)
+    row = k2_row(torch, ops_roi, feats, rois, strides, 7, "roi_align_forward", f"{torch.bfloat16}")
+    row["shape"] += f", f32 err {f32_err:.3e}"
 
     h, w = MAIN_SIZE
     semantic = [torch.randn(MAIN_BATCH, -(-h // 8), -(-w // 8), 256, generator=gen).to(dev, torch.bfloat16)]
@@ -705,9 +726,9 @@ def k3_bound(planes, idx, valid) -> tuple[float, str]:
     return bound(g * k * 4 * 4 + idx.numel() * 4 + valid.numel() * 2 + g * 4 * k * 4, valid_pairs(valid) * IOU_OPS)
 
 
-def check_k3(torch, ops_nms, planes, idx, valid, thr):
-    """K3 on what the Faster predict's multiclass NMS handed it."""
-    keep = k3_matches(torch, ops_nms, planes, idx, valid, thr, "on the Faster predict's data")
+def check_k3(torch, ops_nms, planes, idx, valid, thr, path="Faster predict"):
+    """K3 on what the `path`'s multiclass NMS handed it."""
+    keep = k3_matches(torch, ops_nms, planes, idx, valid, thr, f"on the {path}'s data")
     g, k = valid.shape
     b_ms, b_by = k3_bound(planes, idx, valid)
     return dict(
@@ -980,7 +1001,7 @@ def run_cascade_path(torch, dev):
     # record what the RPN's NMS hands K1 and the class-agnostic multiclass NMS K6 and K5
     seen = capture_calls(("nms_keep_batched", "gather_lanes", "nms_keep_batched_coords"),
                          lambda: model.predict(*inputs))
-    k1 = check_k1(torch, ops_nms, *seen["nms_keep_batched"][0], path="cascade")
+    k1 = check_k1(torch, ops_nms, *seen["nms_keep_batched"][0], path="cascade predict")
     log(f"  K1 on the cascade's RPN boxes ({k1['shape']}): equal to the plain version, kernel {k1['ms']:.4f} ms")
     (boxes, idx), kw6 = seen["gather_lanes"]
     (coords, valid, thr), _ = seen["nms_keep_batched_coords"]
@@ -2000,7 +2021,7 @@ def check_records(records, ann: str) -> None:
             raise AssertionError(f"a record's score or class is wrong: {r}")
 
 
-def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float) -> dict:
+def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
     """The BAGS two-phase recipe through the CLIs' `main(argv)` on the card,
     gs_faster_rcnn_r50_fpn_lvis at full width (1230 classes, bf16,
     800 x 1344 and 1344 x 800, batch 2), on an LVIS-shaped fixture of 8 JPEGs
@@ -2012,10 +2033,10 @@ def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float) -> dict:
     K3 once a batch; records finite and inside their images); the eval CLI,
     whose table must equal the test CLI's. K1-K4 and K2 are held to their
     plain versions again on what the CLIs handed them (the portrait bucket
-    too). Returns the flow's numbers."""
+    too). The fixture, partition and checkpoints stay in `root`. Returns the
+    flow's numbers."""
     import math
     import os
-    import tempfile
 
     from balancedgroupsoftmax_torch import zoo
     from balancedgroupsoftmax_torch.models.detector import build_model
@@ -2024,121 +2045,302 @@ def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float) -> dict:
     from balancedgroupsoftmax_torch.utils.checkpoint import restore_checkpoint
 
     numbers = {}
-    with tempfile.TemporaryDirectory() as root:
-        ann, imgs = mini_lvis.write_full_fixture(os.path.join(root, "lvis"))
-        part_path = os.path.join(root, "part.npz")
-        part, _ = run_cli(gs_partition.main, ["--ann", ann, "--out", part_path])
-        if part.num_logits != 1236 or sorted(set(part.label2bin[1:].tolist())) != [1, 2, 3, 4]:
-            raise AssertionError(f"partition: {part.num_logits} logits, bins {part.bin_sizes}")
-        common = ["--ann", ann, "--img-prefix", imgs, "--dtype", "bfloat16", "--batch-size", str(FLOW_BATCH)]
-        train_args = [*common, "--log-interval", "1", "--warmup-iters", "500"]
+    ann, imgs = mini_lvis.write_full_fixture(os.path.join(root, "lvis"))
+    part_path = os.path.join(root, "part.npz")
+    part, _ = run_cli(gs_partition.main, ["--ann", ann, "--out", part_path])
+    if part.num_logits != 1236 or sorted(set(part.label2bin[1:].tolist())) != [1, 2, 3, 4]:
+        raise AssertionError(f"partition: {part.num_logits} logits, bins {part.bin_sizes}")
+    common = ["--ann", ann, "--img-prefix", imgs, "--dtype", "bfloat16", "--batch-size", str(FLOW_BATCH)]
+    train_args = [*common, "--log-interval", "1", "--warmup-iters", "500"]
 
-        # phase 1, recording what the last step handed K4 and K2
-        t0 = time.perf_counter()
-        seen, launches = counted(torch, lambda: capture_path(("nms_keep_tiled",), lambda: run_cli(train.main, [
-            "--model", "faster_rcnn_r50", *train_args, "--selectp", "0", "--work-dir", os.path.join(root, "w1"),
-            "--max-steps", str(FLOW_PHASE1_STEPS)])))
-        r1 = seen["out"][0]
-        log(f"  phase 1: {FLOW_PHASE1_STEPS} steps, wall {time.perf_counter() - t0:.1f} s; launches {launches}")
-        expect_launches(launches, {"bags_nms_keep_tiled": 1, "bags_roi_align_forward": 1, "bags_roi_align_backward": 1},
-                        FLOW_PHASE1_STEPS, "phase-1 steps")
-        boxes, valid, thr = seen["nms_keep_tiled"][0]
-        if not torch.equal(ops_nms.nms_keep_tiled(boxes, valid, thr), ops_nms.nms_keep_reference(boxes, valid, thr)):
-            raise AssertionError("K4 differs from its plain version on the train CLI's boxes")
-        feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
-        k2_matches(torch, ops_roi, [f.detach() for f in feats], rois, strides, out_size, "on the train CLI's step")
-        steady = r1["log"][1:]
-        numbers["train_images_per_s"] = sum(l["imgs_per_sec"] for l in steady) / len(steady)
-        numbers["train_data_wait_s"] = sum(l["data_wait_s"] for l in steady) / len(steady)
-        log(f"  train CLI from JPEG files: {numbers['train_images_per_s']:.3f} images/s over steps 2-"
-            f"{FLOW_PHASE1_STEPS} (data wait {numbers['train_data_wait_s'] * 1e3:.3f} ms a step); the preloaded "
-            f"batch above {FLOW_BATCH / preloaded_ms * 1e3:.3f} images/s ({card_line()})")
-        losses = r1["log"][-1]
-        if not all(math.isfinite(v) for k, v in losses.items() if "loss" in k):
-            raise AssertionError(f"phase 1 loss not finite: {losses}")
+    # phase 1, recording what the last step handed K4 and K2
+    t0 = time.perf_counter()
+    seen, launches = counted(torch, lambda: capture_path(("nms_keep_tiled",), lambda: run_cli(train.main, [
+        "--model", "faster_rcnn_r50", *train_args, "--selectp", "0", "--work-dir", os.path.join(root, "w1"),
+        "--max-steps", str(FLOW_PHASE1_STEPS)])))
+    r1 = seen["out"][0]
+    log(f"  phase 1: {FLOW_PHASE1_STEPS} steps, wall {time.perf_counter() - t0:.1f} s; launches {launches}")
+    expect_launches(launches, {"bags_nms_keep_tiled": 1, "bags_roi_align_forward": 1, "bags_roi_align_backward": 1},
+                    FLOW_PHASE1_STEPS, "phase-1 steps")
+    boxes, valid, thr = seen["nms_keep_tiled"][0]
+    if not torch.equal(ops_nms.nms_keep_tiled(boxes, valid, thr), ops_nms.nms_keep_reference(boxes, valid, thr)):
+        raise AssertionError("K4 differs from its plain version on the train CLI's boxes")
+    feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
+    k2_matches(torch, ops_roi, [f.detach() for f in feats], rois, strides, out_size, "on the train CLI's step")
+    steady = r1["log"][1:]
+    numbers["train_images_per_s"] = sum(l["imgs_per_sec"] for l in steady) / len(steady)
+    numbers["train_data_wait_s"] = sum(l["data_wait_s"] for l in steady) / len(steady)
+    log(f"  train CLI from JPEG files: {numbers['train_images_per_s']:.3f} images/s over steps 2-"
+        f"{FLOW_PHASE1_STEPS} (data wait {numbers['train_data_wait_s'] * 1e3:.3f} ms a step); the preloaded "
+        f"batch above {FLOW_BATCH / preloaded_ms * 1e3:.3f} images/s ({card_line()})")
+    losses = r1["log"][-1]
+    if not all(math.isfinite(v) for k, v in losses.items() if "loss" in k):
+        raise AssertionError(f"phase 1 loss not finite: {losses}")
 
-        # phase 2: the GS head warm-started from phase 1, only fc_cls trains
-        (r2, _), launches = counted(torch, lambda: run_cli(train.main, [
+    # phase 2: the GS head warm-started from phase 1, only fc_cls trains
+    (r2, _), launches = counted(torch, lambda: run_cli(train.main, [
+        "--model", "gs_faster_rcnn_r50", *train_args, "--partition", part_path, "--selectp", "1",
+        "--load-from", r1["checkpoint"], "--work-dir", os.path.join(root, "w2"),
+        "--max-steps", str(FLOW_PHASE2_STEPS)]))
+    fc_cls = ["bbox_head.fc_cls.weight", "bbox_head.fc_cls.bias"]
+    if sorted(r2["fresh"]) != sorted(fc_cls):
+        raise AssertionError(f"phase 2 warm start left fresh {r2['fresh']}")
+    c1 = restore_checkpoint(r1["checkpoint"])["model"]
+    c2 = restore_checkpoint(r2["checkpoint"])["model"]
+    init = build_model(zoo.gs_faster_rcnn_r50_fpn_lvis(), partition=part).init_weights(0).state_dict()
+    moved = sorted(n for n, t in c2.items() if not torch.equal(t, c1[n] if n not in fc_cls else init[n]))
+    if moved != sorted(fc_cls):
+        raise AssertionError(f"phase 2 moved {moved}")
+    log(f"  phase 2: fresh {r2['fresh']}, moved only {moved}; launches {launches}")
+
+    # resume phase 2 from its checkpoint: step 2, the optimizer's state restored
+    ckpt2 = restore_checkpoint(r2["checkpoint"])
+    restored = []
+    load = TrainState.load_state_dict
+
+    def load_and_compare(self, state):
+        load(self, state)
+        mine = self.optimizer.state_dict()["state"]
+        saved = ckpt2["train"]["optimizer"]["state"]
+        restored.append(len(saved) > 0 and all(
+            torch.equal(mine[i]["momentum_buffer"].cpu(), saved[i]["momentum_buffer"]) for i in saved)
+            and self.generator.device.type == "cuda"
+            and torch.equal(self.generator.get_state(), ckpt2["train"]["generator"]))
+
+    TrainState.load_state_dict = load_and_compare
+    try:
+        r3, _ = run_cli(train.main, [
             "--model", "gs_faster_rcnn_r50", *train_args, "--partition", part_path, "--selectp", "1",
-            "--load-from", r1["checkpoint"], "--work-dir", os.path.join(root, "w2"),
-            "--max-steps", str(FLOW_PHASE2_STEPS)]))
-        fc_cls = ["bbox_head.fc_cls.weight", "bbox_head.fc_cls.bias"]
-        if sorted(r2["fresh"]) != sorted(fc_cls):
-            raise AssertionError(f"phase 2 warm start left fresh {r2['fresh']}")
-        c1 = restore_checkpoint(r1["checkpoint"])["model"]
-        c2 = restore_checkpoint(r2["checkpoint"])["model"]
-        init = build_model(zoo.gs_faster_rcnn_r50_fpn_lvis(), partition=part).init_weights(0).state_dict()
-        moved = sorted(n for n, t in c2.items() if not torch.equal(t, c1[n] if n not in fc_cls else init[n]))
-        if moved != sorted(fc_cls):
-            raise AssertionError(f"phase 2 moved {moved}")
-        log(f"  phase 2: fresh {r2['fresh']}, moved only {moved}; launches {launches}")
+            "--resume-from", r2["checkpoint"], "--work-dir", os.path.join(root, "w3"),
+            "--max-steps", str(FLOW_PHASE2_STEPS + 1)])
+    finally:
+        TrainState.load_state_dict = load
+    if restored != [True] or r3["start_step"] != FLOW_PHASE2_STEPS or r3["state"].step != FLOW_PHASE2_STEPS + 1:
+        raise AssertionError(f"resume: restored {restored}, from step {r3['start_step']} to {r3['state'].step}")
+    log(f"  resume: restarted at step {r3['start_step']} with the momentum of {FLOW_PHASE2_STEPS} steps and "
+        f"the card's generator state, ended at {r3['state'].step}")
+    del r1, r2, c1, c2, init, ckpt2
 
-        # resume phase 2 from its checkpoint: step 2, the optimizer's state restored
-        ckpt2 = restore_checkpoint(r2["checkpoint"])
-        restored = []
-        load = TrainState.load_state_dict
+    # test, plain and tau-normalised, recording what the last batch (portrait) handed K1, K2 and K3
+    n_batches = 4
+    test_args = ["--model", "gs_faster_rcnn_r50", *common, "--partition", part_path, "--checkpoint", r3["checkpoint"]]
+    numbers["checkpoint"] = r3["checkpoint"]
+    del r3
+    res = os.path.join(root, "results.json")
+    seen, launches = counted(torch, lambda: capture_path(
+        ("nms_keep_batched", "nms_keep_gathered"), lambda: run_cli(test_lvis.main, [*test_args, "--out", res])))
+    out, text = seen["out"]
+    expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 1},
+                    n_batches, "test batches")
+    boxes, valid, thr = seen["nms_keep_batched"][0]
+    if not torch.equal(ops_nms.nms_keep_batched(boxes, valid, thr), ops_nms.nms_keep_reference(boxes, valid, thr)):
+        raise AssertionError("K1 differs from its plain version on the test CLI's boxes")
+    k3_matches(torch, ops_nms, *seen["nms_keep_gathered"][0][:4], "on the test CLI's portrait batch")
+    feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
+    if feats[0].shape[1] <= feats[0].shape[2]:
+        raise AssertionError(f"the test CLI's last batch is not portrait: {tuple(feats[0].shape)}")
+    k2_matches(torch, ops_roi, feats, rois, strides, out_size, "on the test CLI's portrait batch")
+    check_records(out["records"], ann)
+    t = out["times"]
+    numbers["test"] = dict(t, images=8)
+    log(f"  test CLI: {len(out['records'])} records, launches {launches}; preprocess {t['preprocess']:.3f} s, "
+        f"predict {t['predict']:.3f} s, records {t['records']:.3f} s, evaluate {t['evaluate']:.3f} s over 8 images "
+        f"(first batch of each bucket included; {card_line()})")
+    (tau_out, _), launches = counted(torch, lambda: run_cli(test_lvis.main, [*test_args, "--tau", "0.5", "--no-eval"]))
+    expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 1},
+                    n_batches, "tau test batches")
+    check_records(tau_out["records"], ann)
+    numbers["test_tau"] = dict(tau_out["times"], images=8)
+    if tau_out["records"] == out["records"]:
+        raise AssertionError("--tau 0.5 changed no record")
 
-        def load_and_compare(self, state):
-            load(self, state)
-            mine = self.optimizer.state_dict()["state"]
-            saved = ckpt2["train"]["optimizer"]["state"]
-            restored.append(len(saved) > 0 and all(
-                torch.equal(mine[i]["momentum_buffer"].cpu(), saved[i]["momentum_buffer"]) for i in saved)
-                and self.generator.device.type == "cuda"
-                and torch.equal(self.generator.get_state(), ckpt2["train"]["generator"]))
-
-        TrainState.load_state_dict = load_and_compare
-        try:
-            r3, _ = run_cli(train.main, [
-                "--model", "gs_faster_rcnn_r50", *train_args, "--partition", part_path, "--selectp", "1",
-                "--resume-from", r2["checkpoint"], "--work-dir", os.path.join(root, "w3"),
-                "--max-steps", str(FLOW_PHASE2_STEPS + 1)])
-        finally:
-            TrainState.load_state_dict = load
-        if restored != [True] or r3["start_step"] != FLOW_PHASE2_STEPS or r3["state"].step != FLOW_PHASE2_STEPS + 1:
-            raise AssertionError(f"resume: restored {restored}, from step {r3['start_step']} to {r3['state'].step}")
-        log(f"  resume: restarted at step {r3['start_step']} with the momentum of {FLOW_PHASE2_STEPS} steps and "
-            f"the card's generator state, ended at {r3['state'].step}")
-        del r1, r2, c1, c2, init, ckpt2
-
-        # test, plain and tau-normalised, recording what the last batch (portrait) handed K1, K2 and K3
-        n_batches = 4
-        test_args = ["--model", "gs_faster_rcnn_r50", *common, "--partition", part_path, "--checkpoint", r3["checkpoint"]]
-        del r3
-        res = os.path.join(root, "results.json")
-        seen, launches = counted(torch, lambda: capture_path(
-            ("nms_keep_batched", "nms_keep_gathered"), lambda: run_cli(test_lvis.main, [*test_args, "--out", res])))
-        out, text = seen["out"]
-        expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 1},
-                        n_batches, "test batches")
-        boxes, valid, thr = seen["nms_keep_batched"][0]
-        if not torch.equal(ops_nms.nms_keep_batched(boxes, valid, thr), ops_nms.nms_keep_reference(boxes, valid, thr)):
-            raise AssertionError("K1 differs from its plain version on the test CLI's boxes")
-        k3_matches(torch, ops_nms, *seen["nms_keep_gathered"][0][:4], "on the test CLI's portrait batch")
-        feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
-        if feats[0].shape[1] <= feats[0].shape[2]:
-            raise AssertionError(f"the test CLI's last batch is not portrait: {tuple(feats[0].shape)}")
-        k2_matches(torch, ops_roi, feats, rois, strides, out_size, "on the test CLI's portrait batch")
-        check_records(out["records"], ann)
-        t = out["times"]
-        numbers["test"] = dict(t, images=8)
-        log(f"  test CLI: {len(out['records'])} records, launches {launches}; preprocess {t['preprocess']:.3f} s, "
-            f"predict {t['predict']:.3f} s, records {t['records']:.3f} s, evaluate {t['evaluate']:.3f} s over 8 images "
-            f"(first batch of each bucket included; {card_line()})")
-        (tau_out, _), launches = counted(torch, lambda: run_cli(test_lvis.main, [*test_args, "--tau", "0.5", "--no-eval"]))
-        expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 1},
-                        n_batches, "tau test batches")
-        check_records(tau_out["records"], ann)
-        numbers["test_tau"] = dict(tau_out["times"], images=8)
-        if tau_out["records"] == out["records"]:
-            raise AssertionError("--tau 0.5 changed no record")
-
-        ev, eval_text = run_cli(eval_lvis.main, ["--ann", ann, "--result", res])
-        table = text[text.index("bbox results:"):]
-        if eval_text.strip() != table.strip() or ev.results != out["evaluator"].results:
-            raise AssertionError("the eval CLI's table differs from the test CLI's")
-        log(f"  eval CLI: the same table as the test CLI's (AP {ev.results['AP']:.6f})")
+    ev, eval_text = run_cli(eval_lvis.main, ["--ann", ann, "--result", res])
+    table = text[text.index("bbox results:"):]
+    if eval_text.strip() != table.strip() or ev.results != out["evaluator"].results:
+        raise AssertionError("the eval CLI's table differs from the test CLI's")
+    log(f"  eval CLI: the same table as the test CLI's (AP {ev.results['AP']:.6f})")
     return numbers
+
+
+ABLATION_ROWS = ("baseline", "tau=0.5", "tau=0.7", "tau=1.0", "tnorm-select=1.0", "gs (BAGS)", "rfs")
+ABLATION_TRAIN_IMAGES = 120  # with the injected tail images, 132: a class in over 100 images, so APf is defined
+ABLATION_VAL_IMAGES = 24
+ABLATION_BATCH = 8
+ABLATION_EPOCHS = 2
+TNORM_TAUS = ("0.0", "1.0")
+TNORM_MAX_ROIS = 64
+
+
+def k2b_row(torch, ops_roi, grad, rois, shapes, strides, out_size, dtype, levels, name, label):
+    """K2b held to its plain version on `grad` and `rois`, and timed: a
+    kernels-line row named `name`."""
+    err = k2b_matches(torch, ops_roi, grad, rois, shapes, strides, out_size, dtype, label, levels)
+    b, r = rois.shape[:2]
+    c = grad.shape[-1]
+    out_bytes = b * sum(h * w for h, w in shapes) * c * torch.empty((), dtype=dtype).element_size()
+    b_ms, b_by = bound(grad.numel() * grad.element_size() + rois.numel() * 4 + out_bytes, grad.numel() * 4 * SAMPLE_OPS)
+    return dict(
+        name=name,
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/roi_align.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/roi_align.py:569",
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: ops_roi.roi_align_backward(grad, rois, shapes, strides, out_size, dtype=dtype,
+                                                           levels=levels), 20),
+        plain_ms=cuda_time_ms(lambda: ops_roi.multilevel_roi_align_backward_reference(
+            grad, rois, shapes, strides, out_size, dtype=dtype), 3),
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+        shape=f"B={b} R={r} S={out_size} C={c} {grad.dtype}",
+    )
+
+
+def capture_with_backward(ops_roi, names, fn) -> dict:
+    """`capture_path(names, fn)`, and what K2b (`ops_roi.roi_align_backward`)
+    was last handed under "roi_align_backward"."""
+    seen = {}
+    seen.update(capture_calls(("roi_align_backward",), lambda: seen.update(capture_path(names, fn)), ops_roi))
+    return seen
+
+
+def run_ablation(torch, ops_nms, ops_roi, flow_root: str, flow_checkpoint: str) -> list:
+    """The BAGS ablation matrix on the card: a long-tailed fixture
+    (`tools.make_longtail`, 48 classes, seed 0) and its partition, then
+    `tools.run_longtail_ablation.main` at 2 epochs, batch 8, bf16, 320 x 320,
+    with each CLI it runs called through its `main(argv)` in this process
+    and its launches counted: a training row launches K4 and K2 once a step
+    and K2b once a step but at selectp 1 (the gs row), a test row K1 and K3
+    once a batch and K2 once a batch, twice for tnorm-select, and nothing
+    else. The baseline's training is held to the plain versions of K4, K2
+    and K2b on its last step's inputs, and tnorm-select to those of K1, K2
+    and K3 on its last batch's (the "/ablation-train" and "/tnorm-select"
+    rows of the kernels line, each with its row's launches). Every one of
+    the seven rows must be in ablation.json with values in [0, 100], the
+    RFS row must upsample some image, and the GS checkpoint must differ from
+    the baseline's in fc_cls alone. Then `test_lvis_tnorm --taus 0.0 1.0`
+    on `run_flow`'s fixture and checkpoint (K2 once an image of the
+    (800, 1344) bucket, whose boxes, at most 64 an image, the per-bin counts
+    must sum to). Returns the kernels-line rows."""
+    import importlib
+    import math
+    import os
+    import re
+
+    from balancedgroupsoftmax_torch.tools import gs_partition, make_longtail, run_longtail_ablation, test_lvis_tnorm
+    from balancedgroupsoftmax_torch.utils.checkpoint import restore_checkpoint
+
+    batches = -(-ABLATION_VAL_IMAGES // ABLATION_BATCH)
+    rows, texts, walls = [], {}, {}
+
+    def run_here(name, argv):
+        """`tools.<name>.main(argv)` with its launches counted; returns what it printed."""
+        tag = os.path.basename(argv[argv.index("--work-dir" if name == "train" else "--out") + 1])
+        log(f"  + tools.{name} {tag}")
+        main_fn = importlib.import_module(f"balancedgroupsoftmax_torch.tools.{name}").main
+        t0 = time.perf_counter()
+        seen, launches = counted(torch, lambda: capture_with_backward(
+            ops_roi, ("nms_keep_tiled", "nms_keep_batched", "nms_keep_gathered"), lambda: run_cli(main_fn, argv)))
+        walls[tag] = time.perf_counter() - t0
+        _, texts[tag] = seen.pop("out")
+        if name == "train":
+            steps = int(run_longtail_ablation.TRAINED.search(texts[tag])[1])
+            want = {"bags_nms_keep_tiled": steps, "bags_roi_align_forward": steps,
+                    "bags_roi_align_backward": 0 if tag == "gs" else steps, "bags_nms_keep": 0,
+                    "bags_nms_keep_gathered": 0}
+        else:
+            want = {"bags_nms_keep": batches, "bags_roi_align_forward": batches * (2 if "--tau-select" in argv else 1),
+                    "bags_nms_keep_gathered": batches, "bags_nms_keep_tiled": 0, "bags_roi_align_backward": 0}
+        wrong = {s: (launches[s], n) for s, n in want.items() if launches[s] != n}
+        if wrong:
+            raise AssertionError(f"tools.{name} {tag}: launches (counted, expected) {wrong}")
+        log(f"    launches {launches}; wall {walls[tag]:.1f} s")
+        if tag == "baseline":
+            feats, rois, strides, out_size = seen["batched_multilevel_roi_align"][0][:4]
+            (grad, rois_b, shapes, strides_b, size_b), kw = seen["roi_align_backward"][0][:5], seen["roi_align_backward"][1]
+            new = [
+                (check_k4(torch, ops_nms, *seen["nms_keep_tiled"][0]), "bags_nms_keep_tiled"),
+                (k2_row(torch, ops_roi, [f.detach() for f in feats], rois, strides, out_size, "roi_align_forward",
+                        "on the baseline's last training step"), "bags_roi_align_forward"),
+                (k2b_row(torch, ops_roi, grad, rois_b, shapes, strides_b, size_b, kw["dtype"], kw["levels"],
+                         "roi_align_backward", "on the baseline's last training step"), "bags_roi_align_backward"),
+            ]
+            suffix = "/ablation-train"
+        elif "--tau-select" in argv:
+            new = [
+                (check_k1(torch, ops_nms, *seen["nms_keep_batched"][0], path="tau-select batch"), "bags_nms_keep"),
+                (k2_row(torch, ops_roi, *seen["batched_multilevel_roi_align"][0][:4], "roi_align_forward",
+                        "on the tau-select batch's second rescore"), "bags_roi_align_forward"),
+                (check_k3(torch, ops_nms, *seen["nms_keep_gathered"][0][:4], path="tau-select batch"),
+                 "bags_nms_keep_gathered"),
+            ]
+            suffix = "/tnorm-select"
+        else:
+            new = []
+        for r, sym in new:
+            r["name"] += suffix
+            r["launches"] = launches[sym]
+            rows.append(r)
+        return texts[tag]
+
+    with tempfile.TemporaryDirectory() as root:
+        data, work = os.path.join(root, "synlt"), os.path.join(root, "ablation")
+        run_cli(make_longtail.main, ["--out", data, "--train-images", str(ABLATION_TRAIN_IMAGES),
+                                     "--val-images", str(ABLATION_VAL_IMAGES), "--seed", "0"])
+        part, _ = run_cli(gs_partition.main, ["--ann", os.path.join(data, "train.json"), "--out",
+                                              os.path.join(data, "part.npz"), "--num-classes", "49",
+                                              "--thresholds", "8", "40", "200"])
+        if min(part.bin_sizes[1:]) < 2:  # a bin's slice is its classes and "others"
+            raise AssertionError(f"a GS bin of the fixture is empty: {part.bin_sizes}")
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        table = run_longtail_ablation.main(["--data", data, "--work-dir", work, "--epochs", str(ABLATION_EPOCHS),
+                                            "--batch-size", str(ABLATION_BATCH), "--dtype", "bfloat16"], run_here)
+        wall = time.perf_counter() - t0
+        if tuple(table) != ABLATION_ROWS or not all(
+                math.isfinite(v) and 0 <= v <= 100 for row in table.values() for v in row.values()):
+            raise AssertionError(f"ablation.json: {table}")
+        with open(os.path.join(work, "ablation.json")) as f:
+            if json.load(f) != table:
+                raise AssertionError("ablation.json differs from the rows run_longtail_ablation returned")
+        upsampled = re.search(r"RFS t=\S+: (\d+)/(\d+) images upsampled", texts["rfs"])
+        if upsampled is None or int(upsampled[1]) < 1:
+            raise AssertionError("the rfs row upsampled no image")
+        base = restore_checkpoint(os.path.join(work, "baseline", f"ckpt_epoch_{ABLATION_EPOCHS}.pt"))["model"]
+        gs = restore_checkpoint(os.path.join(work, "gs", f"ckpt_epoch_{ABLATION_EPOCHS}.pt"))["model"]
+        fc_cls = {"bbox_head.fc_cls.weight", "bbox_head.fc_cls.bias"}
+        differ = sorted(n for n in gs if gs[n].shape != base[n].shape or not torch.equal(gs[n], base[n]))
+        if gs.keys() != base.keys() or set(differ) != fc_cls or gs["bbox_head.fc_cls.bias"].shape != (49 + 5,):
+            raise AssertionError(f"the gs checkpoint differs from the baseline's in {differ}")
+        with open(os.path.join(work, "train_times.json")) as f:
+            times = json.load(f)
+        del base, gs
+    log(f"  ablation: wall {wall:.1f} s, of which the CLIs {sum(walls.values()):.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; the kernel checks and the evaluator the rest); "
+        f"{upsampled[1]}/{upsampled[2]} images upsampled by RFS; gs differs from the baseline in {differ} alone; "
+        f"train {json.dumps(times)}")
+    log(f"  ablation table ({ABLATION_EPOCHS} epochs, {ABLATION_TRAIN_IMAGES} + injected train images): "
+        f"{json.dumps(table)}")
+    # the per-bin accuracy of ground-truth rois on run_flow's fixture
+    t0 = time.perf_counter()
+    ann = os.path.join(flow_root, "lvis", "ann.json")
+    with open(ann) as f:
+        gt = json.load(f)
+    landscape = {i["id"] for i in gt["images"] if i["width"] >= i["height"]}
+    boxes = sum(min(sum(a["image_id"] == i for a in gt["annotations"]), TNORM_MAX_ROIS) for i in landscape)
+    seen, launches = counted(torch, lambda: capture_path((), lambda: run_cli(test_lvis_tnorm.main, [
+        "--model", "gs_faster_rcnn_r50", "--ann", ann, "--img-prefix", os.path.join(flow_root, "lvis", "images"),
+        "--checkpoint", flow_checkpoint, "--partition", os.path.join(flow_root, "part.npz"),
+        "--taus", *TNORM_TAUS])))
+    lines, _ = seen["out"]
+    expect_launches(launches, {"bags_roi_align_forward": 1}, len(TNORM_TAUS) * len(landscape), "tnorm images")
+    if [sum(l["counts"]) for l in lines] != [boxes] * len(TNORM_TAUS):
+        raise AssertionError(f"tnorm counted {[l['counts'] for l in lines]}, not {boxes} boxes a tau")
+    k2_matches(torch, ops_roi, *seen["batched_multilevel_roi_align"][0][:4], "on test_lvis_tnorm's last image")
+    log(f"  test_lvis_tnorm: {len(landscape)} images of the (800, 1344) bucket, {boxes} boxes a tau, K2 "
+        f"{launches['bags_roi_align_forward']} launches; wall {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def log_row(r: dict) -> None:
@@ -2252,15 +2454,25 @@ def main() -> int:
     log(f"phase small HTC-DCN predict_with_masks card vs CPU: wall {time.perf_counter() - t0:.1f} s")
     del htc
 
-    t0 = time.perf_counter()
-    flow = run_flow(torch, ops_nms, ops_roi, train_ms)
-    log(f"  flow numbers: {json.dumps(flow)}")
-    log(f"phase BAGS recipe through the CLIs: wall {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as flow_root:
+        t0 = time.perf_counter()
+        flow = run_flow(torch, ops_nms, ops_roi, train_ms, flow_root)
+        flow_checkpoint = flow.pop("checkpoint")
+        log(f"  flow numbers: {json.dumps(flow)}")
+        log(f"phase BAGS recipe through the CLIs: wall {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        ablation_rows = run_ablation(torch, ops_nms, ops_roi, flow_root, flow_checkpoint)
+        for r in ablation_rows:
+            log_row(r)
+        rows += ablation_rows
+        log(f"phase BAGS ablation: wall {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the path that runs it: the Faster R-CNN
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
     # cascade's predicts for K5 and K6, the HTC's for K7, one pass of the
-    # R50's stride-1 runs for K8 and K9
+    # R50's stride-1 runs for K8 and K9; the "/ablation-train" and
+    # "/tnorm-select" rows carry their ablation rows' counts
     symbols = {
         "nms_keep": (launches, "bags_nms_keep"),
         "roi_align_forward": (launches, "bags_roi_align_forward"),
@@ -2274,8 +2486,9 @@ def main() -> int:
         "fused_layer": (fused_launches, "bags_fused_layer"),
     }
     for r in rows:
-        counts, sym = symbols[r["name"]]
-        r["launches"] = counts[sym]
+        if "launches" not in r:  # the ablation's rows carry their own counts
+            counts, sym = symbols[r["name"]]
+            r["launches"] = counts[sym]
         del r["shape"]
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -214,7 +214,7 @@ def test_tau_norm_equals_jax(tiny_variables, skip_bg):
         np.array([0, 5, 50, 500, 5000, 7, 70, 700, 7000])))
     model.load_state_dict(params_from_flax(variables))
     bias = model.bbox_head.fc_cls.bias.clone()
-    apis.tau_norm(model, 0.5, skip_bg=skip_bg)
+    apis.tau_norm(model.bbox_head.fc_cls, 0.5, skip_bg=skip_bg)
     np.testing.assert_allclose(model.bbox_head.fc_cls.weight.detach().numpy().T, ref["kernel"], rtol=0, atol=1e-6)
     assert torch.equal(model.bbox_head.fc_cls.bias, bias)
 
