@@ -30,6 +30,12 @@ MODELS = {
         functools.partial(zoo.cascade_rcnn_r50_fpn_lvis, use_gs=True),
         "gs_cascade_rcnn_r50_fpn_lvis",
     ),
+    "htc_x101": (zoo.htc_x101_64x4d_fpn_lvis, "htc_x101_64x4d_fpn_lvis"),
+    "gs_htc_x101": (functools.partial(zoo.htc_x101_64x4d_fpn_lvis, use_gs=True), "gs_htc_x101_64x4d_fpn_lvis"),
+    "gs_htc_dcn_x101": (
+        functools.partial(zoo.htc_x101_64x4d_fpn_lvis, use_gs=True, dcn=True),
+        "gs_htc_x101_64x4d_fpn_lvis",
+    ),
 }
 
 

@@ -1,4 +1,5 @@
-// Deformable convolution v1/v2 forward: K7 `bags_deform_conv_forward`.
+// Deformable convolution v1/v2: K7 `bags_deform_conv_forward`, the forward, and
+// K7b `bags_deform_conv_backward`, its gradient (the second note below).
 //
 // Replaces (JAX package pallas/deform_conv.py): deform_conv2d_fused (:501, via
 // _fused_forward :252, _kernel :49, the block-diagonal build_dense_weight :478;
@@ -70,6 +71,51 @@
 // tile's own pixels) and the weights. Overlapping those across the block's
 // phases, not more instruction-level parallelism inside one, is the way down.
 
+//
+// K7b, the gradient of x, the offsets, the mask and the weight. It replaces
+// no Pallas kernel: JAX's custom VJP of deform_conv2d_fused
+// (pallas/deform_conv.py :544-564) differentiates the XLA shift path, and
+// this computes that gradient (JAX's autodiff of ops/deform_conv.py
+// deform_conv2d :240): with grad_col[k, c] = sum over the outputs o of c's
+// group of grad_out[o] * weight[o, c, k] (times the rounded mask in v2), dx
+// gets each corner's bilinear weight times grad_col; d(dy) the channel sum of
+// grad_col times the blend's derivative in the row's fraction, hx (v10 - v00)
+// + lx (v11 - v01), times the clamp's slope (1 inside +-D, 1/2 at exactly +-D
+// as jnp.clip's, 0 beyond; and the high corners left out where the fraction's
+// floor is the top of JAX's static shift range, k - 1 + D); d(mask) the
+// channel sum of grad_col times the rounded sample; d(weight) the positions'
+// sum of grad_out times the sample K7 contracted. An invalid sample gets
+// nothing, a corner outside the image nothing.
+//
+// Design (a first, simple one). Three kernels in one launch, all sums in f32:
+//   1. the data pass: a block takes 32 output positions x a chunk of whole
+//      groups (at most 64 input and 64 output channels). The tile's corners,
+//      bilinear weights and derivative coefficients, its output gradients
+//      and the chunk's weights go to shared memory; a thread takes four
+//      channels of one (position, tap): grad_col on the CUDA cores (o_g
+//      products each), the four corners read again, one 16-byte f32 atomic
+//      into an f32 dx buffer for each corner, and the offsets' and the mask's
+//      channel sums, which meet in shared memory and leave with one atomic a
+//      (position, tap) and chunk.
+//   2. the weight pass: a block takes a few output channels (whole groups, or
+//      part of one: at most 16 sums a thread) and one range of the position
+//      tiles; per tile it samples the columns those outputs read into shared
+//      memory, rounded and masked as K7 rounds them, and adds grad_out x
+//      column into each thread's sums. Each block writes its partial, and a
+//      small kernel adds the ranges' partials in order and rounds once.
+//   3. for bf16, the dx buffer is rounded once into x's dtype (as K2b does).
+// The products are written here, on the CUDA cores; the columns are never
+// stored in device memory.
+//
+// What bounds K7b on an H100: by bytes, reading x, grad_out, the offsets and
+// the mask once and writing dx (through its f32 buffer, read again by the
+// cast), the offsets' and the mask's gradients; by operations, the two
+// grouped contractions (grad_col and the weight's gradient, 2 * taps * c_g *
+// C_out each a position) and the samples' blend and derivative. The design
+// above is far from either: the data pass issues 4 atomics a (position, tap,
+// four channels) into L2 and re-reads the corners, and both contractions run
+// on the CUDA cores.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +142,10 @@ struct Corner {
   int y0, x0;
   float4 w;
   bool valid;
+  // for the gradient (K7b): the fractions, the clamp's slopes (1 inside +-D,
+  // 1/2 at exactly +-D, 0 beyond; 1 at D = 0), and 1 or 0 as the fraction's
+  // derivative counts the high corners (0 at the top of JAX's shift range)
+  float ly, lx, gy, gx, hy, hx;
 };
 
 __device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t, int taps, int kw, int by,
@@ -118,6 +168,10 @@ __device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t,
     lx = rx - fx;
     q.y0 = by + int(fy);
     q.x0 = bx + int(fx);
+    q.gy = fabsf(dy) < d ? 1.0f : fabsf(dy) == d ? 0.5f : 0.0f;
+    q.gx = fabsf(dx) < d ? 1.0f : fabsf(dx) == d ? 0.5f : 0.0f;
+    q.hy = fy < float(taps / kw - 1 + window) ? 1.0f : 0.0f;
+    q.hx = fx < float(kw - 1 + window) ? 1.0f : 0.0f;
   } else {
     ys = (float(by) + float(ty)) + dy;
     xs = (float(bx) + float(tx)) + dx;
@@ -127,7 +181,10 @@ __device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t,
     lx = xs - fx;
     q.y0 = int(fy);
     q.x0 = int(fx);
+    q.gy = q.gx = q.hy = q.hx = 1.0f;
   }
+  q.ly = ly;
+  q.lx = lx;
   q.valid = ys > -1.0f && ys < float(h) && xs > -1.0f && xs < float(w);
   const float hy = 1.0f - ly;
   const float hx = 1.0f - lx;
@@ -694,6 +751,348 @@ int launch_bf16(Plan a, cudaStream_t stream) {
                       : launch_bf16_kernel<false>(a, unsigned(blocks), stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// K7b: the gradient. See the note at the top of the file.
+
+constexpr int kGradThreads = 256;
+constexpr int kGradAcc = 16;  // weight-gradient sums a thread of the weight pass holds
+
+struct GradArgs {
+  const void* x;         // (B, H, W, C)
+  const float* offsets;  // (B, Ho, Wo, 2 * taps)
+  const float* mask;     // (B, Ho, Wo, taps) or null
+  const void* weight;    // (C_out, c_g, kh, kw)
+  const void* grad;      // (B, Ho, Wo, C_out), the output's gradient
+  float* dx;             // (B, H, W, C) f32, zeroed; null: no dx
+  float* doff;           // (B, Ho, Wo, 2 * taps), zeroed; null: none
+  float* dmask;          // (B, Ho, Wo, taps), zeroed; null: none
+  float* part;           // (splits, C_out, c_g, kh, kw): the weight pass's partial sums; null: none
+  int n;                 // B * Ho * Wo output positions
+  int h, w, c, ho, wo, c_out, kh, kw, taps, stride, pad, c_g, o_g, window;
+  int tp, gpc, oc, splits, tiles, per_split;  // the plan; tiles of tp positions, per_split of them a range
+};
+
+// The shared memory of the two passes; ops/deform_conv.py `backward_plan`
+// computes the same totals.
+inline int grad_data_bytes(const GradArgs& a) {
+  const int pt = a.tp * a.taps;
+  return pt * 80 + a.tp * a.gpc * a.o_g * 4 + a.taps * a.gpc * a.o_g * a.c_g * 4;
+}
+__host__ __device__ inline int grad_weight_cin(const GradArgs& a) { return (a.oc >= a.o_g ? a.oc / a.o_g : 1) * a.c_g; }
+inline int grad_weight_bytes(const GradArgs& a) {
+  const int pt = a.tp * a.taps;
+  return pt * 36 + a.tp * a.oc * 4 + pt * grad_weight_cin(a) * 4;
+}
+
+// Four channels of x at pixel `pix` (global over the batch), from channel c, in f32.
+__device__ __forceinline__ float4 load4(const float* x, int pix, int c, int channels) {
+  return *reinterpret_cast<const float4*>(x + size_t(pix) * channels + c);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x, int pix, int c, int channels) {
+  const uint2 q = *reinterpret_cast<const uint2*>(x + size_t(pix) * channels + c);
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u), __uint_as_float(q.y << 16),
+                     __uint_as_float(q.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 corner4(const void* x, bool bf, int pix, int c, int channels) {
+  if (pix < 0) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  return bf ? load4(static_cast<const __nv_bfloat16*>(x), pix, c, channels)
+            : load4(static_cast<const float*>(x), pix, c, channels);
+}
+__device__ __forceinline__ float elem(float4 v, int k) { return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w; }
+
+// The tile's (position, tap) table: each corner's pixel (global over the
+// batch; -1 outside the image, or every corner when the sample is not
+// valid), the bilinear weights, the mask rounded to T, and (when `coef` is
+// not null) the coefficients of the corners in the row's and the column's
+// derivative, slopes included: d/d(dy) = sum over corners of coef[2e] . v.
+template <typename T>
+__device__ void grad_table(const GradArgs& a, int n0, int4* corner, float4* cw, float* cmask, float4* coef) {
+  const int hw_out = a.ho * a.wo;
+  for (int e = threadIdx.x; e < a.tp * a.taps; e += blockDim.x) {
+    const int p = e / a.taps;
+    const int t = e - p * a.taps;
+    const int at = n0 + p;
+    int4 q = make_int4(-1, -1, -1, -1);
+    float4 wq = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 cy = wq, cx = wq;
+    float m = 1.0f;
+    if (at < a.n) {
+      const int b = at / hw_out;
+      const int pos = at - b * hw_out;
+      const int i = pos / a.wo;
+      const int j = pos - i * a.wo;
+      if (a.mask != nullptr) m = a.mask[size_t(at) * a.taps + t];
+      const Corner cq = corner_of(a.offsets, at, t, a.taps, a.kw, i * a.stride - a.pad, j * a.stride - a.pad,
+                                  a.h, a.w, a.window);
+      if (cq.valid) {
+        wq = cq.w;
+        const int y0 = cq.y0, x0 = cq.x0, base = b * a.h * a.w;
+        const bool y0in = y0 >= 0 && y0 < a.h, y1in = y0 + 1 >= 0 && y0 + 1 < a.h;
+        const bool x0in = x0 >= 0 && x0 < a.w, x1in = x0 + 1 >= 0 && x0 + 1 < a.w;
+        q.x = y0in && x0in ? base + y0 * a.w + x0 : -1;
+        q.y = y0in && x1in ? base + y0 * a.w + x0 + 1 : -1;
+        q.z = y1in && x0in ? base + (y0 + 1) * a.w + x0 : -1;
+        q.w = y1in && x1in ? base + (y0 + 1) * a.w + x0 + 1 : -1;
+        // d s / d ly = hx (hy' v10 - v00) + lx (hy' v11 - v01), and in x alike
+        const float hy = 1.0f - cq.ly, hx = 1.0f - cq.lx;
+        cy = make_float4(-hx * cq.gy, -cq.lx * cq.gy, hx * cq.hy * cq.gy, cq.lx * cq.hy * cq.gy);
+        cx = make_float4(-hy * cq.gx, hy * cq.hx * cq.gx, -cq.ly * cq.gx, cq.ly * cq.hx * cq.gx);
+      }
+    }
+    corner[e] = q;
+    cw[e] = wq;
+    cmask[e] = round_to<T>(m);
+    if (coef != nullptr) {
+      coef[2 * e] = cy;
+      coef[2 * e + 1] = cx;
+    }
+  }
+}
+
+// The data pass: one block takes `tp` positions and `gpc` groups. A thread
+// takes four channels of one (position, tap) at a time: their gradient
+// grad_col (the group's outputs' gradients against the weight), the four
+// corners and the sample, the four corners' shares of dx (one 16-byte f32
+// atomic each), and its part of the offsets' and the mask's channel sums,
+// which meet in shared memory and go out with one atomic a (position, tap).
+template <typename T>
+__global__ void __launch_bounds__(kGradThreads) deform_grad_data_kernel(GradArgs a) {
+  extern __shared__ float4 smem4[];
+  const int pt = a.tp * a.taps;
+  const int cci = a.gpc * a.c_g, cco = a.gpc * a.o_g;
+  int4* corner = reinterpret_cast<int4*>(smem4);
+  float4* cw = smem4 + pt;
+  float4* coef = smem4 + 2 * pt;  // two a (position, tap)
+  float* cmask = reinterpret_cast<float*>(smem4 + 4 * pt);
+  float* sums = cmask + pt;         // d/d(dy), d/d(dx), d/d(mask) a (position, tap)
+  float* gt = sums + 3 * pt;        // [p][o]: the tile's output gradients, f32
+  float* wt = gt + a.tp * cco;      // [t][o][c]: the chunk's weights, f32
+  const int n0 = blockIdx.x * a.tp;
+  const int c0 = blockIdx.y * cci, o0 = blockIdx.y * cco;
+  const T* grad = static_cast<const T*>(a.grad);
+  const T* weight = static_cast<const T*>(a.weight);
+  const bool bf = sizeof(T) == 2;
+
+  grad_table<T>(a, n0, corner, cw, cmask, coef);
+  for (int e = threadIdx.x; e < 3 * pt; e += blockDim.x) sums[e] = 0.0f;
+  for (int e = threadIdx.x; e < a.tp * cco; e += blockDim.x) {
+    const int p = e / cco;
+    gt[e] = n0 + p < a.n ? to_float(grad[size_t(n0 + p) * a.c_out + o0 + e - p * cco]) : 0.0f;
+  }
+  for (int e = threadIdx.x; e < a.taps * cco * a.c_g; e += blockDim.x) {
+    const int cg = e % a.c_g;
+    const int o = (e / a.c_g) % cco;
+    const int t = e / (a.c_g * cco);
+    wt[e] = to_float(weight[(size_t(o0 + o) * a.c_g + cg) * a.taps + t]);
+  }
+  __syncthreads();
+
+  const int nq = cci / 4;
+  for (int e = threadIdx.x; e < pt * nq; e += blockDim.x) {
+    const int k = e / nq;  // p * taps + t
+    const int cl = (e - k * nq) * 4;
+    const int4 q = corner[k];
+    if (q.x < 0 && q.y < 0 && q.z < 0 && q.w < 0) continue;  // not a valid sample: no gradient
+    const int p = k / a.taps;
+    const int t = k - p * a.taps;
+    const int gl = cl / a.c_g;
+    const float* grow = gt + p * cco + gl * a.o_g;
+    const float* wrow = wt + (t * cco + gl * a.o_g) * a.c_g + (cl - gl * a.c_g);
+    float gc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int o = 0; o < a.o_g; ++o) {
+      const float g = grow[o];
+      const float4 wv = *reinterpret_cast<const float4*>(wrow + o * a.c_g);
+      gc[0] = fmaf(g, wv.x, gc[0]);
+      gc[1] = fmaf(g, wv.y, gc[1]);
+      gc[2] = fmaf(g, wv.z, gc[2]);
+      gc[3] = fmaf(g, wv.w, gc[3]);
+    }
+    const int ch = c0 + cl;
+    const float4 v00 = corner4(a.x, bf, q.x, ch, a.c), v01 = corner4(a.x, bf, q.y, ch, a.c);
+    const float4 v10 = corner4(a.x, bf, q.z, ch, a.c), v11 = corner4(a.x, bf, q.w, ch, a.c);
+    const float4 wq = cw[k], cy = coef[2 * k], cx = coef[2 * k + 1];
+    const float m = cmask[k];
+    float gs[4], dy = 0.0f, dx = 0.0f, dm = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float c00 = elem(v00, u), c01 = elem(v01, u), c10 = elem(v10, u), c11 = elem(v11, u);
+      gs[u] = gc[u];
+      if (a.mask != nullptr) {
+        dm = fmaf(gc[u], round_to<T>(blend(wq, c00, c01, c10, c11)), dm);
+        gs[u] = gc[u] * m;
+      }
+      dy = fmaf(gs[u], cy.x * c00 + cy.y * c01 + cy.z * c10 + cy.w * c11, dy);
+      dx = fmaf(gs[u], cx.x * c00 + cx.y * c01 + cx.z * c10 + cx.w * c11, dx);
+    }
+    if (a.dx != nullptr) {
+      const int pix[4] = {q.x, q.y, q.z, q.w};
+      const float wk[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (pix[r] >= 0)
+          atomicAdd(reinterpret_cast<float4*>(a.dx + size_t(pix[r]) * a.c + ch),
+                    make_float4(wk[r] * gs[0], wk[r] * gs[1], wk[r] * gs[2], wk[r] * gs[3]));
+    }
+    if (a.doff != nullptr) {
+      atomicAdd(sums + 3 * k, dy);
+      atomicAdd(sums + 3 * k + 1, dx);
+    }
+    if (a.dmask != nullptr) atomicAdd(sums + 3 * k + 2, dm);
+  }
+  __syncthreads();
+
+  if (a.doff == nullptr && a.dmask == nullptr) return;
+  for (int e = threadIdx.x; e < pt; e += blockDim.x) {
+    const int p = e / a.taps;
+    const int t = e - p * a.taps;
+    const int at = n0 + p;
+    if (at >= a.n) continue;
+    if (a.doff != nullptr) {
+      atomicAdd(a.doff + size_t(at) * 2 * a.taps + 2 * t, sums[3 * e]);
+      atomicAdd(a.doff + size_t(at) * 2 * a.taps + 2 * t + 1, sums[3 * e + 1]);
+    }
+    if (a.dmask != nullptr) atomicAdd(a.dmask + size_t(at) * a.taps + t, sums[3 * e + 2]);
+  }
+}
+
+// The weight pass: one block takes `oc` output channels and one range of
+// the position tiles. Per tile it samples the columns its outputs read (the
+// forward's samples, rounded and masked as K7 rounds them) into shared
+// memory with the tile's output gradients, and each thread adds
+// grad_out x column over the tile's positions into its own sums (at most
+// kGradAcc, one an (output, tap, channel)). The block's sums go out as one
+// partial of the weight's gradient, which a second kernel adds up.
+template <typename T>
+__global__ void __launch_bounds__(kGradThreads) deform_grad_weight_kernel(GradArgs a) {
+  extern __shared__ float4 smem4[];
+  const int pt = a.tp * a.taps;
+  const int cin = grad_weight_cin(a);
+  int4* corner = reinterpret_cast<int4*>(smem4);
+  float4* cw = smem4 + pt;
+  float* cmask = reinterpret_cast<float*>(smem4 + 2 * pt);
+  float* gt = cmask + pt;         // [p][o], f32
+  float* col = gt + a.tp * a.oc;  // [p][t][c]: the samples of the channels the outputs read
+  const int o0 = blockIdx.x * a.oc;
+  const int g0 = o0 / a.o_g;
+  const int ci0 = g0 * a.c_g;
+  const int units = a.oc * a.taps * a.c_g;
+  const T* grad = static_cast<const T*>(a.grad);
+  const bool bf = sizeof(T) == 2;
+
+  // each thread's sums: output o, tap t, channel cg of o's group; where they read
+  int go[kGradAcc], gcol[kGradAcc];
+  float acc[kGradAcc];
+#pragma unroll
+  for (int r = 0; r < kGradAcc; ++r) {
+    const int u = threadIdx.x + r * kGradThreads;
+    const int uu = u < units ? u : 0;
+    const int o = uu / (a.taps * a.c_g);
+    const int rest = uu - o * a.taps * a.c_g;
+    const int t = rest / a.c_g;
+    const int cg = rest - t * a.c_g;
+    go[r] = o;
+    gcol[r] = t * cin + ((o0 + o) / a.o_g - g0) * a.c_g + cg;
+    acc[r] = 0.0f;
+  }
+
+  const int first = blockIdx.y * a.per_split;
+  const int last = min(first + a.per_split, a.tiles);
+  const int nq = cin / 4;
+  for (int tile = first; tile < last; ++tile) {
+    const int n0 = tile * a.tp;
+    grad_table<T>(a, n0, corner, cw, cmask, nullptr);
+    for (int e = threadIdx.x; e < a.tp * a.oc; e += blockDim.x) {
+      const int p = e / a.oc;
+      gt[e] = n0 + p < a.n ? to_float(grad[size_t(n0 + p) * a.c_out + o0 + e - p * a.oc]) : 0.0f;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < pt * nq; e += blockDim.x) {
+      const int k = e / nq;
+      const int cl = (e - k * nq) * 4;
+      const int4 q = corner[k];
+      const int ch = ci0 + cl;
+      const float4 v00 = corner4(a.x, bf, q.x, ch, a.c), v01 = corner4(a.x, bf, q.y, ch, a.c);
+      const float4 v10 = corner4(a.x, bf, q.z, ch, a.c), v11 = corner4(a.x, bf, q.w, ch, a.c);
+      const float4 wq = cw[k];
+      const float m = cmask[k];
+      float* dst = col + k * cin + cl;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float v = round_to<T>(blend(wq, elem(v00, u), elem(v01, u), elem(v10, u), elem(v11, u)));
+        if (a.mask != nullptr) v = round_to<T>(v * m);
+        dst[u] = v;
+      }
+    }
+    __syncthreads();
+    for (int p = 0; p < a.tp; ++p) {
+      const float* gp = gt + p * a.oc;
+      const float* cp = col + p * a.taps * cin;
+#pragma unroll
+      for (int r = 0; r < kGradAcc; ++r) acc[r] = fmaf(gp[go[r]], cp[gcol[r]], acc[r]);
+    }
+    __syncthreads();
+  }
+  float* out = a.part + size_t(blockIdx.y) * a.c_out * a.c_g * a.taps;
+#pragma unroll
+  for (int r = 0; r < kGradAcc; ++r) {
+    const int u = threadIdx.x + r * kGradThreads;
+    if (u >= units) break;
+    const int rest = u - go[r] * a.taps * a.c_g;
+    const int t = rest / a.c_g;
+    const int cg = rest - t * a.c_g;
+    out[(size_t(o0 + go[r]) * a.c_g + cg) * a.taps + t] = acc[r];
+  }
+}
+
+// The weight's gradient: the partials added up in order, rounded once to T.
+template <typename T>
+__global__ void deform_grad_weight_sum_kernel(const float* part, T* out, int splits, int size) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < size; i += gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int k = 0; k < splits; ++k) s += part[size_t(k) * size + i];
+    out[i] = from_float<T>(s);
+  }
+}
+
+__global__ void deform_grad_cast_kernel(const float* acc, __nv_bfloat16* out, long long size) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < size; i += 256LL * gridDim.x)
+    out[i] = __float2bfloat16_rn(acc[i]);
+}
+
+template <typename T>
+int launch_grad(GradArgs a, void* dx_out, void* dweight, cudaStream_t stream) {
+  cudaError_t err;
+  if (a.dx != nullptr || a.doff != nullptr || a.dmask != nullptr) {
+    const int smem = grad_data_bytes(a);
+    err = cudaFuncSetAttribute(deform_grad_data_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    const dim3 grid(unsigned(a.tiles), unsigned(a.c / (a.gpc * a.c_g)));
+    deform_grad_data_kernel<T><<<grid, kGradThreads, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  if (a.part != nullptr) {
+    const int smem = grad_weight_bytes(a);
+    err = cudaFuncSetAttribute(deform_grad_weight_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    const dim3 grid(unsigned(a.c_out / a.oc), unsigned(a.splits));
+    deform_grad_weight_kernel<T><<<grid, kGradThreads, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    const int size = a.c_out * a.c_g * a.taps;
+    deform_grad_weight_sum_kernel<T><<<(size + 255) / 256, 256, 0, stream>>>(a.part, static_cast<T*>(dweight),
+                                                                            a.splits, size);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  if (dx_out != nullptr) {
+    const long long size = 1LL * (a.n / (a.ho * a.wo)) * a.h * a.w * a.c;
+    const long long blocks = (size + 255) / 256;
+    deform_grad_cast_kernel<<<unsigned(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+        a.dx, static_cast<__nv_bfloat16*>(dx_out), size);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  return int(cudaSuccess);
+}
+
 }  // namespace
 
 extern "C" {
@@ -728,6 +1127,58 @@ int bags_deform_conv_forward(int dtype, const void* x, const float* offsets, con
   return int(cudaErrorInvalidValue);
 }
 
+// K7b. dtype 0: f32 x, weight and grad; 1: bf16. The weight is (C_out, c_g,
+// kh, kw) in both. Each output pointer may be null, and then that gradient
+// is not computed: dx_acc, (B, H, W, C) f32, zeroed here, receives dx (and
+// dx_out, when not null, dx rounded to bf16); doff (B, Ho, Wo, 2 * taps) and
+// dmask (B, Ho, Wo, taps), f32, zeroed here; part (splits, C_out, c_g, kh,
+// kw) f32 scratch and dweight, in x's dtype, the weight's (both or neither).
+// tp, gpc, oc, splits, smem_data, smem_weight: the plan
+// (ops/deform_conv.py `backward_plan`), checked here.
+int bags_deform_conv_backward(int dtype, const void* x, const float* offsets, const float* mask,
+                              const void* weight, const void* grad, float* dx_acc, void* dx_out, float* doff,
+                              float* dmask, float* part, void* dweight, int b, int h, int w, int c, int ho,
+                              int wo, int c_out, int kh, int kw, int stride, int pad, int groups, int window,
+                              int tp, int gpc, int oc, int splits, int smem_data, int smem_weight,
+                              cudaStream_t stream) {
+  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
+  if (groups <= 0 || c % groups || c_out % groups || b <= 0 || ho <= 0 || wo <= 0) return int(cudaErrorInvalidValue);
+  GradArgs a{};
+  a.x = x, a.offsets = offsets, a.mask = mask, a.weight = weight, a.grad = grad;
+  a.dx = dx_acc, a.doff = doff, a.dmask = dmask, a.part = part;
+  a.h = h, a.w = w, a.c = c, a.ho = ho, a.wo = wo, a.c_out = c_out, a.kh = kh, a.kw = kw, a.taps = kh * kw;
+  a.stride = stride, a.pad = pad, a.c_g = c / groups, a.o_g = c_out / groups, a.window = window;
+  a.tp = tp, a.gpc = gpc, a.oc = oc, a.splits = splits;
+  const long long n = 1LL * b * ho * wo;
+  if (n > 0x7fffffffLL || 1LL * b * h * w > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  a.n = int(n);
+  // the plan must be one these kernels run, and the wrapper's shared memory theirs
+  const bool whole = oc % a.o_g == 0 && groups % (oc / a.o_g) == 0;
+  if (tp <= 0 || gpc <= 0 || groups % gpc || c % 4 || a.c_g % 4 || oc <= 0 || !(whole || a.o_g % oc == 0) ||
+      oc * a.taps * a.c_g > kGradThreads * kGradAcc || splits <= 0)
+    return int(cudaErrorInvalidValue);
+  if ((dmask != nullptr && mask == nullptr) || ((part == nullptr) != (dweight == nullptr)) ||
+      (dx_out != nullptr && (dx_acc == nullptr || dtype != 1)))
+    return int(cudaErrorInvalidValue);
+  if (grad_data_bytes(a) != smem_data || grad_weight_bytes(a) != smem_weight ||
+      size_t(smem_data) > kMaxShared || size_t(smem_weight) > kMaxShared)
+    return int(cudaErrorInvalidValue);
+  a.tiles = int((n + tp - 1) / tp);
+  a.per_split = (a.tiles + splits - 1) / splits;
+  if ((a.tiles + a.per_split - 1) / a.per_split != splits) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dx_acc != nullptr &&
+      (err = cudaMemsetAsync(dx_acc, 0, size_t(b) * h * w * c * sizeof(float), stream)) != cudaSuccess)
+    return int(err);
+  if (doff != nullptr && (err = cudaMemsetAsync(doff, 0, size_t(n) * 2 * a.taps * sizeof(float), stream)) != cudaSuccess)
+    return int(err);
+  if (dmask != nullptr && (err = cudaMemsetAsync(dmask, 0, size_t(n) * a.taps * sizeof(float), stream)) != cudaSuccess)
+    return int(err);
+  return dtype == 0 ? launch_grad<float>(a, dx_out, dweight, stream)
+                    : launch_grad<__nv_bfloat16>(a, dx_out, dweight, stream);
+}
+
 }  // extern "C"
 
 BAGS_PACKED(bags_deform_conv_forward)
+BAGS_PACKED(bags_deform_conv_backward)

@@ -70,6 +70,10 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,
     ),
+    "bags_deform_conv_backward": (
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _P,
+    ),
     "bags_fused_bottleneck": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
@@ -207,9 +211,10 @@ ROI_ALIGN_BACKWARD = Kernel("bags_roi_align_backward")
 NMS_KEEP_COORDS = Kernel("bags_nms_keep_coords")
 GATHER_LANES = Kernel("bags_gather_lanes")
 DEFORM_CONV = Kernel("bags_deform_conv_forward")
+DEFORM_CONV_BACKWARD = Kernel("bags_deform_conv_backward")
 FUSED_BOTTLENECK = Kernel("bags_fused_bottleneck")
 FUSED_LAYER = Kernel("bags_fused_layer")
 KERNELS = (
     NMS_KEEP, ROI_ALIGN, NMS_KEEP_GATHERED, NMS_KEEP_TILED, ROI_ALIGN_BACKWARD, NMS_KEEP_COORDS, GATHER_LANES,
-    DEFORM_CONV, FUSED_BOTTLENECK, FUSED_LAYER,
+    DEFORM_CONV, FUSED_BOTTLENECK, FUSED_LAYER, DEFORM_CONV_BACKWARD,
 )

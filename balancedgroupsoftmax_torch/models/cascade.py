@@ -79,6 +79,52 @@ class CascadeRCNN(FasterRCNN):
     def rescore(self, images, rois, img_shapes):
         raise NotImplementedError("the cascade's rescore (JAX cascade.py:323) is not ported yet (ROADMAP A5)")
 
+    def _stage_targets(self, i, rois, roi_valid, gt_boxes, gt_labels, gt_mask, generator):
+        """Stage i's sampled RoI targets: assigned at its IoU threshold,
+        encoded with its stds; no gradient."""
+        c = self.cfg
+        iou = c.cascade.stage_pos_ious[i]
+        stage_cfg = dataclasses.replace(
+            c.rcnn_train,
+            assigner=dataclasses.replace(c.rcnn_train.assigner, pos_iou_thr=iou, neg_iou_thr=iou, min_pos_iou=iou),
+        )
+        with torch.no_grad():
+            return roi_targets(
+                rois, roi_valid, gt_boxes, gt_labels, gt_mask, stage_cfg, generator,
+                c.bbox_head.target_means, c.cascade.stage_target_stds[i],
+            )
+
+    def _stage_losses(self, i, cls_logits, deltas, t, generator) -> Dict[str, torch.Tensor]:
+        """Stage i's GS per-bin losses "s{i}.loss_cls_bin*" (or softmax CE
+        "s{i}.loss_cls") and class-agnostic "s{i}.loss_bbox", each times the
+        stage's weight."""
+        c = self.cfg
+        w = c.cascade.stage_loss_weights[i]
+        flat = lambda x: x.reshape(-1, *x.shape[2:])
+        losses = {}
+        if c.bbox_head.use_gs:
+            stage = gs_loss(
+                flat(cls_logits), flat(t.labels), flat(t.roi_valid), self.partition,
+                c.bbox_head.gs.others_sample_ratio, generator,
+            )
+            losses.update({f"s{i}.{name}": v * w for name, v in stage.items()})
+        else:
+            label_weights = flat(t.label_weights)
+            avg = (label_weights > 0).sum().clamp(min=1).float()
+            losses[f"s{i}.loss_cls"] = w * softmax_cross_entropy(
+                flat(cls_logits).float(), flat(t.labels), weight=label_weights, avg_factor=avg
+            )
+        losses[f"s{i}.loss_bbox"] = w * bbox_reg_loss(
+            flat(deltas), flat(t.labels), flat(t.bbox_targets), flat(t.bbox_weights), reg_class_agnostic=True
+        )
+        return losses
+
+    def _refine(self, i, t, deltas, img_shapes) -> torch.Tensor:
+        """Stage i's sampled rois moved by its deltas: the next stage's
+        proposals, which carry no gradient."""
+        with torch.no_grad():
+            return self._decode(t.rois, deltas.detach(), self.cfg.cascade.stage_target_stds[i], img_shapes.float())
+
     def loss(
         self,
         images: torch.Tensor,  # (B, H, W, 3) normalised, padded bucket
@@ -88,51 +134,17 @@ class CascadeRCNN(FasterRCNN):
         img_shapes: torch.Tensor,  # (B, 2) content (h, w) before padding
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """The RPN's losses, then per stage i the GS per-bin losses
-        "s{i}.loss_cls_bin*" (or softmax CE "s{i}.loss_cls") and the
-        class-agnostic "s{i}.loss_bbox", each times the stage's weight
+        """The RPN's losses, then each stage's (`_stage_losses`)
         (cascade_rcnn.py:207-298). Sampling draws from `generator`."""
-        c = self.cfg
-        cc = c.cascade
         feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
         rois, roi_valid = proposals.boxes, proposals.valid
-        flat = lambda x: x.reshape(-1, *x.shape[2:])
         for i, head in enumerate(self.bbox_heads):
-            iou = cc.stage_pos_ious[i]
-            stage_cfg = dataclasses.replace(
-                c.rcnn_train,
-                assigner=dataclasses.replace(c.rcnn_train.assigner, pos_iou_thr=iou, neg_iou_thr=iou, min_pos_iou=iou),
-            )
-            stds = cc.stage_target_stds[i]
-            with torch.no_grad():
-                t = roi_targets(
-                    rois, roi_valid, gt_boxes, gt_labels, gt_mask, stage_cfg, generator,
-                    c.bbox_head.target_means, stds,
-                )
+            t = self._stage_targets(i, rois, roi_valid, gt_boxes, gt_labels, gt_mask, generator)
             cls_logits, deltas = head(self._pool(feats, t.rois))
-            w = cc.stage_loss_weights[i]
-            if c.bbox_head.use_gs:
-                stage = gs_loss(
-                    flat(cls_logits), flat(t.labels), flat(t.roi_valid), self.partition,
-                    c.bbox_head.gs.others_sample_ratio, generator,
-                )
-                losses.update({f"s{i}.{name}": v * w for name, v in stage.items()})
-            else:
-                label_weights = flat(t.label_weights)
-                avg = (label_weights > 0).sum().clamp(min=1).float()
-                losses[f"s{i}.loss_cls"] = w * softmax_cross_entropy(
-                    flat(cls_logits).float(), flat(t.labels), weight=label_weights, avg_factor=avg
-                )
-            losses[f"s{i}.loss_bbox"] = w * bbox_reg_loss(
-                flat(deltas), flat(t.labels), flat(t.bbox_targets), flat(t.bbox_weights), reg_class_agnostic=True
-            )
+            losses.update(self._stage_losses(i, cls_logits, deltas, t, generator))
             if i < len(self.bbox_heads) - 1:
-                # the next stage's proposals carry no gradient
-                with torch.no_grad():
-                    rois = self._decode(t.rois, deltas.detach(), stds, img_shapes.float())
-                roi_valid = t.roi_valid
+                rois, roi_valid = self._refine(i, t, deltas, img_shapes), t.roi_valid
         return losses
-
 
 def build_cascade(
     cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32

@@ -280,8 +280,8 @@ def build_model(
 ) -> FasterRCNN:
     """The detector family `cfg` names (JAX `detector.py:543`): HTC when
     `cfg.htc` is set, else Cascade R-CNN when `cfg.cascade` is, else Faster
-    R-CNN. All have `predict` alike, and Faster and Cascade R-CNN `loss`
-    (HTC's is not ported yet). The detector variants are not ported."""
+    R-CNN. All have `predict` and `loss` (HTC's also takes the gt mask
+    crops). The detector variants are not ported."""
     if getattr(cfg, "variant", None) is not None:
         raise NotImplementedError("variant detectors are not ported yet")
     if cfg.htc is not None:

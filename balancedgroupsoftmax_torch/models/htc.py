@@ -1,8 +1,8 @@
-"""Hybrid Task Cascade at inference: the cascade with a semantic branch and
+"""Hybrid Task Cascade, inference and training: the cascade with a semantic branch and
 mask heads with information flow (JAX `models/htc.py`: `HTC` :43, `setup`
 :48, `_pool_semantic` :136, `_run_stages` :169, `predict` :405,
 `_predict_feats` :417, `predict_with_masks` :461, `_masks_feats` :488,
-`build_htc` :522).
+`build_htc` :522, `loss` :240).
 
 It is the port's `CascadeRCNN` (backbone, FPN, RPN with K1, three
 class-agnostic stages over K2, the multiclass NMS with K6 then K5) plus:
@@ -14,12 +14,17 @@ class-agnostic stages over K2, the multiclass NMS with K6 then K5) plus:
   feature through its `conv_res` (`mask_info_flow`); the class-selected
   logits of the three are averaged and passed through a sigmoid.
 With the HTC-DCN backbone (X101-64x4d, deformable c3-c5) the backbone runs
-K7 in 30 of its blocks. Training (`HTC.loss`) is not ported yet.
+K7 in 30 of its blocks, and in training K7b for their gradient.
+
+Training (`HTC.loss`, JAX :240-403) is the cascade's loss with the semantic
+branch's loss, the semantic RoI features and a mask branch a stage
+(interleaved targets, information flow, class-selected logits, targets
+resampled from the gt crops of `ops/mask.py`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -27,10 +32,11 @@ from torch import nn
 from ..config import DetectorConfig
 from ..gs.partition import GSPartition
 from ..kernels import batched_multilevel_roi_align
+from ..ops.mask import mask_targets
 from .cascade import CascadeRCNN
 from .detector import Detections
-from .mask_head import FCNMaskHead
-from .semantic_head import FusedSemanticHead
+from .mask_head import FCNMaskHead, mask_head_loss
+from .semantic_head import FusedSemanticHead, semantic_seg_loss
 
 
 class HTC(CascadeRCNN):
@@ -58,13 +64,77 @@ class HTC(CascadeRCNN):
             special.update({head.upsample: ("he", None), head.conv_logits: ("normal", 0.001)})
         return special
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("HTC training is not ported yet")
+    def loss(
+        self,
+        images: torch.Tensor,  # (B, H, W, 3) normalised, padded bucket
+        gt_boxes: torch.Tensor,  # (B, G, 4)
+        gt_labels: torch.Tensor,  # (B, G) int, 1-based
+        gt_mask: torch.Tensor,  # (B, G) bool
+        img_shapes: torch.Tensor,  # (B, 2) content (h, w) before padding
+        gt_mask_crops: torch.Tensor,  # (B, G, CROP, CROP) box-normalised gt masks
+        gt_semantic_seg: Optional[torch.Tensor] = None,  # (B, H / 8, W / 8) int stuff map
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The RPN's losses, "loss_semantic_seg" when a stuff map is given,
+        then per stage i the cascade's "s{i}.loss_cls*" and "s{i}.loss_bbox"
+        on the FPN and semantic RoI features, and "s{i}.loss_mask": the
+        stage's rois refined by its own deltas (no gradient) are assigned and
+        sampled again (interleaved), the first `mask_cap` = sampler.num x
+        pos_fraction rows of them are pooled at mask_size / 2, run through
+        the heads of stages 0..i-1 for the information flow and then stage
+        i's head, class-selected, against the resampled gt crops
+        (htc.py forward_train). Each stage's losses are times its weight.
+        Sampling draws from `generator`."""
+        c = self.cfg
+        feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
+        trunk = self.semantic_head(feats)
+        sem_feat = self._semantic(feats, trunk)
+        if gt_semantic_seg is not None:
+            losses["loss_semantic_seg"] = semantic_seg_loss(
+                self.semantic_head.conv_logits(trunk), gt_semantic_seg,
+                c.htc.semantic_ignore_label, c.htc.semantic_loss_weight,
+            )
+        m_size = c.mask_head.mask_size // 2
+        bbox_pool = self._fused_pool(sem_feat, "bbox")
+        mask_pool = self._fused_pool(sem_feat, "mask", m_size)
+        mask_cap = max(int(c.rcnn_train.sampler.num * c.rcnn_train.sampler.pos_fraction), 1)
+        num_fg = c.mask_head.num_classes - 1
+        rois, roi_valid = proposals.boxes, proposals.valid
+        targets = lambda i, r, v: self._stage_targets(i, r, v, gt_boxes, gt_labels, gt_mask, generator)
+        for i, head in enumerate(self.bbox_heads):
+            t = targets(i, rois, roi_valid)
+            cls_logits, deltas = head(bbox_pool(feats, t.rois))
+            losses.update(self._stage_losses(i, cls_logits, deltas, t, generator))
+            refined = self._refine(i, t, deltas, img_shapes)
+            mt = targets(i, refined, t.roi_valid) if c.htc.interleaved else t
+            m_rois, m_labels = mt.rois[:, :mask_cap].contiguous(), mt.labels[:, :mask_cap]
+            m_pos = (m_labels > 0) & mt.roi_valid[:, :mask_cap]
+            x = mask_pool(feats, m_rois).flatten(0, 1).permute(0, 3, 1, 2)
+            last = None
+            if c.htc.mask_info_flow:
+                for j in range(i):
+                    _, last = self.mask_heads[j](x, res_feat=last)
+            labels = None if c.mask_head.class_agnostic else (m_labels.flatten() - 1).clamp(0, num_fg - 1)
+            logits, _ = self.mask_heads[i](x, res_feat=last, labels=labels)
+            with torch.no_grad():
+                m_targets = mask_targets(
+                    m_rois, gt_boxes, mt.pos_gt_inds[:, :mask_cap], gt_mask_crops, m_pos, c.mask_head.mask_size
+                )
+            losses[f"s{i}.loss_mask"] = c.cascade.stage_loss_weights[i] * mask_head_loss(
+                logits, m_targets.flatten(0, 1), m_labels.flatten(), m_pos.flatten(),
+                class_agnostic=c.mask_head.class_agnostic, preselected=not c.mask_head.class_agnostic,
+            )
+            if i < len(self.bbox_heads) - 1:
+                rois, roi_valid = refined, t.roi_valid
+        return losses
 
-    def _semantic(self, feats) -> torch.Tensor:
+    def _semantic(self, feats, trunk: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The semantic feature (B, C, H / 8, W / 8), channels-last, so that K2
-        reads it as NHWC in every pooling without a copy."""
-        return self.semantic_head(feats).contiguous(memory_format=torch.channels_last)
+        reads it as NHWC in every pooling without a copy; from the head's
+        `trunk` when the caller has it."""
+        if trunk is None:
+            trunk = self.semantic_head(feats)
+        return self.semantic_head.feature(trunk).contiguous(memory_format=torch.channels_last)
 
     def _pool_semantic(self, sem_feat: torch.Tensor, rois: torch.Tensor, out_size: int) -> torch.Tensor:
         """RoIAlign (K2) of the stride-8 semantic feature: a one-level

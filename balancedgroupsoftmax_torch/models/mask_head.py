@@ -1,5 +1,5 @@
-"""FCN mask head of HTC, at inference (JAX `models/mask_head.py`
-`_ClassSelect1x1` :18, `FCNMaskHead` :60).
+"""FCN mask head of HTC and its loss (JAX `models/mask_head.py`
+`_ClassSelect1x1` :18, `FCNMaskHead` :60, `mask_head_loss` :119).
 
 `num_convs` 3x3 convs with relu, a 2x2 stride-2 transposed conv with relu,
 then the per-class 1x1 logits. With the mask information flow, `conv_res`
@@ -7,7 +7,7 @@ then the per-class 1x1 logits. With the mask information flow, `conv_res`
 (htc_mask_head.py). Given labels (0-based foreground classes, clipped into
 range as in JAX), each RoI's logits are only its class's map: the selected
 row of the 1x1 kernel dotted with the feature, so no (N, classes, 2S, 2S)
-tensor is formed.
+tensor is formed, and in training only the selected rows get a gradient.
 """
 
 from __future__ import annotations
@@ -56,3 +56,28 @@ class FCNMaskHead(nn.Module):
         bsel = self.conv_logits.bias[idx].float()
         logits = torch.einsum("nchw,nc->nhw", x, wsel).float() + bsel[:, None, None]
         return logits.to(x.dtype), feat
+
+
+def mask_head_loss(
+    mask_logits: torch.Tensor,  # (N, M, M) class-selected, or (N, num_out, M, M)
+    mask_targets: torch.Tensor,  # (N, M, M) binary
+    labels: torch.Tensor,  # (N,) 1-based gt class, 0 background
+    pos_mask: torch.Tensor,  # (N,) bool
+    class_agnostic: bool = False,
+    preselected: bool = False,
+) -> torch.Tensor:
+    """Binary cross-entropy of the target class's mask, each RoI's mean over
+    its pixels, averaged over the positives (fcn_mask_head.py:109-123).
+    `preselected` marks logits the head already gathered to the target class
+    (its `labels` path)."""
+    if preselected:
+        sel = mask_logits
+    elif class_agnostic:
+        sel = mask_logits[:, 0]
+    else:
+        idx = (labels.long() - 1).clamp(0, mask_logits.shape[1] - 1)
+        sel = mask_logits[torch.arange(mask_logits.shape[0], device=idx.device), idx]
+    x = sel.float()
+    bce = x.clamp(min=0) - x * mask_targets + torch.log1p(torch.exp(-x.abs()))
+    per = bce.mean(dim=(1, 2))
+    return (per * pos_mask).sum() / pos_mask.sum().clamp(min=1)

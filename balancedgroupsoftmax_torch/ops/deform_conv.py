@@ -1,10 +1,15 @@
-"""Deformable convolution v1/v2: kernel K7, its plain version, and the layer.
+"""Deformable convolution v1/v2: kernels K7 and K7b, their plain versions,
+and the layer.
 
 `deform_conv2d` replaces JAX `pallas/deform_conv.py` `deform_conv2d_fused`
 (:501): the forward of a deformable convolution with the grouped weight
 contracted in the same kernel. It launches `bags_deform_conv_forward` of
 `csrc/deform_conv.cu` on a CUDA tensor and runs `deform_conv2d_reference` on a
-CPU tensor.
+CPU tensor. `deform_conv2d_backward` (K7b, `bags_deform_conv_backward`) is
+its gradient, as JAX's custom VJP (:499-564) takes it from the XLA path;
+`_DeformConv` joins the two into one autograd Function, which `DeformConv`
+goes through, so a deformable layer trains on the card. It saves the inputs,
+not the sampled columns: K7b samples again.
 
 Semantics (JAX `ops/deform_conv.py` `deform_conv2d` :240): tap k = (ky, kx)
 of output position (i, j) samples the input bilinearly at
@@ -27,7 +32,7 @@ the weight is (C_out, C / groups, kh, kw), as `Conv2d(groups=...)` holds it.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -115,6 +120,101 @@ def launch_plan(
     return None
 
 
+class Geometry(NamedTuple):
+    """Where each (position, tap) samples, (B, Ho, Wo, taps) each."""
+
+    y0: torch.Tensor  # floor of the sampling row, long
+    x0: torch.Tensor  # floor of the sampling column, long
+    ly: torch.Tensor  # the row's fraction, f32
+    lx: torch.Tensor  # the column's fraction, f32
+    valid: torch.Tensor  # the (clamped) position lies inside (-1, H) x (-1, W)
+    gy: torch.Tensor  # d(row) / d(dy): 1, or at D > 0 the clamp's slope (0.5 at exactly +-D, as jnp.clip's)
+    gx: torch.Tensor  # d(column) / d(dx)
+    hy: torch.Tensor  # 1 where the row's derivative counts the high corners, else 0 (see `geometry`)
+    hx: torch.Tensor  # the same for the column
+
+
+def geometry(h: int, w: int, offsets: torch.Tensor, kh: int, kw: int, stride: int, padding: int, window: int) -> Geometry:
+    """The sampling positions of every (position, tap) of an (h, w) input.
+
+    At D > 0, JAX's `_shift_window_cols` blends over the static shifts -D to
+    k - 1 + D, so a relative position whose floor is k - 1 + D (the last tap
+    at an offset of exactly +D) has no high neighbour in its sum: its value
+    is the same (that corner's weight is 0) but its derivative in the
+    fraction loses the high corners' term. `hy`/`hx` are 0 there, so that
+    the gradient is JAX's."""
+    _, ho, wo, _ = offsets.shape
+    dev = offsets.device
+    tap_y = torch.arange(kh, dtype=torch.float32, device=dev).repeat_interleave(kw)
+    tap_x = torch.arange(kw, dtype=torch.float32, device=dev).repeat(kh)
+    base_yi = torch.arange(ho, device=dev) * stride - padding
+    base_xi = torch.arange(wo, device=dev) * stride - padding
+    base_y = base_yi.float()[:, None, None]
+    base_x = base_xi.float()[None, :, None]
+    dy = offsets[..., 0::2].float()
+    dx = offsets[..., 1::2].float()
+    if window > 0:
+        d = float(window)
+        # max then min, as jnp.clip: the gradient at exactly +-D is halved
+        lo, hi = dy.new_tensor(-d), dy.new_tensor(d)
+        rel_y = tap_y + torch.minimum(torch.maximum(dy, lo), hi)
+        rel_x = tap_x + torch.minimum(torch.maximum(dx, lo), hi)
+        ys = base_y + rel_y
+        xs = base_x + rel_x
+        fy = torch.floor(rel_y)
+        fx = torch.floor(rel_x)
+        ly = rel_y - fy
+        lx = rel_x - fx
+        y0 = base_yi[:, None, None] + fy.long()
+        x0 = base_xi[None, :, None] + fx.long()
+        slope = lambda v: torch.where(v.abs() < d, 1.0, torch.where(v.abs() == d, 0.5, 0.0))
+        gy, gx = slope(dy), slope(dx)
+        hy = (fy < kh - 1 + window).float()
+        hx = (fx < kw - 1 + window).float()
+    else:
+        ys = (base_y + tap_y) + dy
+        xs = (base_x + tap_x) + dx
+        fy = torch.floor(ys)
+        fx = torch.floor(xs)
+        ly = ys - fy
+        lx = xs - fx
+        y0 = fy.long()
+        x0 = fx.long()
+        gy = gx = hy = hx = torch.ones_like(ly)
+    valid = (ys > -1.0) & (ys < h) & (xs > -1.0) & (xs < w)
+    return Geometry(y0, x0, ly, lx, valid, gy, gx, hy, hx)
+
+
+def corners(x: torch.Tensor, g: Geometry) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The four corners of every sample, in the blend's order (low-low,
+    low-high, high-low, high-high): (index into x's (B * H * W) pixels,
+    clamped into the image; inside the image; the value (B, Ho, Wo, taps, C)
+    in f32, 0 outside)."""
+    b, h, w, c = x.shape
+    flat = x.reshape(-1, c)
+    image = (torch.arange(b, device=x.device) * (h * w))[:, None, None, None]
+    out = []
+    for yy, xx in ((g.y0, g.x0), (g.y0, g.x0 + 1), (g.y0 + 1, g.x0), (g.y0 + 1, g.x0 + 1)):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        idx = image + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+        v = flat.index_select(0, idx.reshape(-1)).reshape(*idx.shape, c).float()
+        out.append((idx, inside, torch.where(inside[..., None], v, torch.zeros((), device=x.device))))
+    return out
+
+
+def _blend(g: Geometry, values: list[torch.Tensor]) -> torch.Tensor:
+    """The samples (B, Ho, Wo, taps, C) in f32, 0 where the position is not
+    valid, blended in the corners' order."""
+    hy = 1.0 - g.ly
+    hx = 1.0 - g.lx
+    v00, v01, v10, v11 = values
+    acc = (hy * hx)[..., None] * v00
+    acc = acc + (hy * g.lx)[..., None] * v01
+    acc = acc + (g.ly * hx)[..., None] * v10
+    acc = acc + (g.ly * g.lx)[..., None] * v11
+    return torch.where(g.valid[..., None], acc, torch.zeros((), device=acc.device))
+
+
 def sample_cols(
     x: torch.Tensor,  # (B, H, W, C)
     offsets: torch.Tensor,  # (B, Ho, Wo, 2 * taps) f32
@@ -126,56 +226,8 @@ def sample_cols(
 ) -> torch.Tensor:
     """The bilinear samples of every tap, (B, Ho, Wo, taps, C), blended in
     f32 and rounded to x's dtype."""
-    b, h, w, c = x.shape
-    _, ho, wo, _ = offsets.shape
-    dev = x.device
-    tap_y = torch.arange(kh, dtype=torch.float32, device=dev).repeat_interleave(kw)
-    tap_x = torch.arange(kw, dtype=torch.float32, device=dev).repeat(kh)
-    base_yi = torch.arange(ho, device=dev) * stride - padding
-    base_xi = torch.arange(wo, device=dev) * stride - padding
-    base_y = base_yi.float()[:, None, None]
-    base_x = base_xi.float()[None, :, None]
-    dy = offsets[..., 0::2].float()
-    dx = offsets[..., 1::2].float()
-    if shift_window > 0:
-        d = float(shift_window)
-        rel_y = tap_y + dy.clamp(-d, d)
-        rel_x = tap_x + dx.clamp(-d, d)
-        ys = base_y + rel_y
-        xs = base_x + rel_x
-        fy = torch.floor(rel_y)
-        fx = torch.floor(rel_x)
-        ly = rel_y - fy
-        lx = rel_x - fx
-        y0 = base_yi[:, None, None] + fy.long()
-        x0 = base_xi[None, :, None] + fx.long()
-    else:
-        ys = (base_y + tap_y) + dy
-        xs = (base_x + tap_x) + dx
-        fy = torch.floor(ys)
-        fx = torch.floor(xs)
-        ly = ys - fy
-        lx = xs - fx
-        y0 = fy.long()
-        x0 = fx.long()
-    valid = (ys > -1.0) & (ys < h) & (xs > -1.0) & (xs < w)
-    hy = 1.0 - ly
-    hx = 1.0 - lx
-    flat = x.reshape(-1, c)
-    image = (torch.arange(b, device=dev) * (h * w))[:, None, None, None]
-
-    def corner(yy, xx):
-        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-        idx = image + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
-        v = flat.index_select(0, idx.reshape(-1)).reshape(*idx.shape, c).float()
-        return torch.where(inside[..., None], v, torch.zeros((), device=dev))
-
-    acc = (hy * hx)[..., None] * corner(y0, x0)
-    acc = acc + (hy * lx)[..., None] * corner(y0, x0 + 1)
-    acc = acc + (ly * hx)[..., None] * corner(y0 + 1, x0)
-    acc = acc + (ly * lx)[..., None] * corner(y0 + 1, x0 + 1)
-    acc = torch.where(valid[..., None], acc, torch.zeros((), device=dev))
-    return acc.to(x.dtype)
+    g = geometry(x.shape[1], x.shape[2], offsets, kh, kw, stride, padding, shift_window)
+    return _blend(g, [v for _, _, v in corners(x, g)]).to(x.dtype)
 
 
 def deform_conv2d_reference(
@@ -202,6 +254,25 @@ def deform_conv2d_reference(
     return out.reshape(b, ho, wo, c_out).to(x.dtype)
 
 
+def _check_args(x, offsets, weight, mask, stride, padding, groups) -> tuple:
+    """Raise unless K7 and K7b take these tensors; their shapes (b, h, w, c,
+    ho, wo, c_out, c_g, kh, kw)."""
+    b, h, w, c = x.shape
+    c_out, c_g, kh, kw = weight.shape
+    taps = kh * kw
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"deform_conv kernel takes f32 or bf16 input, got {x.dtype}")
+    if c_g * groups != c or c_out % groups:
+        raise ValueError(f"{c} input and {c_out} output channels do not split into {groups} groups of weight {tuple(weight.shape)}")
+    ho, wo = _out_size(h, kh, stride, padding), _out_size(w, kw, stride, padding)
+    cuda.check(x, x.dtype, (b, h, w, c), "x")
+    cuda.check(offsets, torch.float32, (b, ho, wo, 2 * taps), "offsets")
+    cuda.check(weight, x.dtype, (c_out, c_g, kh, kw), "weight")
+    if mask is not None:
+        cuda.check(mask, torch.float32, (b, ho, wo, taps), "mask")
+    return b, h, w, c, ho, wo, c_out, c_g, kh, kw
+
+
 def deform_conv2d(
     x: torch.Tensor,  # (B, H, W, C) f32 or bf16, contiguous
     offsets: torch.Tensor,  # (B, Ho, Wo, 2 * taps) f32, contiguous
@@ -216,19 +287,7 @@ def deform_conv2d(
     multiple of 8 and C / groups a multiple of 4, and refuses others."""
     if x.device.type == "cpu":
         return deform_conv2d_reference(x, offsets, weight, mask, stride, padding, groups, shift_window)
-    b, h, w, c = x.shape
-    c_out, c_g, kh, kw = weight.shape
-    taps = kh * kw
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"deform_conv kernel takes f32 or bf16 input, got {x.dtype}")
-    if c_g * groups != c or c_out % groups:
-        raise ValueError(f"{c} input and {c_out} output channels do not split into {groups} groups of weight {tuple(weight.shape)}")
-    ho, wo = _out_size(h, kh, stride, padding), _out_size(w, kw, stride, padding)
-    cuda.check(x, x.dtype, (b, h, w, c), "x")
-    cuda.check(offsets, torch.float32, (b, ho, wo, 2 * taps), "offsets")
-    cuda.check(weight, x.dtype, (c_out, c_g, kh, kw), "weight")
-    if mask is not None:
-        cuda.check(mask, torch.float32, (b, ho, wo, taps), "mask")
+    b, h, w, c, ho, wo, c_out, c_g, kh, kw = _check_args(x, offsets, weight, mask, stride, padding, groups)
     plan = LaunchPlan(0, 0, 0, 0, 0, 0)  # the f32 route plans for itself
     if x.dtype == torch.bfloat16:
         plan = launch_plan(b, ho, wo, c, groups, c_out, kh, kw, stride, shift_window)
@@ -250,6 +309,198 @@ def deform_conv2d(
         plan.th, plan.tw, plan.cc, plan.nch, plan.smem,
     )
     return out
+
+
+def deform_conv2d_backward_reference(
+    grad_out: torch.Tensor,  # (B, Ho, Wo, C_out) in x's dtype
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    weight: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: int = 1,
+    groups: int = 1,
+    shift_window: int = 0,
+    needs: Sequence[bool] = (True, True, True, True),
+) -> tuple[Optional[torch.Tensor], ...]:
+    """Plain version of K7b: the gradient of `deform_conv2d_reference`,
+    written out. Returns (dx, d_offsets, d_weight, d_mask) in the dtypes of
+    x, offsets, weight and mask; an entry is None where `needs` (x, offsets,
+    weight, mask) says no, or for a v1 layer's mask.
+
+    Everything is computed in f32 from the inputs' values, and each result is
+    rounded once to its dtype. The forward's roundings to x's dtype (a sample,
+    the mask, a masked sample) are kept where their values are used (the
+    weight's and the mask's gradients) and pass the gradient through
+    unchanged. In f32 this is JAX's autodiff of `ops/deform_conv.py`
+    `deform_conv2d`: with grad_col the gradient of a sample (the grouped
+    contraction of grad_out with the weight, times the mask in v2), dx gets
+    each corner's bilinear weight times grad_col, scattered; the offsets get
+    the channel sum of grad_col times the blend's derivative in its fraction,
+    hx (v10 - v00) + lx (v11 - v01) for dy, times the clamp's slope (1 inside
+    +-D, 1/2 at exactly +-D, 0 beyond); the mask gets the channel sum of the
+    gradient before the mask times the sample; the weight the positions' sum
+    of grad_out times the (masked) samples. An invalid sample gets no
+    gradient, and a corner outside the image none. At the top of JAX's shift
+    range the high corners drop out of the offsets' term (`geometry`)."""
+    c_out, c_g, kh, kw = weight.shape
+    b, h, w, c = x.shape
+    _, ho, wo, _ = offsets.shape
+    taps, o_g, n = kh * kw, c_out // groups, b * ho * wo
+    g = geometry(h, w, offsets, kh, kw, stride, padding, shift_window)
+    cs = corners(x, g)
+    v00, v01, v10, v11 = (v for _, _, v in cs)
+    sample = _blend(g, [v00, v01, v10, v11]).to(x.dtype).float()
+    col = sample
+    if mask is not None:
+        m = mask.to(x.dtype).float()[..., None]
+        col = (sample * m).to(x.dtype).float()
+    gout = grad_out.float().reshape(n, groups, o_g)
+    dw = None
+    if needs[2]:
+        dw = torch.einsum("ngo,ntgc->goct", gout, col.reshape(n, taps, groups, c_g))
+        dw = dw.reshape(c_out, c_g, kh, kw).to(weight.dtype)
+    if not (needs[0] or needs[1] or (needs[3] and mask is not None)):
+        return None, None, dw, None
+    wt = weight.float().reshape(groups, o_g, c_g, taps)
+    grad_col = torch.einsum("ngo,goct->ntgc", gout, wt).reshape(b, ho, wo, taps, c)
+    d_mask = (grad_col * sample).sum(-1) if mask is not None and needs[3] else None
+    grad_s = grad_col * m if mask is not None else grad_col
+    grad_s = torch.where(g.valid[..., None], grad_s, torch.zeros((), device=x.device))
+    d_off = None
+    if needs[1]:
+        hy, hx = 1.0 - g.ly, 1.0 - g.lx
+        ky, kx = g.hy[..., None], g.hx[..., None]
+        d_ly = (grad_s * (hx[..., None] * (ky * v10 - v00) + g.lx[..., None] * (ky * v11 - v01))).sum(-1)
+        d_lx = (grad_s * (hy[..., None] * (kx * v01 - v00) + g.ly[..., None] * (kx * v11 - v10))).sum(-1)
+        d_off = torch.stack([d_ly * g.gy, d_lx * g.gx], -1).reshape(b, ho, wo, 2 * taps)
+    dx = None
+    if needs[0]:
+        hy, hx = 1.0 - g.ly, 1.0 - g.lx
+        acc = torch.zeros(b * h * w, c, dtype=torch.float32, device=x.device)
+        for (idx, inside, _), wk in zip(cs, (hy * hx, hy * g.lx, g.ly * hx, g.ly * g.lx)):
+            share = torch.where(inside[..., None], wk[..., None] * grad_s, torch.zeros((), device=x.device))
+            acc.index_add_(0, idx.reshape(-1), share.reshape(-1, c))
+        dx = acc.reshape(b, h, w, c).to(x.dtype)
+    return dx, d_off, dw, d_mask
+
+
+BACKWARD_TILE = 32  # output positions a tile of K7b
+BACKWARD_ACC = 16  # weight-gradient sums a thread of K7b's weight pass holds
+_THREADS = 256
+
+
+class BackwardPlan(NamedTuple):
+    """How K7b cuts one layer (csrc/deform_conv.cu checks the same numbers).
+    Data pass: tiles of `tp` positions x chunks of `gpc` groups. Weight pass:
+    blocks of `oc` output channels x `splits` ranges of the tiles."""
+
+    tp: int
+    gpc: int
+    oc: int
+    splits: int
+    smem_data: int  # shared memory a block, bytes
+    smem_weight: int
+
+
+def backward_plan(n: int, c: int, groups: int, c_out: int, kh: int, kw: int) -> Optional[BackwardPlan]:
+    """K7b's plan for n = B * Ho * Wo output positions, or None if no plan
+    fits. The data pass takes the most whole groups of at most 64 input and
+    64 output channels a block. The weight pass gives each block the most
+    output channels (whole groups, or a divisor of one group) whose
+    taps x c_g sums fit `BACKWARD_ACC` a thread, and enough ranges of the
+    positions that the grid holds two blocks an SM."""
+    c_g, o_g, taps, tp = c // groups, c_out // groups, kh * kw, BACKWARD_TILE
+    per = _THREADS * BACKWARD_ACC
+    divisors = lambda v: [d for d in range(1, v + 1) if v % d == 0]
+    gpc = max([d for d in divisors(groups) if d * c_g <= 64 and d * o_g <= 64], default=1)
+    whole = [d * o_g for d in divisors(groups) if d * o_g * taps * c_g <= per]
+    parts = [d for d in divisors(o_g) if d * taps * c_g <= per]
+    if not (whole or parts):
+        return None
+    oc = max(whole) if whole else max(parts)
+    pt = tp * taps
+    smem_data = pt * 80 + tp * gpc * o_g * 4 + taps * gpc * o_g * c_g * 4
+    smem_weight = pt * 36 + tp * oc * 4 + pt * max(oc // o_g, 1) * c_g * 4
+    if max(smem_data, smem_weight) > SHARED_BYTES:
+        return None
+    tiles = -(-n // tp)
+    splits = min(tiles, max(1, -(-2 * SMS // (c_out // oc))))
+    splits = -(-tiles // -(-tiles // splits))  # every range holds at least one tile
+    return BackwardPlan(tp, gpc, oc, splits, smem_data, smem_weight)
+
+
+def deform_conv2d_backward(
+    grad_out: torch.Tensor,  # (B, Ho, Wo, C_out) in x's dtype, contiguous
+    x: torch.Tensor,  # (B, H, W, C) f32 or bf16, contiguous
+    offsets: torch.Tensor,  # (B, Ho, Wo, 2 * taps) f32, contiguous
+    weight: torch.Tensor,  # (C_out, C / groups, kh, kw) in x's dtype, contiguous
+    mask: Optional[torch.Tensor] = None,  # (B, Ho, Wo, taps) f32, contiguous
+    stride: int = 1,
+    padding: int = 1,
+    groups: int = 1,
+    shift_window: int = 0,
+    needs: Sequence[bool] = (True, True, True, True),
+) -> tuple[Optional[torch.Tensor], ...]:
+    """K7b: (dx, d_offsets, d_weight, d_mask) of `deform_conv2d`, as
+    `deform_conv2d_backward_reference` gives them. The kernel takes C and
+    C / groups multiples of 4 and x aligned to 16 bytes, and refuses
+    others."""
+    if x.device.type == "cpu":
+        return deform_conv2d_backward_reference(
+            grad_out, x, offsets, weight, mask, stride, padding, groups, shift_window, needs
+        )
+    b, h, w, c, ho, wo, c_out, c_g, kh, kw = _check_args(x, offsets, weight, mask, stride, padding, groups)
+    cuda.check(grad_out, x.dtype, (b, ho, wo, c_out), "grad_out")
+    plan = backward_plan(b * ho * wo, c, groups, c_out, kh, kw)
+    if c % 4 or c_g % 4 or x.data_ptr() % 16 or plan is None:
+        raise ValueError(
+            f"the deform_conv backward kernel takes channels in groups of 4 (C % 4 == 0, C / groups % 4 == 0, "
+            f"x aligned to 16 bytes) and a plan that fits {SHARED_BYTES} bytes of shared memory; got C {c}, "
+            f"groups {groups}, weight {tuple(weight.shape)}"
+        )
+    want_dx, want_off, want_w = needs[0], needs[1], needs[2]
+    want_mask = needs[3] and mask is not None
+    empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=x.device)
+    dx = empty(x.shape, x.dtype) if want_dx else None
+    acc = (dx if x.dtype == torch.float32 else empty(x.shape, torch.float32)) if want_dx else None
+    d_off = empty(offsets.shape, torch.float32) if want_off else None
+    d_mask = empty(mask.shape, torch.float32) if want_mask else None
+    dw = empty(weight.shape, weight.dtype) if want_w else None
+    part = empty((plan.splits, *weight.shape), torch.float32) if want_w else None
+    if not (want_dx or want_off or want_w or want_mask):
+        return None, None, None, None
+    if b * ho * wo == 0 or x.numel() == 0:
+        return tuple(None if t is None else t.zero_() for t in (dx, d_off, dw, d_mask))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    cuda.DEFORM_CONV_BACKWARD(
+        _DTYPE_CODES[x.dtype],
+        x.data_ptr(), offsets.data_ptr(), ptr(mask), weight.data_ptr(), grad_out.data_ptr(),
+        ptr(acc), 0 if dx is None or dx is acc else dx.data_ptr(), ptr(d_off), ptr(d_mask), ptr(part), ptr(dw),
+        b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window,
+        plan.tp, plan.gpc, plan.oc, plan.splits, plan.smem_data, plan.smem_weight,
+    )
+    return dx, d_off, dw, d_mask
+
+
+class _DeformConv(torch.autograd.Function):
+    """K7 forward, K7b backward (the custom VJP of JAX `pallas/deform_conv.py`
+    `deform_conv2d_fused` :499-564). It saves x, the offsets, the weight and
+    the mask, never the sampled columns: K7b samples again."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, weight, mask, stride, padding, groups, shift_window):
+        ctx.args = (stride, padding, groups, shift_window)
+        ctx.save_for_backward(x, offsets, weight, mask)
+        return deform_conv2d(x, offsets, weight, mask, stride, padding, groups, shift_window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, offsets, weight, mask = ctx.saved_tensors
+        grads = deform_conv2d_backward(
+            grad.contiguous(), x, offsets, weight, mask, *ctx.args, needs=ctx.needs_input_grad[:4]
+        )
+        return (*grads, None, None, None, None)
 
 
 class DeformConv(nn.Module):
@@ -292,7 +543,7 @@ class DeformConv(nn.Module):
         off = self.conv_offset(x).float()
         offsets = off[:, : 2 * taps].permute(0, 2, 3, 1).contiguous()
         mask = torch.sigmoid(off[:, 2 * taps :]).permute(0, 2, 3, 1).contiguous() if self.modulated else None
-        out = deform_conv2d(
+        out = _DeformConv.apply(
             x.permute(0, 2, 3, 1).contiguous(),
             offsets,
             self.weight.to(x.dtype).contiguous(),

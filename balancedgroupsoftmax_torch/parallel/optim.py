@@ -37,10 +37,10 @@ def trainable_mask(model: nn.Module, selectp: int = 0, frozen_stages: int = 1) -
     """Parameter name -> trains (tools/train.py:143-158): selectp 0 trains
     everything but the stem and the first `frozen_stages` ResNet stages; 1
     only fc_cls (the BAGS phase 2); 2 the whole bbox head (every stage's, in
-    a cascade); 3 every cascade stage's fc_cls. 4 (the mask head) is not
-    ported yet."""
-    if selectp not in (0, 1, 2, 3):
-        raise NotImplementedError(f"selectp={selectp} is not ported yet")
+    a cascade); 3 every cascade stage's fc_cls; 4 the bbox and mask heads
+    (every stage's, in HTC)."""
+    if selectp not in (0, 1, 2, 3, 4):
+        raise ValueError(f"selectp={selectp}: 0-4")
     frozen = set()
     if frozen_stages >= 0:
         frozen |= {"conv1", "bn1"}
@@ -51,6 +51,8 @@ def trainable_mask(model: nn.Module, selectp: int = 0, frozen_stages: int = 1) -
             return "fc_cls" in name
         if selectp == 2:
             return name.startswith("bbox_head")
+        if selectp == 4:
+            return name.startswith(("bbox_head", "mask_head"))
         parts = name.split(".")
         return not (parts[0] == "backbone" and parts[1] in frozen)
 

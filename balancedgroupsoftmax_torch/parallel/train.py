@@ -3,7 +3,8 @@
 
 One card: the loss and its backward, the gradient's global norm clipped over
 the trainable parameters, an SGD step and a schedule step. Any detector with
-`loss` trains (Faster R-CNN, Cascade R-CNN). The total sums every entry whose
+`loss` trains (Faster R-CNN, Cascade R-CNN, HTC, whose batches also hold
+`gt_mask_crops`). The total sums every entry whose
 name holds "loss", as mmdet's `parse_losses` does, so the cascade's
 "s{i}.loss_*" stage losses count. Data parallelism over several cards is not
 ported yet.
@@ -26,6 +27,7 @@ from ..config import TrainConfig
 from .optim import make_optimizer
 
 BATCH_KEYS = ("images", "gt_boxes", "gt_labels", "gt_mask", "img_shapes")
+MASK_KEY = "gt_mask_crops"  # (B, G, CROP, CROP), in the batches of models with a mask head
 
 
 @dataclasses.dataclass
@@ -82,14 +84,15 @@ def make_train_step(state: TrainState) -> Callable[..., Dict[str, torch.Tensor]]
     """Returns step(batch, generator) -> metrics: the loss dict, detached,
     plus "loss", the sum of the entries whose name holds "loss". `batch` holds images
     (B, H, W, 3), gt_boxes (B, G, 4), gt_labels (B, G), gt_mask (B, G) and
-    img_shapes (B, 2) as tensors or arrays (`data.pipeline.collate`); they
-    are moved to the model's device. Sampling draws from `generator`, or
-    else from the state's."""
+    img_shapes (B, 2) as tensors or arrays (`data.pipeline.collate`), and
+    gt_mask_crops (B, G, CROP, CROP) where the model has a mask head (JAX
+    `parallel/train.py:84`); they are moved to the model's device. Sampling
+    draws from `generator`, or else from the state's."""
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
     device = next(state.model.parameters()).device
 
     def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        inputs = [torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS]
+        inputs = [torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS + ((MASK_KEY,) if MASK_KEY in batch else ())]
         state.optimizer.zero_grad(set_to_none=True)
         losses = state.model.loss(*inputs, generator=state.generator if generator is None else generator)
         total = sum(v for k, v in losses.items() if "loss" in k)

@@ -22,8 +22,12 @@ i) % 2^31, as in the JAX CLI, and a resumed run goes on from the batch where
 the checkpoint stood, so a resumed run takes the steps an uninterrupted one
 would have taken.
 
+For a model with a mask head (the HTC models) each sample also carries its
+gt masks, rasterised from the annotation's segmentations at the original size
+into box-normalised crops (`ops/mask.py`), flipped with the image.
+
 Not ported here: `--dataset cityscapes`, `--remat`, `--autosave-steps`,
-`--val-ann`, `--distributed` and the mask models (ROADMAP A2-A6).
+`--val-ann`, `--distributed` and Mask R-CNN (ROADMAP A2-A6).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ..data.lvis import LvisDataset
 from ..data.pipeline import DetBatcher, PipelineConfig, collate, preprocess_image_file, repeat_factors
 from ..gs.partition import load_partition
 from ..models.detector import build_model
+from ..ops.mask import rasterize_gt_masks
 from ..parallel.train import create_train_state, make_train_step
 from ..utils.checkpoint import load_torchvision_resnet, restore_checkpoint, save_checkpoint, warm_start
 
@@ -60,7 +65,7 @@ def parse_args(argv=None):
     p.add_argument("--resume-from", default=None, help="continue a run from its checkpoint")
     p.add_argument("--pretrained-backbone", default=None, help="torchvision ResNet .pth")
     p.add_argument("--selectp", type=int, default=None,
-                   help="0 all, 1 fc_cls only, 2 bbox head, 3 every cascade stage's fc_cls")
+                   help="0 all, 1 fc_cls only, 2 bbox head, 3 every cascade stage's fc_cls, 4 bbox and mask heads")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=2)
     p.add_argument("--lr", type=float, default=None)
@@ -168,10 +173,17 @@ def main(argv=None) -> dict:
     start_step = state.step
     step_fn = make_train_step(state)
 
+    with_masks = det_cfg.mask_head is not None
+
     def load_sample(idx, epoch):
         ann = ds.get_ann_info(idx)
         rng = np.random.RandomState((args.seed * 1000003 + epoch * 131 + int(idx)) % (2**31))
-        return preprocess_image_file(ds.image_path(idx), ann["bboxes"], ann["labels"], pcfg, True, rng)
+        s = preprocess_image_file(ds.image_path(idx), ann["bboxes"], ann["labels"], pcfg, True, rng)
+        if with_masks:
+            info = ds.img_infos[idx]
+            crops = rasterize_gt_masks(ann["masks"], ann["bboxes"], info["height"], info["width"], pcfg.max_gt_boxes)
+            s["gt_mask_crops"] = crops[:, :, ::-1].copy() if s["flipped"] else crops
+        return s
 
     log_path = os.path.join(args.work_dir, "train_log.jsonl")
     log, ckpt_path = [], None
@@ -179,7 +191,11 @@ def main(argv=None) -> dict:
     batch_pool = ThreadPoolExecutor(max_workers=1)
 
     def make_batch(idxs, epoch):
-        return collate(list(samples_pool.map(lambda i: load_sample(i, epoch), idxs)))
+        samples = list(samples_pool.map(lambda i: load_sample(i, epoch), idxs))
+        batch = collate(samples)
+        if with_masks:
+            batch["gt_mask_crops"] = np.stack([s["gt_mask_crops"] for s in samples])
+        return batch
 
     def reached_max() -> bool:
         return bool(args.max_steps) and state.step >= args.max_steps

@@ -58,6 +58,17 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    device kernels a call as for the cascade;
 12. run a reduced HTC-DCN (depth 50, the same widths) in f32 on a small
    image on the card and on the CPU and compare detections and masks;
+12b. train the same HTC-DCN (`run_htc_train_path`: bf16 compute, f32
+   parameters, batch 2 at 800 x 1344, 20 gt boxes with random polygon masks
+   an image, rasterised into crops as the train CLI does): a warm-up step and
+   timed steps of full training (selectp=0), each launching K7 and K7b 30
+   times, K2 and K2b 12 times and K4 once, moving every deformable layer's
+   weight and offset conv; a profiled step; then a selectp=3 step (only
+   fc_cls moves) and a selectp=4 step (only the bbox and mask heads), neither
+   launching K7b or K2b; hold K7b against its plain version, and time it, at
+   the first layer of each of the six shapes of the 30 (bf16, and f32 at two),
+   and K2/K2b on the semantic pyramid at S = 14; then one small f32 HTC-DCN
+   step (depth 50) on the card and on the CPU, the loss dicts compared;
 13. drive the BAGS two-phase recipe through the CLIs' `main(argv)` at full
    width (`run_flow`): an LVIS-shaped fixture of 8 JPEGs in both buckets
    with 1230 classes, the partition, phase 1 (K4, K2 and K2b once a step),
@@ -1168,16 +1179,32 @@ def gt_labels(rng, partition, n: int):
     return np.array([rng.choice(np.flatnonzero(partition.label2bin == b)) for b in bins], np.int32)
 
 
-def train_batch(seed: int, partition, size=(427, 640)):
-    """A batch through the training pipeline: random images of `size`
-    resized into the landscape bucket, TRAIN_GTS random gt boxes an image,
-    random flips."""
+def polygon_in(rng, box, corners: int = 10) -> list:
+    """A random star-shaped polygon inside `box` (x1, y1, x2, y2): `corners`
+    points around its centre at radii of 0.5 to 1 of the box's half sides."""
     import numpy as np
 
-    from balancedgroupsoftmax_torch.data.pipeline import collate, preprocess_image
+    cx, cy = (box[0] + box[2]) / 2, (box[1] + box[3]) / 2
+    a = np.sort(rng.uniform(0, 2 * np.pi, corners))
+    r = rng.uniform(0.5, 1.0, corners)
+    xs = cx + np.cos(a) * r * (box[2] - box[0]) / 2
+    ys = cy + np.sin(a) * r * (box[3] - box[1]) / 2
+    return [float(v) for xy in zip(xs, ys) for v in xy]
+
+
+def train_batch(seed: int, partition, size=(427, 640), masks: bool = False):
+    """A batch through the training pipeline: random images of `size`
+    resized into the landscape bucket, TRAIN_GTS random gt boxes an image,
+    random flips. With `masks`, each gt also gets a random polygon, and the
+    batch its crops as the train CLI makes them: rasterised at the original
+    size (`rasterize_gt_masks`), flipped with the image."""
+    import numpy as np
+
+    from balancedgroupsoftmax_torch.data.pipeline import PipelineConfig, collate, preprocess_image
+    from balancedgroupsoftmax_torch.ops.mask import rasterize_gt_masks
 
     rng = np.random.RandomState(seed)
-    samples = []
+    samples, crops = [], []
     for _ in range(MAIN_BATCH):
         img = rng.randint(0, 255, (*size, 3), np.uint8)
         xy = rng.uniform(0, 0.8, (TRAIN_GTS, 2)) * size[::-1]
@@ -1185,7 +1212,14 @@ def train_batch(seed: int, partition, size=(427, 640)):
         boxes = np.concatenate([xy, np.minimum(xy + wh, np.array(size[::-1]) - 1)], 1).astype(np.float32)
         labels = gt_labels(rng, partition, TRAIN_GTS)
         samples.append(preprocess_image(img, boxes, labels, train=True, rng=rng))
-    return collate(samples)
+        if masks:
+            segs = [[polygon_in(rng, b)] for b in boxes]
+            c = rasterize_gt_masks(segs, boxes, size[0], size[1], PipelineConfig().max_gt_boxes)
+            crops.append(c[:, :, ::-1] if samples[-1]["flipped"] else c)
+    batch = collate(samples)
+    if masks:
+        batch["gt_mask_crops"] = np.ascontiguousarray(np.stack(crops))
+    return batch
 
 
 def run_train_path(torch, model, phase2):
@@ -1452,23 +1486,29 @@ def spread_offsets(torch, model, images, target: float = 2.0) -> None:
             h.remove()
 
 
+def record_calls(module, name: str, fn) -> list:
+    """The (args, kwargs) of every call of `module.name` that `fn()` makes,
+    in order; the function still runs (and counts its launches)."""
+    seen = []
+    wrapped = getattr(module, name)
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return wrapped(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        fn()
+    finally:
+        setattr(module, name, wrapped)
+    return seen
+
+
 def capture_dcn(torch, fn) -> list:
     """The arguments of every K7 call that `fn()` makes, in order."""
     from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
 
-    seen = []
-    wrapped = ops_dcn.deform_conv2d
-
-    def record(*args):
-        seen.append(args)
-        return wrapped(*args)
-
-    ops_dcn.deform_conv2d = record
-    try:
-        fn()
-    finally:
-        ops_dcn.deform_conv2d = wrapped
-    return seen
+    return [args for args, _ in record_calls(ops_dcn, "deform_conv2d", fn)]
 
 
 def check_k7_path(torch, ops_dcn, layers: list):
@@ -1957,6 +1997,358 @@ def compare_small_htc(torch, model) -> None:
         f"matched, max mask diff over them {mask_err:.3e}")
     if not (score_err <= 1e-4 and total > 0 and matched >= 0.95 * total and mask_err <= 1e-3):
         raise AssertionError("card and CPU detections or masks disagree")
+
+
+# f32 operations K7b does a sample and channel beyond the contractions: the
+# sample's blend (7, for the weight's and the mask's gradients), the blend's
+# derivatives in the two fractions (7 each) and the four corners' shares (4)
+DCN_GRAD_SAMPLE_OPS = 25
+HTC_DCN_SHAPES = 6  # distinct (input, stride) among the X101's 30 deformable layers
+
+
+def dcn_grad_bound(torch, args, grads) -> tuple[float, str]:
+    """K7b's least time: its inputs (x, offsets, weight, mask, grad_out) read
+    once and its gradients written once at HBM rate, against its operations:
+    the two grouped contractions (grad_col and the weight's gradient, 2 *
+    taps * c_g * C_out each a position, at the tensor cores' dense rate for
+    bf16 inputs, the CUDA cores' for f32) and DCN_GRAD_SAMPLE_OPS f32
+    operations a sample and channel on the CUDA cores."""
+    grad_out, x, off, weight, mask = args[:5]
+    b, ho, wo, c_out = grad_out.shape
+    _, c_g, kh, kw = weight.shape
+    tensors = [t for t in (grad_out, x, off, weight, mask) + tuple(grads) if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n, taps = b * ho * wo, kh * kw
+    mac_ops = 2 * 2 * n * c_out * taps * c_g
+    sample_ops = n * taps * x.shape[-1] * DCN_GRAD_SAMPLE_OPS
+    t_ops = sample_ops / F32_FLOP_PER_S + mac_ops / (BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def k7b_err(torch, ops_dcn, args) -> tuple[float, float, tuple]:
+    """K7b against its plain version on the same inputs: each gradient in its
+    dtype, f32 within 1e-5 of its largest |value| and bf16 within one bf16
+    step (2^-7) of it (the sums' order differs, and dx's atomics change it
+    from run to run). Returns the largest difference relative to its
+    gradient's largest |value|, the largest absolute difference, and K7b's
+    gradients."""
+    got = ops_dcn.deform_conv2d_backward(*args)
+    want = ops_dcn.deform_conv2d_backward_reference(*args)
+    torch.cuda.synchronize()
+    scale = 1e-5 if args[1].dtype == torch.float32 else 2.0**-7
+    worst = worst_abs = 0.0
+    for name, g, r, like in zip(("dx", "d_offsets", "d_weight", "d_mask"), got, want, args[1:5]):
+        if like is None or r is None:
+            continue
+        top = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        if not (g.dtype == like.dtype and g.shape == like.shape and err <= scale * top):
+            raise AssertionError(f"K7b {name} {args[1].dtype} {tuple(args[1].shape)}: max abs err {err} above "
+                                 f"{scale * top}")
+        worst = max(worst, err / max(top, 1e-30))
+        worst_abs = max(worst_abs, err)
+    return worst, worst_abs, got
+
+
+def check_k7b_path(torch, ops_dcn, calls: list, layers: int):
+    """K7b on what one selectp=0 HTC-DCN step handed it: at the first layer
+    of each of the six distinct shapes of its `layers`, held against its plain
+    version in bf16 (the path's dtype) and, at c3's stride-2 layer and at
+    c5, in f32; timed by CUDA events beside the plain version and its bound.
+    A step's K7b time is each shape's time times its count of layers."""
+    if len(calls) != layers:
+        raise AssertionError(f"a training step made {len(calls)} K7b calls, not {layers}")
+    shapes = {}
+    for args, kw in calls:
+        key = (tuple(args[1].shape), args[5])
+        shapes.setdefault(key, [args, kw, 0])[2] += 1
+    if len(shapes) != HTC_DCN_SHAPES:
+        raise AssertionError(f"{len(shapes)} distinct K7b shapes, not {HTC_DCN_SHAPES}")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by={"bytes": 0, "operations": 0})
+    worst = 0.0
+    for (xshape, stride), (args, kw, count) in shapes.items():
+        args = args[:9]  # grad_out, x, offsets, weight, mask, stride, padding, groups, D; all gradients
+        err, err_abs, grads = k7b_err(torch, ops_dcn, args)
+        worst = max(worst, err_abs)
+        ms = cuda_time_ms(lambda: ops_dcn.deform_conv2d_backward(*args), 5)
+        plain_ms = cuda_time_ms(lambda: ops_dcn.deform_conv2d_backward_reference(*args), 1)
+        b_ms, b_by = dcn_grad_bound(torch, args, grads)
+        total["ms"] += ms * count
+        total["plain_ms"] += plain_ms * count
+        total["bound_ms"] += b_ms * count
+        total["by"][b_by] += count
+        f32 = ""
+        if xshape[-1] == 2048 and stride == 1 or xshape[-1] == 512 and stride == 2:
+            err32, _, _ = k7b_err(torch, ops_dcn, (args[0].float(), args[1].float(), args[2], args[3].float(), *args[4:]))
+            f32 = f", f32 err {err32:.3e} of the largest"
+        log(f"  K7b at x {xshape} stride {stride} (x{count} a step): {ms:.4f} ms by events, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}); bf16 err {err:.3e} of the largest ({err_abs:.3e} absolute){f32}")
+        del grads
+    log(f"  K7b over the {layers} layers of one step: {total['ms']:.4f} ms by events, plain {total['plain_ms']:.3f} ms, "
+        f"bound {total['bound_ms']:.5f} ms ({total['by']['bytes']} layers bound by bytes, "
+        f"{total['by']['operations']} by operations)")
+    return dict(
+        name="deform_conv_backward",
+        route="cuda",
+        source="balancedgroupsoftmax_torch/csrc/deform_conv.cu",
+        replaces="balancedgroupsoftmax_tpu/pallas/deform_conv.py:544",
+        max_abs_err=worst,
+        ms=total["ms"],
+        plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"],
+        bound_by="bytes" if total["by"]["bytes"] >= total["by"]["operations"] else "operations",
+        library_ms=None,
+        shape=f"the {layers} deformable layers of one HTC training step, bf16, summed",
+    )
+
+
+def check_semantic_pooling(torch, ops_roi, forwards: list, backwards: list) -> None:
+    """K2 and K2b on HTC's semantic pyramid (one stride-8 level) at S = 14,
+    as a training step handed them, against their plain versions."""
+    fwd = [(a, kw) for a, kw in forwards if len(a[0]) == 1 and a[3] == 14]
+    bwd = [(a, kw) for a, kw in backwards if len(a[2]) == 1 and a[4] == 14]
+    if not (fwd and bwd):
+        raise AssertionError(f"no semantic pooling at S = 14 among {len(forwards)} K2 and {len(backwards)} K2b calls")
+    (feats, rois, strides, out_size), _ = fwd[0][0][:4], fwd[0][1]
+    k2_matches(torch, ops_roi, [f.detach() for f in feats], rois, strides, out_size,
+               f"HTC training, semantic pyramid {tuple(feats[0].shape)}, S = 14")
+    args, kw = bwd[0]
+    grad, rois, shapes, strides, out_size = args[:5]
+    k2b_matches(torch, ops_roi, grad, rois, shapes, strides, out_size, kw["dtype"],
+                f"HTC training, semantic pyramid {tuple(shapes)}, S = 14", kw.get("levels"))
+
+
+def run_htc_train_path(torch, model):
+    """Training of the HTC-DCN `model` (bf16, f32 parameters, offsets
+    spread) at 800 x 1344, batch 2, 20 gt boxes with polygon masks an image:
+    a warm-up step and TIMED_STEPS timed steps of full training (selectp=0),
+    each launching K7 and K7b 30 times, K2 and K2b 12 times (three stages'
+    bbox and mask poolings, over the FPN and the semantic feature) and K4
+    once, moving every deformable layer's weight and offset conv; a profiled
+    step; then a BAGS phase-2 step (selectp=3, only fc_cls moves) and a
+    selectp=4 step (only the bbox and mask heads), neither launching K7b or
+    K2b. K7b and the semantic K2/K2b are held to their plain versions on
+    what the first step handed them. Returns the selectp=0 launches and
+    K7b's kernels-line row."""
+    from balancedgroupsoftmax_torch import cuda
+    from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.ops import deform_conv as ops_dcn
+    from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
+    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
+    from balancedgroupsoftmax_torch.zoo import TRAIN_CONFIGS
+
+    dev = next(model.parameters()).device
+    n_dcn = sum(isinstance(m, ops_dcn.DeformConv) for m in model.modules())  # 30 in the X101
+    n_pool = 4 * model.cfg.cascade.num_stages  # bbox and mask, each over the FPN and the semantic feature
+    batch = train_batch(8, model.partition, masks=True)
+    if tuple(batch["images"].shape[1:3]) != MAIN_SIZE or int(batch["gt_mask"].sum()) != MAIN_BATCH * TRAIN_GTS:
+        raise AssertionError(f"training batch {batch['images'].shape}, {int(batch['gt_mask'].sum())} gts")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    named = dict(model.named_parameters())
+    step = make_train_step(create_train_state(model, TrainConfig(selectp=0)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = {n: p.detach().clone() for n, p in named.items()}
+
+    for k in cuda.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = []
+    k2f, k2b = [], []
+    first = lambda: out.append(step(batch, gen))
+    with_k2b = lambda: k2b.extend(record_calls(ops_roi, "roi_align_backward", first))
+    with_k2 = lambda: k2f.extend(record_calls(ops_roi, "roi_align_forward", with_k2b))
+    k7b = record_calls(ops_dcn, "deform_conv2d_backward", with_k2)
+    metrics = out[0]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = sum(step_ms) / TIMED_STEPS
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  first step {first_s:.2f} s; then {ms:.3f} ms per step of {MAIN_BATCH} images "
+        f"(steps {', '.join(f'{t:.3f}' for t in step_ms)} ms), {MAIN_BATCH / ms * 1e3:.2f} images/s, "
+        f"peak memory {peak:.2f} GiB ({card_line()})")
+    log(f"  launches over {TIMED_STEPS + 1} steps: {launches}")
+    log("  losses: " + ", ".join(f"{k} {v.item():.5f}" for k, v in metrics.items()))
+    steps = TIMED_STEPS + 1
+    for sym, each in (("bags_deform_conv_forward", n_dcn), ("bags_deform_conv_backward", n_dcn),
+                      ("bags_roi_align_forward", n_pool), ("bags_roi_align_backward", n_pool),
+                      ("bags_nms_keep_tiled", 1)):
+        if launches[sym] != each * steps:
+            raise AssertionError(f"{sym} launched {launches[sym]} times in {steps} steps, not {each} a step")
+    if not all(torch.isfinite(v).item() for v in metrics.values()) or "s2.loss_mask" not in metrics:
+        raise AssertionError(f"a loss is missing or not finite: {metrics}")
+    moved = {n for n, p in named.items() if not torch.equal(p.detach(), before[n])}
+    trainable = {n for n, p in named.items() if p.requires_grad}
+    dcn = {n for n in named if ".conv2." in n and n.startswith("backbone.layer") and n.endswith("weight")
+           and ("conv_offset" in n or n.replace(".weight", ".conv_offset.weight") in named)}
+    if len(dcn) != 2 * n_dcn or not dcn <= moved or moved - trainable or not all(
+            any(n.startswith(m) for n in moved) for m in ("backbone", "neck", "semantic_head", "bbox_heads", "mask_heads")):
+        raise AssertionError(f"selectp=0 moved {len(moved)} tensors of {len(trainable)} trainable, "
+                             f"{len(dcn & moved)} of the {len(dcn)} deformable weights and offset convs")
+    log(f"  selectp=0 moved {len(moved)} of {len(trainable)} trainable tensors, every deformable layer's weight and "
+        f"offset conv among them, no frozen one")
+    profile_device(torch, "HTC-DCN train step", lambda: step(batch, gen), top=15)
+    del step
+
+    for cfg, expect in ((TRAIN_CONFIGS["gs_htc_x101_64x4d_fpn_lvis"], lambda n: "fc_cls" in n),
+                        (TrainConfig(selectp=4), lambda n: n.startswith(("bbox_heads", "mask_heads")))):
+        phase = make_train_step(create_train_state(model, cfg))
+        before = {n: p.detach().clone() for n, p in named.items()}
+        for k in cuda.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        m = phase(batch, gen)
+        torch.cuda.synchronize()
+        took = (time.perf_counter() - t0) * 1e3
+        moved = sorted(n for n, p in named.items() if not torch.equal(p.detach(), before[n]))
+        if not moved or any(not expect(n) for n in moved) or (cfg.selectp == 4 and {n.split(".")[0] for n in moved}
+                                                               != {"bbox_heads", "mask_heads"}):
+            raise AssertionError(f"selectp={cfg.selectp} moved {moved}")
+        if cuda.DEFORM_CONV_BACKWARD.launches or cuda.ROI_ALIGN_BACKWARD.launches or not torch.isfinite(m["loss"]):
+            raise AssertionError(f"selectp={cfg.selectp}: K7b {cuda.DEFORM_CONV_BACKWARD.launches}, "
+                                 f"K2b {cuda.ROI_ALIGN_BACKWARD.launches} launches, loss {m['loss'].item()}")
+        log(f"  selectp={cfg.selectp} step {took:.3f} ms moved {len(moved)} tensors, all "
+            f"{'fc_cls' if cfg.selectp == 3 else 'bbox or mask head'}; K7b and K2b not launched; "
+            f"loss {m['loss'].item():.5f}")
+        del phase
+
+    check_semantic_pooling(torch, ops_roi, k2f, k2b)
+    del k2f, k2b, batch
+    row = check_k7b_path(torch, ops_dcn, k7b, n_dcn)
+    return launches, row, ms, peak
+
+
+# The card's and the CPU's f32 gradients of the small HTC-DCN step may part by
+# this much in the relative norm of a tensor. The function's derivative jumps
+# where a sample's position crosses a whole cell or a ReLU's input crosses 0,
+# and f32 rounding moves a few of the step's ~10^6 samples and activations
+# across: on this case the CPU's own f32 gradient parts from its f64 one by
+# up to 2.4e-3 (`tests/f64_witness.py`), so any two f32 orders of summation
+# may part by about that. A wrong K7b gradient (a lost corner, group or
+# atomic) parts by O(1); K7b is held to 1e-5 of its plain version at the six
+# X101 layer shapes on their own.
+GRAD_NORM_LIMIT = 1e-2
+
+
+def small_htc_train_case(torch, model):
+    """The reduced HTC-DCN that `compare_small_htc_train` steps, from the
+    main model's configuration: (its configuration, a batch of two 256 x 384
+    images with eight polygon-masked gt boxes each, seeded f32 weights with
+    the offset convs spread as on the main path)."""
+    import dataclasses
+
+    import numpy as np
+
+    from balancedgroupsoftmax_torch.models.detector import build_model
+    from balancedgroupsoftmax_torch.ops.mask import rasterize_gt_masks
+
+    cfg = model.cfg
+    num_anchors = 3 * sum(-(-256 // s) * -(-384 // s) for s in cfg.anchors.strides)
+    take_all = lambda sc, num: dataclasses.replace(sc, sampler=dataclasses.replace(sc.sampler, num=num, pos_fraction=1.0))
+    cfg = dataclasses.replace(
+        cfg,
+        backbone=dataclasses.replace(cfg.backbone, depth=50),
+        rpn_train=take_all(cfg.rpn_train, num_anchors),
+        rpn_proposal_train=dataclasses.replace(cfg.rpn_proposal_train, nms_post=100, max_num=100),
+        # the 100 proposals and the 8 gt boxes, added again by each later stage and each mask resampling
+        rcnn_train=take_all(cfg.rcnn_train, 100 + 8 * 6),
+        bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
+    )
+    gen = torch.Generator().manual_seed(11)
+    rng = np.random.RandomState(11)
+    xy = torch.rand(MAIN_BATCH, 8, 2, generator=gen) * torch.tensor([300.0, 200.0])
+    wh = 16 + torch.rand(MAIN_BATCH, 8, 2, generator=gen) * 120
+    boxes = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([383.0, 255.0]))], -1).floor()
+    crops = np.stack([rasterize_gt_masks([[polygon_in(rng, b)] for b in bs.numpy()], bs.numpy(), 256, 384, 8)
+                      for bs in boxes])
+    batch = dict(
+        images=torch.randn(MAIN_BATCH, 256, 384, 3, generator=gen),
+        gt_boxes=boxes,
+        gt_labels=torch.from_numpy(np.stack([gt_labels(rng, model.partition, 8) for _ in range(MAIN_BATCH)])),
+        gt_mask=torch.ones(MAIN_BATCH, 8, dtype=torch.bool),
+        img_shapes=torch.tensor([[256.0, 384.0]] * MAIN_BATCH),
+        gt_mask_crops=torch.from_numpy(crops),
+    )
+    cpu_model = build_model(cfg, model.partition, torch.float32).init_weights(0)
+    spread_offsets(torch, cpu_model, batch["images"])
+    return cfg, batch, cpu_model.state_dict()
+
+
+def compare_small_htc_train(torch, model) -> None:
+    """One f32 training step of a reduced HTC-DCN (depth 50, the X101's
+    widths, 64 groups, deformable c3-c5 at D = 4, offsets spread as on the
+    main path) on two 256 x 384 images with polygon masks, on the card
+    (kernels, K7b among them) and on the CPU (plain versions), from the same
+    weights; sampling made deterministic by the configuration (every anchor
+    and RoI candidate sampled, also for the interleaved mask targets, the GS
+    others' budget covering them all). The loss dicts must agree to 1e-3
+    relative, as `compare_small_train`'s, and every trained parameter's
+    gradient (clipped, as the step leaves it) to GRAD_NORM_LIMIT in the
+    relative norm |card - cpu| / |cpu|: the deformable layers' weights and
+    offset convs, whose gradient K7b gives on the card, among them. The
+    largest elementwise difference is printed beside it."""
+    from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.models.detector import build_model
+    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
+
+    dev = next(model.parameters()).device
+    cfg, batch, weights = small_htc_train_case(torch, model)
+    out, grads = {}, {}
+    allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = build_model(cfg, model.partition, torch.float32)
+            m.load_state_dict(weights)
+            m.to(device)
+            before = cuda_launches()
+            step = make_train_step(create_train_state(m, TrainConfig(selectp=0)))
+            out[name] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
+            grads[name] = {n: p.grad.double().cpu() for n, p in m.named_parameters() if p.grad is not None}
+            if name == "card" and cuda_launches()["bags_deform_conv_backward"] - before["bags_deform_conv_backward"] != 13:  # c3-c5 of depth 50
+                raise AssertionError("the small HTC step did not launch K7b once a deformable layer")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    worst = max(abs(out["card"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-6) for k in out["cpu"])
+    log(f"  small f32 HTC-DCN train step, card vs CPU: max relative loss difference {worst:.3e} over "
+        f"{len(out['cpu'])} losses")
+    if not (sorted(out["card"]) == sorted(out["cpu"]) and worst <= 1e-3 and "s2.loss_mask" in out["cpu"]):
+        raise AssertionError(f"card and CPU losses disagree: {out}")
+    if sorted(grads["card"]) != sorted(grads["cpu"]):
+        raise AssertionError("the card and the CPU step trained different parameters")
+    norm, peak = grad_differences(grads["card"], grads["cpu"])
+    dcn = [n for n in norm if n.endswith(("conv2.weight", "conv2.conv_offset.weight", "conv2.conv_offset.bias"))
+           and n.rsplit("conv2.", 1)[0] + "conv2.conv_offset.weight" in norm]
+    far = max(norm, key=norm.get)
+    log(f"  gradients, card vs CPU: relative norm worst {norm[far]:.3e} ({far}) over {len(norm)} tensors, "
+        f"{max(norm[n] for n in dcn):.3e} over the {len(dcn)} deformable weights and offset convs; "
+        f"largest elementwise difference {max(peak.values()):.3e} of its tensor's largest ({max(peak, key=peak.get)})")
+    # each layer's offset conv weight and bias, and its weight (no bias); the
+    # limit is GRAD_NORM_LIMIT's
+    if len(dcn) != 3 * 13 or norm[far] > GRAD_NORM_LIMIT:
+        raise AssertionError(f"card and CPU gradients disagree: {sorted(norm.items(), key=lambda kv: -kv[1])[:5]}")
+
+
+def grad_differences(got: dict, want: dict) -> tuple[dict, dict]:
+    """Per tensor name: |got - want| / |want| in the 2-norm, and the largest
+    elementwise |got - want| over the largest |want|."""
+    norm = {n: ((got[n] - w).norm() / w.norm().clamp(min=1e-30)).item() for n, w in want.items()}
+    peak = {n: ((got[n] - w).abs().max() / w.abs().max().clamp(min=1e-30)).item() for n, w in want.items()}
+    return norm, peak
+
+
+def cuda_launches() -> dict:
+    from balancedgroupsoftmax_torch import cuda
+
+    return {k.symbol: k.launches for k in cuda.KERNELS}
 
 
 FLOW_PHASE1_STEPS = 4
@@ -2452,6 +2844,16 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_small_htc(torch, htc)
     log(f"phase small HTC-DCN predict_with_masks card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    htc_train_launches, k7b_row, _, _ = run_htc_train_path(torch, htc)
+    log_row(k7b_row)
+    rows.append(k7b_row)
+    log(f"phase HTC-DCN training: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_htc_train(torch, htc)
+    log(f"phase small HTC-DCN train step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
     del htc
 
     with tempfile.TemporaryDirectory() as flow_root:
@@ -2470,7 +2872,8 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it: the Faster R-CNN
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
-    # cascade's predicts for K5 and K6, the HTC's for K7, one pass of the
+    # cascade's predicts for K5 and K6, the HTC's for K7, its selectp=0
+    # training steps for K7b, one pass of the
     # R50's stride-1 runs for K8 and K9; the "/ablation-train" and
     # "/tnorm-select" rows carry their ablation rows' counts
     symbols = {
@@ -2482,6 +2885,7 @@ def main() -> int:
         "nms_keep_batched_coords": (cascade_launches, "bags_nms_keep_coords"),
         "gather_lanes": (cascade_launches, "bags_gather_lanes"),
         "deform_conv_forward": (htc_launches, "bags_deform_conv_forward"),
+        "deform_conv_backward": (htc_train_launches, "bags_deform_conv_backward"),
         "fused_bottleneck": (fused_launches, "bags_fused_bottleneck"),
         "fused_layer": (fused_launches, "bags_fused_layer"),
     }

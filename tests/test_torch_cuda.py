@@ -22,6 +22,8 @@ This file imports nothing of JAX, so it also holds the numpy-built inputs
 that the port's CPU tests share.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -603,6 +605,129 @@ def test_deform_conv_refuses_what_the_kernel_does_not_take(dev):
         ops_dcn.deform_conv2d(x, off, w, None, 1, 1, 3, 4)
     with pytest.raises(ValueError):  # bf16 groups of 2 channels: not 8-byte pieces
         ops_dcn.deform_conv2d(x.bfloat16(), off, torch.zeros(16, 2, 3, 3, device=dev).bfloat16(), None, 1, 1, 8, 4)
+
+
+# (H, W, C, groups, stride) of the input of the six distinct deformable layers
+# of HTC X101-64x4d DCN c3-c5 at 800 x 1344 (tests/test_torch_deform_conv.py
+# htc_dcn_layers holds all 30; D = 4, C_out = C)
+DCN_LAYER_SHAPES = [
+    (200, 336, 512, 64, 2), (100, 168, 512, 64, 1), (100, 168, 1024, 64, 2),
+    (50, 84, 1024, 64, 1), (50, 84, 2048, 64, 2), (25, 42, 2048, 64, 1),
+]
+
+
+def grad_limit(dtype, ref):
+    """f32: 1e-5 of the largest |value|; bf16: one bf16 step of it."""
+    return (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
+
+
+def deform_backward_matches_plain(dev, dtype, x, off, weight, mask, stride, groups, window, seed=0):
+    """K7b against its plain version on one set of inputs: each gradient in
+    its dtype and within `grad_limit`, one launch."""
+    x, weight = (torch.from_numpy(a).to(dev, dtype) for a in (x, weight))
+    off = torch.from_numpy(off).to(dev)
+    mask = None if mask is None else torch.from_numpy(mask).to(dev)
+    b, h, w, _ = x.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    gout = torch.randn(b, ho, wo, weight.shape[0], generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
+    before = cuda.DEFORM_CONV_BACKWARD.launches
+    got = ops_dcn.deform_conv2d_backward(gout, x, off, weight, mask, stride, 1, groups, window)
+    assert cuda.DEFORM_CONV_BACKWARD.launches == before + 1
+    want = ops_dcn.deform_conv2d_backward_reference(gout, x, off, weight, mask, stride, 1, groups, window)
+    for name, g, r, like in zip(("dx", "d_offsets", "d_weight", "d_mask"), got, want, (x, off, weight, mask)):
+        if like is None:
+            assert g is None and r is None
+            continue
+        assert g.dtype == like.dtype and g.shape == like.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= grad_limit(dtype, r), (name, err, grad_limit(dtype, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", DCN_LAYER_SHAPES, ids=lambda t: f"{t[0]}x{t[1]}x{t[2]}-s{t[4]}")
+def test_deform_conv_backward_matches_plain_at_the_x101_layers(dev, dtype, layer):
+    h, w, c, groups, stride = layer
+    x, off, weight, _ = deform_case(c + stride, c, c, groups, stride, 4, False, hw=(h, w))
+    deform_backward_matches_plain(dev, dtype, x, off, weight, None, stride, groups, 4, seed=c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,stride,groups,c_in,c_out,modulated", DEFORM_CASES)
+def test_deform_conv_backward_matches_plain(dev, dtype, window, stride, groups, c_in, c_out, modulated):
+    x, off, weight, mask = deform_case(c_in + stride, c_in, c_out, groups, stride, window, modulated, hw=DEFORM_HW)
+    deform_backward_matches_plain(dev, dtype, x, off, weight, mask if modulated else None, stride, groups, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,stride,groups,c_in,c_out,hw", DEFORM_SHAPES)
+def test_deform_conv_backward_narrow_groups_and_ragged_tiles_match_plain(dev, dtype, window, stride, groups, c_in,
+                                                                         c_out, hw):
+    x, off, weight, _ = deform_case(c_in + groups, c_in, c_out, groups, stride, window, False, hw=hw)
+    deform_backward_matches_plain(dev, dtype, x, off, weight, None, stride, groups, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("modulated", [False, True], ids=["v1", "v2"])
+def test_deform_conv_backward_offsets_at_and_beyond_the_window_match_plain(dev, dtype, modulated):
+    """Offsets of exactly +-D (the clamp's slope 1/2, the top of JAX's shift
+    range), beyond it (no gradient), at the border and off the image."""
+    window, stride, groups, c_in, c_out, hw = WINDOW_EDGE
+    x, off, weight, mask = deform_case(43, c_in, c_out, groups, stride, window, modulated, hw=hw)
+    off = window_edge_offsets(off, window, 44)
+    off[:, 1, 1, :2] = [-30.0, 25.0]
+    deform_backward_matches_plain(dev, dtype, x, off, weight, mask if modulated else None, stride, groups, window)
+
+
+def test_deform_conv_function_has_a_gradient_on_the_card(dev, exact_f32):
+    """Through `DeformConv`, K7's output has a grad_fn, and the backward
+    launches K7b once and gives every input and parameter the gradient the
+    CPU's plain versions give (the offset conv in full f32: in TF32 its
+    offsets, and so the gradients, move by about 1e-3)."""
+    torch.manual_seed(0)
+    layer = ops_dcn.DeformConv(64, 64, stride=1, modulated=True, groups=8, shift_window=4)
+    with torch.no_grad():
+        layer.conv_offset.weight.normal_(0.0, 0.05)
+        layer.conv_offset.bias.normal_(0.0, 1.0)
+    x = torch.randn(2, 64, 13, 21).contiguous(memory_format=torch.channels_last)
+    gout = torch.randn(2, 64, 13, 21)
+    grads = {}
+    for where in ("cpu", dev):
+        mod = copy.deepcopy(layer).to(where)
+        xi = x.to(where).detach().requires_grad_()
+        before = cuda.DEFORM_CONV_BACKWARD.launches
+        out = mod(xi)
+        assert out.grad_fn is not None
+        (out * gout.to(where)).sum().backward()
+        assert cuda.DEFORM_CONV_BACKWARD.launches == before + (where is dev)
+        grads[str(where)] = [t.detach().cpu() for t in [xi.grad] + [p.grad for p in mod.parameters()]]
+    for g, r in zip(grads[str(dev)], grads["cpu"]):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def test_deform_conv_backward_computes_only_what_is_asked(dev):
+    x, off, weight, mask = deform_case(5, 64, 64, 8, 1, 4, True, hw=DEFORM_HW)
+    T = lambda a: torch.from_numpy(a).to(dev)
+    gout = torch.ones(2, *DEFORM_HW, 64, device=dev)
+    got = ops_dcn.deform_conv2d_backward(gout, T(x), T(off), T(weight), T(mask), 1, 1, 8, 4,
+                                         needs=(False, False, True, False))
+    assert got[0] is None and got[1] is None and got[3] is None
+    want = ops_dcn.deform_conv2d_backward_reference(gout, T(x), T(off), T(weight), T(mask), 1, 1, 8, 4)[2]
+    assert (got[2] - want).abs().max().item() <= grad_limit(torch.float32, want)
+
+
+def test_deform_conv_backward_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 8, 8, 16, device=dev)
+    off = torch.zeros(1, 8, 8, 18, device=dev)
+    g = torch.zeros(1, 8, 8, 16, device=dev)
+    before = cuda.DEFORM_CONV_BACKWARD.launches
+    with pytest.raises(ValueError):  # groups of 2 channels: not the kernel's groups of 4
+        ops_dcn.deform_conv2d_backward(g, x, off, torch.zeros(16, 2, 3, 3, device=dev), None, 1, 1, 8, 4)
+    with pytest.raises(ValueError):  # the output's gradient in another dtype than x
+        ops_dcn.deform_conv2d_backward(g.bfloat16(), x, off, torch.zeros(16, 4, 3, 3, device=dev), None, 1, 1, 4, 4)
+    with pytest.raises(ValueError):  # one group of 1024 channels: no weight block fits
+        ops_dcn.deform_conv2d_backward(torch.zeros(1, 8, 8, 1024, device=dev), torch.zeros(1, 8, 8, 1024, device=dev),
+                                       off, torch.zeros(1024, 1024, 3, 3, device=dev), None, 1, 1, 1, 4)
+    assert cuda.DEFORM_CONV_BACKWARD.launches == before
 
 
 def fused_block_case(seed, cin, cm, cout, downsample, b=2, hw=(13, 37)):

@@ -224,8 +224,12 @@ def test_trainable_mask_selects_the_jax_tensors(setup, selectp, frozen_stages):
 
 @pytest.mark.parametrize("selectp", [4])
 def test_trainable_mask_refuses_what_is_not_ported(setup, selectp):
-    with pytest.raises(NotImplementedError):
-        trainable_mask(setup["port_model"](), selectp=selectp)
+    """selectp 4 (the bbox and mask heads) is ported: on Faster R-CNN it
+    trains the bbox head alone. A selectp beyond it is refused."""
+    got = trainable_mask(setup["port_model"](), selectp=selectp)
+    assert {k.split(".")[0] for k, v in got.items() if v} == {"bbox_head"}
+    with pytest.raises(ValueError):
+        trainable_mask(setup["port_model"](), selectp=selectp + 1)
 
 
 def test_lr_schedule_matches_jax():
