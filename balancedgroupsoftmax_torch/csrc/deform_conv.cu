@@ -87,35 +87,70 @@
 // sum of grad_out times the sample K7 contracted. An invalid sample gets
 // nothing, a corner outside the image nothing.
 //
-// Design (a first, simple one). Three kernels in one launch, all sums in f32:
-//   1. the data pass: a block takes 32 output positions x a chunk of whole
-//      groups (at most 64 input and 64 output channels). The tile's corners,
-//      bilinear weights and derivative coefficients, its output gradients
-//      and the chunk's weights go to shared memory; a thread takes four
-//      channels of one (position, tap): grad_col on the CUDA cores (o_g
-//      products each), the four corners read again, one 16-byte f32 atomic
-//      into an f32 dx buffer for each corner, and the offsets' and the mask's
-//      channel sums, which meet in shared memory and leave with one atomic a
-//      (position, tap) and chunk.
-//   2. the weight pass: a block takes a few output channels (whole groups, or
-//      part of one: at most 16 sums a thread) and one range of the position
-//      tiles; per tile it samples the columns those outputs read into shared
-//      memory, rounded and masked as K7 rounds them, and adds grad_out x
-//      column into each thread's sums. Each block writes its partial, and a
-//      small kernel adds the ranges' partials in order and rounds once.
-//   3. for bf16, the dx buffer is rounded once into x's dtype (as K2b does).
-// The products are written here, on the CUDA cores; the columns are never
-// stored in device memory.
+// The bf16 route (the detector's path, D > 0 and D = 0, v1 and v2) is one
+// kernel that walks the positions once. A block owns a chunk of whole groups
+// (CC channels, 16-byte pieces a power of two) and a range of tiles of TH x
+// TW output positions of one image; it is persistent over the range, so the
+// weight gradient's sums stay in registers (mma fragments, at most
+// kGradSlots a warp). The wrapper's plan (ops/deform_conv.py
+// `backward_plan`) picks TH, TW, the groups a chunk and the tiles a block at
+// each layer; `lay_out_grad` recomputes its shared memory and refuses a
+// mismatch. Per tile (`deform_grad_bf16_kernel`'s comment has the phases):
+//   1. Staging. At D > 0 every corner lies in a window of (TH - 1) s + kh +
+//      2D + 1 rows by (TW - 1) s + kw + 2D + 1 columns, known before any
+//      offset is read: the window's CC channels, the tile's offsets and mask
+//      and its grad_out rows are copied with cp.async (zeros outside the image
+//      and past the output's edge), double-buffered: the next tile's copies
+//      fly while this one is worked on. One (position, tap) table a tile.
+//   2. grad_col[g] = grad_out (positions x o_g) . W_g (o_g x taps c_g) on the
+//      tensor cores (mma.sync m16n8k16, or k8 when o_g pads to 8, operands by
+//      ldmatrix; W_g staged once a block), into shared memory in f32.
+//   3. One pass over (position, tap, 8 channels) reads the four corners from
+//      the window once: the sample with K7's blend, bit for bit, rounded and
+//      masked as K7 rounds it, goes to the columns (bf16, positions x
+//      (group, tap, channel)); the channel sums of grad_s times each corner
+//      give d(dy) and d(dx) (hx (hy' S10 - S00) + lx (hy' S11 - S01), and
+//      alike), the sample gives d(mask); they are summed over the chunk with
+//      shuffles and written once a (position, tap): a store when one chunk
+//      holds all the groups, else one atomic a chunk.
+//   4. dW[g] += columns^T (taps c_g x positions) . grad_out (positions x o_g)
+//      on the tensor cores (ldmatrix .trans for both operands). Each block
+//      writes one partial; a small kernel adds the ranges' partials in order
+//      and rounds once, so dW is deterministic.
+//   5. dx is gathered in shared memory: every corner of the tile is entered
+//      in its window pixel's list (grad_col row, bilinear weight times the
+//      mask), by counts, a scan and a fill with int atomics, so that the
+//      lists laid end to end are the tile's corners sorted by pixel; equal
+//      runs of them, one a thread and 8 channels, sum each pixel's shares
+//      and add them to the f32 dx buffer with 16-byte atomics where the
+//      pixel changes, skipping pixels outside the image: about one atomic a
+//      window pixel and 4 channels, not four a sample. A shared-memory f32 atomicAdd would be simpler, but ptxas
+//      builds it on sm_90a as a compare-and-swap loop (ATOMS.CAST.SPIN); the
+//      lists use only the native int atomics.
+//   At D = 0 (unbounded offsets) there is no window: corners are read from
+//   device memory and dx takes each sample's shares with 16-byte atomics.
+//   The f32 dx buffer is zeroed first and rounded to bf16 once at the end.
+// The f32 route (card tests and the small f32 HTC comparison only) keeps the
+// first design: a data pass (grad_col on the CUDA cores, four 16-byte f32
+// atomics a sample and 4 channels into the dx buffer) and a weight pass
+// (the columns sampled again, block partials over ranges of the positions).
 //
 // What bounds K7b on an H100: by bytes, reading x, grad_out, the offsets and
 // the mask once and writing dx (through its f32 buffer, read again by the
 // cast), the offsets' and the mask's gradients; by operations, the two
 // grouped contractions (grad_col and the weight's gradient, 2 * taps * c_g *
-// C_out each a position) and the samples' blend and derivative. The design
-// above is far from either: the data pass issues 4 atomics a (position, tap,
-// four channels) into L2 and re-reads the corners, and both contractions run
-// on the CUDA cores.
-
+// C_out each a position) on the tensor cores, and the samples' blend and
+// derivatives on the CUDA cores. Against the first design's costs, this one
+// samples each column once (the weight pass sampled them again, four times
+// over at c5), runs both products on the tensor cores (the first ran them as
+// scalar FMAs on shared loads), reads corners from the staged window (the
+// first read them from L2) and reaches dx through the window (the first
+// issued four atomics a sample and 4 channels). What sets its pace now is
+// latency: each tile is five barrier-separated phases of a few hundred
+// instructions a thread, and two blocks of eight warps an SM do not hide the
+// shared-memory round trips of the sampling pass and the gather
+// (kernel_study's cycle counts a phase); a warp's share of issue slots makes
+// every index division on the way costly, hence the FastDivs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,12 +183,8 @@ struct Corner {
   float ly, lx, gy, gx, hy, hx;
 };
 
-__device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t, int taps, int kw, int by,
-                                            int bx, int h, int w, int window) {
-  const float dy = offsets[size_t(at) * 2 * taps + 2 * t];
-  const float dx = offsets[size_t(at) * 2 * taps + 2 * t + 1];
-  const int ty = t / kw;
-  const int tx = t - ty * kw;
+__device__ __forceinline__ Corner corner_at(float dy, float dx, int ty, int tx, int by, int bx, int kh, int kw, int h,
+                                            int w, int window) {
   float ys, xs, ly, lx;
   Corner q;
   if (window > 0) {
@@ -170,7 +201,7 @@ __device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t,
     q.x0 = bx + int(fx);
     q.gy = fabsf(dy) < d ? 1.0f : fabsf(dy) == d ? 0.5f : 0.0f;
     q.gx = fabsf(dx) < d ? 1.0f : fabsf(dx) == d ? 0.5f : 0.0f;
-    q.hy = fy < float(taps / kw - 1 + window) ? 1.0f : 0.0f;
+    q.hy = fy < float(kh - 1 + window) ? 1.0f : 0.0f;
     q.hx = fx < float(kw - 1 + window) ? 1.0f : 0.0f;
   } else {
     ys = (float(by) + float(ty)) + dy;
@@ -190,6 +221,14 @@ __device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t,
   const float hx = 1.0f - lx;
   q.w = q.valid ? make_float4(hy * hx, hy * lx, ly * hx, ly * lx) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   return q;
+}
+
+// The same, with tap t's offsets read from (B, Ho, Wo, 2 * taps) at position `at`.
+__device__ __forceinline__ Corner corner_of(const float* offsets, int at, int t, int taps, int kw, int by,
+                                            int bx, int h, int w, int window) {
+  const int ty = t / kw;
+  return corner_at(offsets[size_t(at) * 2 * taps + 2 * t], offsets[size_t(at) * 2 * taps + 2 * t + 1], ty, t - ty * kw,
+                   by, bx, taps / kw, kw, h, w, window);
 }
 
 // ---------------------------------------------------------------------------
@@ -756,15 +795,18 @@ int launch_bf16(Plan a, cudaStream_t stream) {
 // K7b: the gradient. See the note at the top of the file.
 
 constexpr int kGradThreads = 256;
+
+// ---- The f32 route: two passes on the CUDA cores.
+
 constexpr int kGradAcc = 16;  // weight-gradient sums a thread of the weight pass holds
 
 struct GradArgs {
-  const void* x;         // (B, H, W, C)
+  const float* x;        // (B, H, W, C)
   const float* offsets;  // (B, Ho, Wo, 2 * taps)
   const float* mask;     // (B, Ho, Wo, taps) or null
-  const void* weight;    // (C_out, c_g, kh, kw)
-  const void* grad;      // (B, Ho, Wo, C_out), the output's gradient
-  float* dx;             // (B, H, W, C) f32, zeroed; null: no dx
+  const float* weight;   // (C_out, c_g, kh, kw)
+  const float* grad;     // (B, Ho, Wo, C_out), the output's gradient
+  float* dx;             // (B, H, W, C), zeroed; null: no dx
   float* doff;           // (B, Ho, Wo, 2 * taps), zeroed; null: none
   float* dmask;          // (B, Ho, Wo, taps), zeroed; null: none
   float* part;           // (splits, C_out, c_g, kh, kw): the weight pass's partial sums; null: none
@@ -773,7 +815,7 @@ struct GradArgs {
   int tp, gpc, oc, splits, tiles, per_split;  // the plan; tiles of tp positions, per_split of them a range
 };
 
-// The shared memory of the two passes; ops/deform_conv.py `backward_plan`
+// The shared memory of the two passes; ops/deform_conv.py `backward_plan_f32`
 // computes the same totals.
 inline int grad_data_bytes(const GradArgs& a) {
   const int pt = a.tp * a.taps;
@@ -785,28 +827,18 @@ inline int grad_weight_bytes(const GradArgs& a) {
   return pt * 36 + a.tp * a.oc * 4 + pt * grad_weight_cin(a) * 4;
 }
 
-// Four channels of x at pixel `pix` (global over the batch), from channel c, in f32.
-__device__ __forceinline__ float4 load4(const float* x, int pix, int c, int channels) {
-  return *reinterpret_cast<const float4*>(x + size_t(pix) * channels + c);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* x, int pix, int c, int channels) {
-  const uint2 q = *reinterpret_cast<const uint2*>(x + size_t(pix) * channels + c);
-  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u), __uint_as_float(q.y << 16),
-                     __uint_as_float(q.y & 0xffff0000u));
-}
-__device__ __forceinline__ float4 corner4(const void* x, bool bf, int pix, int c, int channels) {
+// Four channels of x at pixel `pix` (global over the batch; -1: zeros), from channel c.
+__device__ __forceinline__ float4 corner4(const float* x, int pix, int c, int channels) {
   if (pix < 0) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  return bf ? load4(static_cast<const __nv_bfloat16*>(x), pix, c, channels)
-            : load4(static_cast<const float*>(x), pix, c, channels);
+  return *reinterpret_cast<const float4*>(x + size_t(pix) * channels + c);
 }
 __device__ __forceinline__ float elem(float4 v, int k) { return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w; }
 
 // The tile's (position, tap) table: each corner's pixel (global over the
 // batch; -1 outside the image, or every corner when the sample is not
-// valid), the bilinear weights, the mask rounded to T, and (when `coef` is
-// not null) the coefficients of the corners in the row's and the column's
-// derivative, slopes included: d/d(dy) = sum over corners of coef[2e] . v.
-template <typename T>
+// valid), the bilinear weights, the mask, and (when `coef` is not null) the
+// coefficients of the corners in the row's and the column's derivative,
+// slopes included: d/d(dy) = sum over corners of coef[2e] . v.
 __device__ void grad_table(const GradArgs& a, int n0, int4* corner, float4* cw, float* cmask, float4* coef) {
   const int hw_out = a.ho * a.wo;
   for (int e = threadIdx.x; e < a.tp * a.taps; e += blockDim.x) {
@@ -842,7 +874,7 @@ __device__ void grad_table(const GradArgs& a, int n0, int4* corner, float4* cw, 
     }
     corner[e] = q;
     cw[e] = wq;
-    cmask[e] = round_to<T>(m);
+    cmask[e] = m;
     if (coef != nullptr) {
       coef[2 * e] = cy;
       coef[2 * e + 1] = cx;
@@ -856,7 +888,6 @@ __device__ void grad_table(const GradArgs& a, int n0, int4* corner, float4* cw, 
 // corners and the sample, the four corners' shares of dx (one 16-byte f32
 // atomic each), and its part of the offsets' and the mask's channel sums,
 // which meet in shared memory and go out with one atomic a (position, tap).
-template <typename T>
 __global__ void __launch_bounds__(kGradThreads) deform_grad_data_kernel(GradArgs a) {
   extern __shared__ float4 smem4[];
   const int pt = a.tp * a.taps;
@@ -866,25 +897,22 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_data_kernel(GradArgs
   float4* coef = smem4 + 2 * pt;  // two a (position, tap)
   float* cmask = reinterpret_cast<float*>(smem4 + 4 * pt);
   float* sums = cmask + pt;         // d/d(dy), d/d(dx), d/d(mask) a (position, tap)
-  float* gt = sums + 3 * pt;        // [p][o]: the tile's output gradients, f32
-  float* wt = gt + a.tp * cco;      // [t][o][c]: the chunk's weights, f32
+  float* gt = sums + 3 * pt;        // [p][o]: the tile's output gradients
+  float* wt = gt + a.tp * cco;      // [t][o][c]: the chunk's weights
   const int n0 = blockIdx.x * a.tp;
   const int c0 = blockIdx.y * cci, o0 = blockIdx.y * cco;
-  const T* grad = static_cast<const T*>(a.grad);
-  const T* weight = static_cast<const T*>(a.weight);
-  const bool bf = sizeof(T) == 2;
 
-  grad_table<T>(a, n0, corner, cw, cmask, coef);
+  grad_table(a, n0, corner, cw, cmask, coef);
   for (int e = threadIdx.x; e < 3 * pt; e += blockDim.x) sums[e] = 0.0f;
   for (int e = threadIdx.x; e < a.tp * cco; e += blockDim.x) {
     const int p = e / cco;
-    gt[e] = n0 + p < a.n ? to_float(grad[size_t(n0 + p) * a.c_out + o0 + e - p * cco]) : 0.0f;
+    gt[e] = n0 + p < a.n ? a.grad[size_t(n0 + p) * a.c_out + o0 + e - p * cco] : 0.0f;
   }
   for (int e = threadIdx.x; e < a.taps * cco * a.c_g; e += blockDim.x) {
     const int cg = e % a.c_g;
     const int o = (e / a.c_g) % cco;
     const int t = e / (a.c_g * cco);
-    wt[e] = to_float(weight[(size_t(o0 + o) * a.c_g + cg) * a.taps + t]);
+    wt[e] = a.weight[(size_t(o0 + o) * a.c_g + cg) * a.taps + t];
   }
   __syncthreads();
 
@@ -909,8 +937,8 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_data_kernel(GradArgs
       gc[3] = fmaf(g, wv.w, gc[3]);
     }
     const int ch = c0 + cl;
-    const float4 v00 = corner4(a.x, bf, q.x, ch, a.c), v01 = corner4(a.x, bf, q.y, ch, a.c);
-    const float4 v10 = corner4(a.x, bf, q.z, ch, a.c), v11 = corner4(a.x, bf, q.w, ch, a.c);
+    const float4 v00 = corner4(a.x, q.x, ch, a.c), v01 = corner4(a.x, q.y, ch, a.c);
+    const float4 v10 = corner4(a.x, q.z, ch, a.c), v11 = corner4(a.x, q.w, ch, a.c);
     const float4 wq = cw[k], cy = coef[2 * k], cx = coef[2 * k + 1];
     const float m = cmask[k];
     float gs[4], dy = 0.0f, dx = 0.0f, dm = 0.0f;
@@ -919,7 +947,7 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_data_kernel(GradArgs
       const float c00 = elem(v00, u), c01 = elem(v01, u), c10 = elem(v10, u), c11 = elem(v11, u);
       gs[u] = gc[u];
       if (a.mask != nullptr) {
-        dm = fmaf(gc[u], round_to<T>(blend(wq, c00, c01, c10, c11)), dm);
+        dm = fmaf(gc[u], blend(wq, c00, c01, c10, c11), dm);
         gs[u] = gc[u] * m;
       }
       dy = fmaf(gs[u], cy.x * c00 + cy.y * c01 + cy.z * c10 + cy.w * c11, dy);
@@ -957,13 +985,11 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_data_kernel(GradArgs
 }
 
 // The weight pass: one block takes `oc` output channels and one range of
-// the position tiles. Per tile it samples the columns its outputs read (the
-// forward's samples, rounded and masked as K7 rounds them) into shared
-// memory with the tile's output gradients, and each thread adds
+// the position tiles. Per tile it samples the columns its outputs read into
+// shared memory with the tile's output gradients, and each thread adds
 // grad_out x column over the tile's positions into its own sums (at most
 // kGradAcc, one an (output, tap, channel)). The block's sums go out as one
 // partial of the weight's gradient, which a second kernel adds up.
-template <typename T>
 __global__ void __launch_bounds__(kGradThreads) deform_grad_weight_kernel(GradArgs a) {
   extern __shared__ float4 smem4[];
   const int pt = a.tp * a.taps;
@@ -971,14 +997,12 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_weight_kernel(GradAr
   int4* corner = reinterpret_cast<int4*>(smem4);
   float4* cw = smem4 + pt;
   float* cmask = reinterpret_cast<float*>(smem4 + 2 * pt);
-  float* gt = cmask + pt;         // [p][o], f32
+  float* gt = cmask + pt;         // [p][o]
   float* col = gt + a.tp * a.oc;  // [p][t][c]: the samples of the channels the outputs read
   const int o0 = blockIdx.x * a.oc;
   const int g0 = o0 / a.o_g;
   const int ci0 = g0 * a.c_g;
   const int units = a.oc * a.taps * a.c_g;
-  const T* grad = static_cast<const T*>(a.grad);
-  const bool bf = sizeof(T) == 2;
 
   // each thread's sums: output o, tap t, channel cg of o's group; where they read
   int go[kGradAcc], gcol[kGradAcc];
@@ -1001,10 +1025,10 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_weight_kernel(GradAr
   const int nq = cin / 4;
   for (int tile = first; tile < last; ++tile) {
     const int n0 = tile * a.tp;
-    grad_table<T>(a, n0, corner, cw, cmask, nullptr);
+    grad_table(a, n0, corner, cw, cmask, nullptr);
     for (int e = threadIdx.x; e < a.tp * a.oc; e += blockDim.x) {
       const int p = e / a.oc;
-      gt[e] = n0 + p < a.n ? to_float(grad[size_t(n0 + p) * a.c_out + o0 + e - p * a.oc]) : 0.0f;
+      gt[e] = n0 + p < a.n ? a.grad[size_t(n0 + p) * a.c_out + o0 + e - p * a.oc] : 0.0f;
     }
     __syncthreads();
     for (int e = threadIdx.x; e < pt * nq; e += blockDim.x) {
@@ -1012,15 +1036,15 @@ __global__ void __launch_bounds__(kGradThreads) deform_grad_weight_kernel(GradAr
       const int cl = (e - k * nq) * 4;
       const int4 q = corner[k];
       const int ch = ci0 + cl;
-      const float4 v00 = corner4(a.x, bf, q.x, ch, a.c), v01 = corner4(a.x, bf, q.y, ch, a.c);
-      const float4 v10 = corner4(a.x, bf, q.z, ch, a.c), v11 = corner4(a.x, bf, q.w, ch, a.c);
+      const float4 v00 = corner4(a.x, q.x, ch, a.c), v01 = corner4(a.x, q.y, ch, a.c);
+      const float4 v10 = corner4(a.x, q.z, ch, a.c), v11 = corner4(a.x, q.w, ch, a.c);
       const float4 wq = cw[k];
       const float m = cmask[k];
       float* dst = col + k * cin + cl;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float v = round_to<T>(blend(wq, elem(v00, u), elem(v01, u), elem(v10, u), elem(v11, u)));
-        if (a.mask != nullptr) v = round_to<T>(v * m);
+        float v = blend(wq, elem(v00, u), elem(v01, u), elem(v10, u), elem(v11, u));
+        if (a.mask != nullptr) v = v * m;
         dst[u] = v;
       }
     }
@@ -1055,40 +1079,702 @@ __global__ void deform_grad_weight_sum_kernel(const float* part, T* out, int spl
   }
 }
 
+template <typename T>
+int launch_weight_sum(const float* part, void* dweight, int splits, int size, cudaStream_t stream) {
+  deform_grad_weight_sum_kernel<T><<<(size + 255) / 256, 256, 0, stream>>>(part, static_cast<T*>(dweight), splits, size);
+  return int(cudaGetLastError());
+}
+
+int launch_grad_f32(GradArgs a, void* dweight, cudaStream_t stream) {
+  cudaError_t err;
+  if (a.dx != nullptr || a.doff != nullptr || a.dmask != nullptr) {
+    const int smem = grad_data_bytes(a);
+    err = cudaFuncSetAttribute(deform_grad_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    const dim3 grid(unsigned(a.tiles), unsigned(a.c / (a.gpc * a.c_g)));
+    deform_grad_data_kernel<<<grid, kGradThreads, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  if (a.part != nullptr) {
+    const int smem = grad_weight_bytes(a);
+    err = cudaFuncSetAttribute(deform_grad_weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    const dim3 grid(unsigned(a.c_out / a.oc), unsigned(a.splits));
+    deform_grad_weight_kernel<<<grid, kGradThreads, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    return launch_weight_sum<float>(a.part, dweight, a.splits, a.c_out * a.c_g * a.taps, stream);
+  }
+  return int(cudaSuccess);
+}
+
+// ---- The bf16 route: one pass over the positions, both products on the
+// tensor cores, dx gathered in shared memory.
+
+constexpr int kGradWarps = kGradThreads / 32;
+constexpr int kGradSlots = 12;  // weight-gradient fragments (16 x 8 f32 sums) a warp holds
+
+// Division of a non-negative int below 2^31 by a divisor fixed at launch:
+// a multiply-high, an add and a shift (q = (umulhi(n, mul) + n) >> shift).
+struct FastDiv {
+  unsigned mul;
+  int shift, d;
+};
+inline FastDiv fast_div(int d) {
+  FastDiv f{1u, 0, d};
+  while ((1LL << f.shift) < d) ++f.shift;
+  f.mul = unsigned((((1ULL << 32) * ((1ULL << f.shift) - unsigned(d))) / unsigned(d) + 1) & 0xffffffffULL);
+  return f;
+}
+__device__ __forceinline__ int operator/(int n, const FastDiv& f) {
+  return int((__umulhi(unsigned(n), f.mul) + unsigned(n)) >> f.shift);
+}
+
+// Everything the bf16 gradient kernel needs: shapes, the plan and the shared
+// memory layout, worked out once on the host.
+struct GradPlan {
+  const bf16* x;         // (B, H, W, C)
+  const float* offsets;  // (B, Ho, Wo, 2 * taps)
+  const float* mask;     // (B, Ho, Wo, taps) or null
+  const bf16* weight;    // (C_out, c_g, kh, kw)
+  const bf16* grad;      // (B, Ho, Wo, C_out)
+  float* dx;             // (B, H, W, C) f32, zeroed; null: no dx
+  float* doff;           // (B, Ho, Wo, 2 * taps), zeroed; null: none
+  float* dmask;          // (B, Ho, Wo, taps), zeroed; null: none
+  float* part;           // (splits, C_out, c_g, kh, kw); null: no weight gradient
+  int b, h, w, c, ho, wo, c_out, kh, kw, taps, stride, pad, c_g, o_g, window;
+  int th, tw, gc, tpb, splits;  // the plan: the tile, groups a chunk, tiles a block, tile ranges
+  int m, pt, cc, co, kp, ogp, nq, chunks, tiles_y, tiles_x, tiles;
+  int wr, wc, npix, win_px, gcs, row_c, row_g, row_w, scan_per;  // the window; row strides (elements)
+  int dw_mt, dw_nt, dw_units;  // weight-gradient fragments: (tap, channel) and output tiles a group; the chunk's
+  int off_stage, off_list, off_cs, off_gcol, off_cols, off_g, off_w, off_win, smem;  // byte offsets; the total
+  int g_async;  // grad_out's rows come in 16-byte cp.async pieces (o_g % 8 == 0, aligned)
+  FastDiv by_taps, by_tw, by_wc, by_nq, by_cg, by_ntg, by_per, by_scan, by_dwnt, by_dwmt, by_kw, by_tx, by_txy;
+  int lg_nq;  // log2(nq)
+};
+
+// The shared memory layout; ops/deform_conv.py `backward_shared_bytes`
+// computes the same sizes.
+inline void lay_out_grad(GradPlan& p) {
+  p.taps = p.kh * p.kw;
+  p.m = p.th * p.tw;
+  p.pt = p.m * p.taps;
+  p.cc = p.gc * p.c_g;
+  p.co = p.gc * p.o_g;
+  p.nq = p.cc / 8;
+  p.kp = round_up(p.taps * p.c_g, 16);
+  p.ogp = round_up(p.o_g, 8);
+  p.wr = (p.th - 1) * p.stride + p.kh + 2 * p.window + 1;
+  p.wc = (p.tw - 1) * p.stride + p.kw + 2 * p.window + 1;
+  p.npix = p.window > 0 ? p.wr * p.wc : 0;
+  p.scan_per = (p.npix + kGradThreads - 1) / kGradThreads;  // counts a thread scans
+  p.win_px = p.cc;                           // bf16 a window pixel
+  p.gcs = p.cc + 4;                          // f32 a (position, tap)'s grad_col
+  p.row_c = p.gc * p.kp + 8;                 // (row / 8) odd: ldmatrix's eight rows fall in distinct banks
+  p.row_g = round_up(p.gc * p.ogp, 16) + 8;
+  p.row_w = round_up(p.ogp, 16) + 8;
+  p.dw_mt = p.kp / 16;
+  p.dw_nt = p.ogp / 8;
+  p.dw_units = p.gc * p.dw_mt * p.dw_nt;
+  int off = p.pt * 16;  // the table: int4 a (position, tap)
+  p.off_stage = off;
+  off += round_up(p.pt * 12, 16);  // the offsets and the mask, as copied
+  p.off_list = off;
+  off += p.window > 0 ? p.pt * 32 : 0;  // the dx gather's lists: (grad_col offset, weight) a corner
+  p.off_cs = off;
+  off += p.window > 0 ? round_up((2 * (p.npix + 1) + 2 * kGradWarps) * 4, 16) : 0;  // two tiles' counts; the warps'
+  p.off_gcol = off;
+  off += p.pt * p.gcs * 4;
+  p.off_cols = off;
+  off += p.m * p.row_c * 2;
+  p.off_g = off;
+  off += 2 * p.m * p.row_g * 2;
+  p.off_w = off;
+  off += p.gc * p.kp * p.row_w * 2;
+  p.off_win = off;
+  off += 2 * p.npix * p.win_px * 2;
+  p.smem = off;
+  p.by_taps = fast_div(p.taps);
+  p.by_tw = fast_div(p.tw);
+  p.by_wc = fast_div(p.wc);
+  p.by_nq = fast_div(p.nq > 0 ? p.nq : 1);
+  p.by_cg = fast_div(p.c_g);
+  p.by_ntg = fast_div(p.kp / 8);
+  p.by_per = fast_div((p.mask != nullptr ? 3 : 2) * p.taps);
+  p.by_scan = fast_div(p.scan_per > 0 ? p.scan_per : 1);
+  p.by_dwnt = fast_div(p.dw_nt);
+  p.by_dwmt = fast_div(p.dw_mt);
+  p.by_kw = fast_div(p.kw);
+  for (p.lg_nq = 0; (2 << p.lg_nq) <= p.nq; ++p.lg_nq) {
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x1(unsigned addr, unsigned& r0) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n" : "=r"(r0) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
+                                                  unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned addr, unsigned& r0, unsigned& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n" : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], unsigned a0, unsigned a1, unsigned b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// A clamp slope (0, 1/2 or 1) as 0, 1, 2, and back.
+__device__ __forceinline__ int slope_code(float g) { return int(g * 2.0f); }
+__device__ __forceinline__ float slope_of(int code) { return float(code) * 0.5f; }
+
+struct GradTile {
+  int b, i0, j0, wy0, wx0;
+};
+
+__device__ __forceinline__ GradTile grad_tile(const GradPlan& a, int tile) {
+  GradTile t;
+  t.b = tile / a.by_txy;
+  const int r = tile - t.b * a.tiles_y * a.tiles_x;
+  const int ty = r / a.by_tx;
+  t.i0 = ty * a.th;
+  t.j0 = (r - ty * a.tiles_x) * a.tw;
+  t.wy0 = t.i0 * a.stride - a.pad - a.window;
+  t.wx0 = t.j0 * a.stride - a.pad - a.window;
+  return t;
+}
+
+// Output position p of a tile: its row and column.
+__device__ __forceinline__ void tile_pos(const GradPlan& a, const GradTile& tt, int p, int& i, int& j) {
+  const int pi = p / a.by_tw;
+  i = tt.i0 + pi;
+  j = tt.j0 + p - pi * a.tw;
+}
+
+// Copies one tile's inputs into shared memory with cp.async: the window of
+// x (the chunk's channels, zeros outside the image), the offsets and mask of
+// its positions, and its rows of grad_out (the chunk's outputs, zeros past
+// the output's edge) when they come in 16-byte pieces.
+template <bool kWindow>
+__device__ void grad_issue(const GradPlan& a, const GradTile& tt, int chunk, bf16* win, float* stage, bf16* gb) {
+  if (kWindow) {
+    const bf16* xc = a.x + size_t(tt.b) * a.h * a.w * a.c + size_t(chunk) * a.cc;
+    for (int e = threadIdx.x; e < a.npix * a.nq; e += kGradThreads) {
+      const int pix = e / a.by_nq, q = e - pix * a.nq;
+      const int wy = pix / a.by_wc;
+      const int y = tt.wy0 + wy, xx = tt.wx0 + pix - wy * a.wc;
+      const bool inside = y >= 0 && y < a.h && xx >= 0 && xx < a.w;
+      cp_async16(win + pix * a.win_px + q * 8, inside ? xc + (size_t(y) * a.w + xx) * a.c + q * 8 : a.x, inside);
+    }
+  }
+  const int per = a.by_per.d;  // floats a position: the offsets, then the mask
+  for (int e = threadIdx.x; e < a.m * per; e += kGradThreads) {
+    const int p = e / a.by_per, k = e - p * per;
+    int i, j;
+    tile_pos(a, tt, p, i, j);
+    if (i >= a.ho || j >= a.wo) continue;
+    const size_t at = (size_t(tt.b) * a.ho + i) * a.wo + j;
+    if (k < 2 * a.taps) cp_async4(stage + p * 2 * a.taps + k, a.offsets + at * 2 * a.taps + k);
+    else cp_async4(stage + 2 * a.pt + p * a.taps + k - 2 * a.taps, a.mask + at * a.taps + k - 2 * a.taps);
+  }
+  if (a.g_async) {
+    const int nq = a.co / 8;
+    for (int e = threadIdx.x; e < a.m * nq; e += kGradThreads) {
+      const int p = e / nq, q = e - p * nq;
+      int i, j;
+      tile_pos(a, tt, p, i, j);
+      const bool inside = i < a.ho && j < a.wo;
+      const bf16* src = a.grad + ((size_t(tt.b) * a.ho + i) * a.wo + j) * a.c_out + size_t(chunk) * a.co + q * 8;
+      cp_async16(gb + p * a.row_g + q * 8, inside ? src : a.grad, inside);
+    }
+  }
+}
+
+// Where window pixel `pix`'s list starts: the counts were scanned a run of
+// `scan_per` pixels a thread, then within each warp, so at its scanned count
+// plus the base of the warp that scanned it, the sum of the warps' totals
+// before it.
+__device__ __forceinline__ int warp_base(const GradPlan& a, const int (&wbase)[kGradWarps], int pix) {
+  const int w = (pix / a.by_scan) >> 5;
+  int base = 0;
+#pragma unroll
+  for (int k = 1; k < kGradWarps; ++k) base = w == k ? wbase[k] : base;  // static indices: wbase stays in registers
+  return base;
+}
+
+// The bf16 gradient. A block takes one chunk of `gc` whole groups and walks
+// the tiles [split * tpb, (split + 1) * tpb) of TH x TW output positions,
+// keeping its weight-gradient sums in registers. Per tile, between barriers:
+//   T  the (position, tap) table from the staged offsets (window pixel of the
+//      low corner, fractions, clamp codes, rounded mask; -1: no sample), and
+//      each window pixel's count of the corners that land on it;
+//   B1 the counts are scanned (a run a thread, then within each warp);
+//      grad_col = grad_out . W_g on the tensor cores, into shared memory in
+//      f32; the next tile's copies go out;
+//   B2 each corner enters its pixel's list with its grad_col row and its
+//      bilinear weight (times the mask): the lists, laid end to end, are the
+//      corners sorted by pixel; each (position, tap, 8 channels)
+//      reads its four corners from the window once: the sample, rounded and
+//      masked as K7 rounds it, goes to the columns, and the channel sums of
+//      grad_s times each corner give the offsets' gradient (the mask's from
+//      the sample), summed over the chunk with shuffles and written once a
+//      (position, tap);
+//   C  dW += columns^T . grad_out on the tensor cores; the lists are cut
+//      into equal runs, one a thread and 8 channels, and each run's sums go
+//      to dx with two 16-byte atomics wherever its pixel changes.
+// At D = 0 there is no window: corners come from device memory and dx takes
+// each sample's shares with 16-byte atomics in B2.
+template <bool kWindow>
+__global__ void __launch_bounds__(kGradThreads, 2) deform_grad_bf16_kernel(const GradPlan a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* table = reinterpret_cast<int4*>(smem);
+  float* stage = reinterpret_cast<float*>(smem + a.off_stage);
+  int2* list = reinterpret_cast<int2*>(smem + a.off_list);
+  int* cs = reinterpret_cast<int*>(smem + a.off_cs);
+  int* wsum = cs + 2 * (a.npix + 1);  // the warps' totals of the counts
+  int* total = wsum + kGradWarps;     // the lists' length, for the gather
+  float* gcol = reinterpret_cast<float*>(smem + a.off_gcol);
+  bf16* cols = reinterpret_cast<bf16*>(smem + a.off_cols);
+  bf16* gbuf = reinterpret_cast<bf16*>(smem + a.off_g);
+  bf16* sw = reinterpret_cast<bf16*>(smem + a.off_w);
+  bf16* win = reinterpret_cast<bf16*>(smem + a.off_win);
+
+  const int chunk = blockIdx.x % a.chunks;
+  const int split = blockIdx.x / a.chunks;
+  const int first = split * a.tpb;
+  const int last = min(first + a.tpb, a.tiles);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool masked = a.mask != nullptr;
+  const bool want_dw = a.part != nullptr;
+  const bool want_grad = a.dx != nullptr || a.doff != nullptr || a.dmask != nullptr;
+  const bool gather = kWindow && a.dx != nullptr;
+  const int g_elems = a.m * a.row_g;
+  const int win_elems = a.npix * a.win_px;
+
+  // zeros once: the columns' and grad_out's padding, W, both tiles' counts
+  for (int e = threadIdx.x; e < (a.off_win - a.off_cols) / 16; e += kGradThreads)
+    reinterpret_cast<uint4*>(smem + a.off_cols)[e] = make_uint4(0, 0, 0, 0);
+  if (kWindow)
+    for (int e = threadIdx.x; e < 2 * (a.npix + 1); e += kGradThreads) cs[e] = 0;
+  __syncthreads();
+  // the chunk's weights as W_g[(tap, channel)][output], read in their own order
+  {
+    const int n = a.co * a.c_g * a.taps;
+    const bf16* src = a.weight + size_t(chunk) * n;
+    for (int e = threadIdx.x; e < n; e += kGradThreads) {
+      const int o = e / (a.c_g * a.taps);
+      const int r = e - o * a.c_g * a.taps;
+      const int c = r / a.by_taps, t = r - c * a.taps;
+      const int g = o / a.o_g;
+      sw[(g * a.kp + t * a.c_g + c) * a.row_w + o - g * a.o_g] = src[e];
+    }
+  }
+  if (first < last) {
+    grad_issue<kWindow>(a, grad_tile(a, first), chunk, win, stage, gbuf);
+    cp_async_commit();
+  }
+
+  float dw[kGradSlots][4];
+#pragma unroll
+  for (int s = 0; s < kGradSlots; ++s) dw[s][0] = dw[s][1] = dw[s][2] = dw[s][3] = 0.0f;
+
+  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+    const GradTile tt = grad_tile(a, tile);
+    const int cur = it & 1;
+    bf16* gb = gbuf + cur * g_elems;
+    const bf16* wb = win + cur * win_elems;
+    int* cnt = cs + cur * (a.npix + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's copies are in; the last tile's phase C is done
+
+    // T: the table, and the corners' counts a window pixel
+    for (int e = threadIdx.x; e < a.pt; e += kGradThreads) {
+      const int p = e / a.by_taps, t = e - p * a.taps;
+      int i, j;
+      tile_pos(a, tt, p, i, j);
+      int4 ent = make_int4(-1, 0, 0, 0);
+      if (i < a.ho && j < a.wo) {
+        const int ty = t / a.by_kw;
+        const Corner q = corner_at(stage[2 * e], stage[2 * e + 1], ty, t - ty * a.kw, i * a.stride - a.pad,
+                                   j * a.stride - a.pad, a.kh, a.kw, a.h, a.w, a.window);
+        if (q.valid) {
+          if (kWindow) {
+            const int base = (q.y0 - tt.wy0) * a.wc + (q.x0 - tt.wx0);  // the clamp keeps all four corners inside
+            const int code = slope_code(q.gy) | slope_code(q.gx) << 2 | int(q.hy) << 4 | int(q.hx) << 5;
+            ent.x = base | code << 24;
+            if (gather) {
+              atomicAdd(cnt + base, 1);
+              atomicAdd(cnt + base + 1, 1);
+              atomicAdd(cnt + base + a.wc, 1);
+              atomicAdd(cnt + base + a.wc + 1, 1);
+            }
+          } else {
+            ent.x = (q.y0 + 1) | (q.x0 + 1) << 16;  // -1 <= y0 < H, -1 <= x0 < W
+          }
+          ent.y = __float_as_int(q.ly);
+          ent.z = __float_as_int(q.lx);
+          ent.w = __float_as_int(masked ? round_to<bf16>(stage[2 * a.pt + e]) : 1.0f);
+        }
+      }
+      table[e] = ent;
+    }
+    if (!a.g_async) {
+      for (int e = threadIdx.x; e < a.m * a.co; e += kGradThreads) {
+        const int p = e / a.co, k = e - p * a.co;
+        int i, j;
+        tile_pos(a, tt, p, i, j);
+        const int g = k / a.o_g;
+        gb[p * a.row_g + g * a.ogp + k - g * a.o_g] =
+            i < a.ho && j < a.wo ? a.grad[((size_t(tt.b) * a.ho + i) * a.wo + j) * a.c_out + size_t(chunk) * a.co + k]
+                                 : __float2bfloat16_rn(0.0f);
+      }
+    }
+    __syncthreads();  // the table, counts and grad_out are in; the staged offsets are free
+
+    // B1: the counts scanned; grad_col on the tensor cores; the next tile's copies
+    if (gather) {
+      int* other = cs + (cur ^ 1) * (a.npix + 1);
+      for (int e = threadIdx.x; e <= a.npix; e += kGradThreads) other[e] = 0;
+      const int lo = min(int(threadIdx.x) * a.scan_per, a.npix), hi = min(lo + a.scan_per, a.npix);
+      int sum = 0;
+      for (int k = lo; k < hi; ++k) sum += cnt[k];
+      int incl = sum;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += o;
+      }
+      int run = incl - sum;
+      for (int k = lo; k < hi; ++k) {
+        const int c = cnt[k];
+        cnt[k] = run;
+        run += c;
+      }
+      if (lane == 31) wsum[warp] = incl;
+    }
+    if (want_grad) {
+      // a warp takes a run of (16 positions, group, 8 (tap, channel)) units,
+      // two at a time, walking them in order so that only the first needs
+      // divisions
+      const int nt_g = a.by_ntg.d;  // n-tiles of (tap, channel) a group
+      const int units = (a.m / 16) * a.gc * nt_g;
+      const int per_warp = (units + kGradWarps - 1) / kGradWarps;
+      const int u0 = warp * per_warp, u1 = min(u0 + per_warp, units);
+      int r = u0 / a.by_ntg;
+      int nt = u0 - r * nt_g;
+      int mt = r / a.gc;
+      int g = r - mt * a.gc;
+      for (int u = u0; u < u1; u += 2) {
+        int un[2][3];  // (mt, g, nt) of the two units
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          un[v][0] = mt, un[v][1] = g, un[v][2] = nt;
+          if (++nt == nt_g) {
+            nt = 0;
+            if (++g == a.gc) {
+              g = 0;
+              ++mt;
+            }
+          }
+        }
+        const bool two = u + 1 < u1;
+        float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          if (v == 1 && !two) break;
+          const bf16* arow = gb + (un[v][0] * 16) * a.row_g + un[v][1] * a.ogp;
+          const unsigned a_addr = smem_addr(arow + ((lane & 7) + ((lane >> 3) & 1) * 8) * a.row_g + (lane >> 4) * 8);
+          const unsigned b_addr =
+              smem_addr(sw + (un[v][1] * a.kp + un[v][2] * 8 + (lane & 7)) * a.row_w + ((lane >> 3) & 1) * 8);
+          int k = 0;
+#pragma unroll 1
+          for (; k + 16 <= a.ogp; k += 16) {
+            unsigned a0, a1, a2, a3, b0, b1;
+            ldmatrix_x4(a_addr + k * 2, a0, a1, a2, a3);
+            ldmatrix_x2(b_addr + k * 2, b0, b1);
+            mma_bf16(acc[v], a0, a1, a2, a3, b0, b1);
+          }
+          if (k < a.ogp) {  // o_g padded to 8, not 16: one k8 step
+            unsigned a0, a1, b0;
+            ldmatrix_x2(smem_addr(arow + (lane & 15) * a.row_g + k), a0, a1);
+            ldmatrix_x1(b_addr + k * 2, b0);
+            mma_bf16_k8(acc[v], a0, a1, b0);
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          if (v == 1 && !two) break;
+          const int n = un[v][2] * 8 + (lane & 3) * 2;
+          const int t = n / a.by_cg;
+          if (t < a.taps) {
+            float* dst = gcol + ((un[v][0] * 16 + (lane >> 2)) * a.taps + t) * a.gcs + un[v][1] * a.c_g + n - t * a.c_g;
+            *reinterpret_cast<float2*>(dst) = make_float2(acc[v][0], acc[v][1]);
+            *reinterpret_cast<float2*>(dst + 8 * a.taps * a.gcs) = make_float2(acc[v][2], acc[v][3]);
+          }
+        }
+      }
+    }
+    if (tile + 1 < last) {
+      grad_issue<kWindow>(a, grad_tile(a, tile + 1), chunk, win + (cur ^ 1) * win_elems, stage,
+                          gbuf + (cur ^ 1) * g_elems);
+      cp_async_commit();
+    }
+    __syncthreads();  // the scanned counts and grad_col are in
+
+    // B2: the lists; a pass over (position, tap, 8 channels)
+    int wbase[kGradWarps];  // where each warp's run of the lists starts
+    if (gather) {
+      int run = 0;
+#pragma unroll
+      for (int k = 0; k < kGradWarps; ++k) {
+        wbase[k] = run;
+        run += wsum[k];
+      }
+      if (threadIdx.x == 0) *total = run;
+      for (int e = threadIdx.x; e < a.pt; e += kGradThreads) {
+        const int4 ent = table[e];
+        if (ent.x < 0) continue;
+        const int base = ent.x & 0xffffff;
+        const float ly = __int_as_float(ent.y), lx = __int_as_float(ent.z);
+        const float hy = 1.0f - ly, hx = 1.0f - lx;
+        const float mk = __int_as_float(ent.w);
+        const int pk[4] = {base, base + 1, base + a.wc, base + a.wc + 1};
+        const float wk[4] = {hy * hx, hy * lx, ly * hx, ly * lx};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int pos = atomicAdd(cnt + pk[k], 1) + warp_base(a, wbase, pk[k]);
+          list[pos] = make_int2(e * a.gcs | pk[k] << 20, __float_as_int(masked ? wk[k] * mk : wk[k]));
+        }
+      }
+    }
+    {
+      const int q = threadIdx.x & (a.nq - 1);
+      const int step = kGradThreads >> a.lg_nq;
+      const int e_in = threadIdx.x >> a.lg_nq;
+      const bf16* xsrc = a.x + size_t(tt.b) * a.h * a.w * a.c + size_t(chunk) * a.cc + q * 8;
+      const int g_lo = (q * 8) / a.by_cg, g_hi = (q * 8 + 4) / a.by_cg;
+      const int col_lo = g_lo * a.kp + q * 8 - g_lo * a.c_g;
+      const int col_hi = g_hi * a.kp + q * 8 + 4 - g_hi * a.c_g;
+      const bool whole = (a.c_g & 7) == 0;
+      for (int e0 = 0; e0 < a.pt; e0 += step) {
+        const int e = e0 + e_in;
+        float sy = 0.0f, sx = 0.0f, sm = 0.0f;
+        int4 ent = make_int4(-1, 0, 0, 0);
+        if (e < a.pt) ent = table[e];
+        const int p = e / a.by_taps, t = e - p * a.taps;
+        uint4 s = make_uint4(0, 0, 0, 0);
+        if (ent.x >= 0) {
+          const float ly = __int_as_float(ent.y), lx = __int_as_float(ent.z), mk = __int_as_float(ent.w);
+          const float hy = 1.0f - ly, hx = 1.0f - lx;
+          const float4 wq = make_float4(hy * hx, hy * lx, ly * hx, ly * lx);
+          uint4 c00, c01, c10, c11;
+          int y0 = 0, x0 = 0;
+          if (kWindow) {
+            const bf16* s0 = wb + (ent.x & 0xffffff) * a.win_px + q * 8;
+            c00 = *reinterpret_cast<const uint4*>(s0);
+            c01 = *reinterpret_cast<const uint4*>(s0 + a.win_px);
+            c10 = *reinterpret_cast<const uint4*>(s0 + a.wc * a.win_px);
+            c11 = *reinterpret_cast<const uint4*>(s0 + (a.wc + 1) * a.win_px);
+          } else {
+            y0 = (ent.x & 0xffff) - 1;
+            x0 = (ent.x >> 16) - 1;
+            const bool y0in = y0 >= 0, y1in = y0 + 1 < a.h, x0in = x0 >= 0, x1in = x0 + 1 < a.w;
+            const uint4 z = make_uint4(0, 0, 0, 0);
+            const bf16* s0 = xsrc + (1LL * y0 * a.w + x0) * a.c;
+            c00 = y0in && x0in ? __ldg(reinterpret_cast<const uint4*>(s0)) : z;
+            c01 = y0in && x1in ? __ldg(reinterpret_cast<const uint4*>(s0 + a.c)) : z;
+            c10 = y1in && x0in ? __ldg(reinterpret_cast<const uint4*>(s0 + size_t(a.w) * a.c)) : z;
+            c11 = y1in && x1in ? __ldg(reinterpret_cast<const uint4*>(s0 + size_t(a.w + 1) * a.c)) : z;
+          }
+          const unsigned* p00 = reinterpret_cast<const unsigned*>(&c00);
+          const unsigned* p01 = reinterpret_cast<const unsigned*>(&c01);
+          const unsigned* p10 = reinterpret_cast<const unsigned*>(&c10);
+          const unsigned* p11 = reinterpret_cast<const unsigned*>(&c11);
+          float gv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+          if (want_grad) {
+            const float4 ga = *reinterpret_cast<const float4*>(gcol + e * a.gcs + q * 8);
+            const float4 gz = *reinterpret_cast<const float4*>(gcol + e * a.gcs + q * 8 + 4);
+            gv[0] = ga.x, gv[1] = ga.y, gv[2] = ga.z, gv[3] = ga.w, gv[4] = gz.x, gv[5] = gz.y, gv[6] = gz.z, gv[7] = gz.w;
+          }
+          // the samples, and the channel sums of grad_s times each corner
+          float colv[8], s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const unsigned w00 = p00[u >> 1], w01 = p01[u >> 1], w10 = p10[u >> 1], w11 = p11[u >> 1];
+            const bool odd = u & 1;
+            const float v00 = odd ? hi_bf16(w00) : lo_bf16(w00), v01 = odd ? hi_bf16(w01) : lo_bf16(w01);
+            const float v10 = odd ? hi_bf16(w10) : lo_bf16(w10), v11 = odd ? hi_bf16(w11) : lo_bf16(w11);
+            const float sb = round_to<bf16>(blend(wq, v00, v01, v10, v11));  // the forward's sample
+            colv[u] = masked ? __fmul_rn(sb, mk) : sb;
+            const float gs = masked ? gv[u] * mk : gv[u];
+            s00 = fmaf(gs, v00, s00);
+            s01 = fmaf(gs, v01, s01);
+            s10 = fmaf(gs, v10, s10);
+            s11 = fmaf(gs, v11, s11);
+            if (masked) sm = fmaf(gv[u], sb, sm);
+          }
+          s = make_uint4(pack_bf16(colv[0], colv[1]), pack_bf16(colv[2], colv[3]), pack_bf16(colv[4], colv[5]),
+                         pack_bf16(colv[6], colv[7]));
+          // d/d(ly) = hx (hy' v10 - v00) + lx (hy' v11 - v01), d/d(lx) alike, summed over the channels
+          const int code = ent.x >> 24;
+          const float ky = kWindow ? float((code >> 4) & 1) : 1.0f, kx = kWindow ? float((code >> 5) & 1) : 1.0f;
+          sy = hx * (ky * s10 - s00) + lx * (ky * s11 - s01);
+          sx = hy * (kx * s01 - s00) + ly * (kx * s11 - s10);
+          if (!kWindow && a.dx != nullptr) {  // D = 0: each corner's share straight to dx
+            const float wk[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int y = y0 + (k >> 1), xx = x0 + (k & 1);
+              if (y < 0 || y >= a.h || xx < 0 || xx >= a.w) continue;
+              const float f = masked ? wk[k] * mk : wk[k];
+              float* d = a.dx + ((size_t(tt.b) * a.h + y) * a.w + xx) * a.c + size_t(chunk) * a.cc + q * 8;
+              atomicAdd(reinterpret_cast<float4*>(d), make_float4(f * gv[0], f * gv[1], f * gv[2], f * gv[3]));
+              atomicAdd(reinterpret_cast<float4*>(d + 4), make_float4(f * gv[4], f * gv[5], f * gv[6], f * gv[7]));
+            }
+          }
+        }
+        if (want_dw && e < a.pt) {  // an invalid sample's columns are zeros
+          bf16* row = cols + p * a.row_c + t * a.c_g;
+          if (whole) {
+            *reinterpret_cast<uint4*>(row + col_lo) = s;
+          } else {
+            *reinterpret_cast<uint2*>(row + col_lo) = make_uint2(s.x, s.y);
+            *reinterpret_cast<uint2*>(row + col_hi) = make_uint2(s.z, s.w);
+          }
+        }
+        if (a.doff == nullptr && a.dmask == nullptr) continue;
+        for (int d = 1; d < a.nq; d <<= 1) {  // the sums over the chunk's channels
+          sy += __shfl_xor_sync(0xffffffffu, sy, d);
+          sx += __shfl_xor_sync(0xffffffffu, sx, d);
+          sm += __shfl_xor_sync(0xffffffffu, sm, d);
+        }
+        if (q != 0 || ent.x < 0) continue;
+        int i, j;
+        tile_pos(a, tt, p, i, j);
+        const size_t at = (size_t(tt.b) * a.ho + i) * a.wo + j;
+        const int code = ent.x >> 24;
+        if (a.doff != nullptr) {
+          const float2 v = kWindow ? make_float2(sy * slope_of(code & 3), sx * slope_of((code >> 2) & 3))
+                                   : make_float2(sy, sx);
+          float2* d = reinterpret_cast<float2*>(a.doff + (at * a.taps + t) * 2);
+          if (a.chunks == 1) *d = v;
+          else atomicAdd(d, v);
+        }
+        if (a.dmask != nullptr) {
+          float* d = a.dmask + at * a.taps + t;
+          if (a.chunks == 1) *d = sm;
+          else atomicAdd(d, sm);
+        }
+      }
+    }
+    __syncthreads();  // the columns and the lists are in
+
+    // C: dW += columns^T . grad_out; dx gathered a window pixel at a time
+    if (want_dw) {
+#pragma unroll
+      for (int s = 0; s < kGradSlots; ++s) {
+        const int u = warp + s * kGradWarps;
+        if (u >= a.dw_units) break;
+        const int r = u / a.by_dwnt, nt = u - r * a.dw_nt;
+        const int g = r / a.by_dwmt, mt = r - g * a.dw_mt;
+        const unsigned a_addr = smem_addr(cols + (((lane >> 4) & 1) * 8 + (lane & 7)) * a.row_c + g * a.kp + mt * 16 +
+                                          ((lane >> 3) & 1) * 8);
+        const unsigned b_addr = smem_addr(gb + (((lane >> 3) & 1) * 8 + (lane & 7)) * a.row_g + g * a.ogp + nt * 8);
+#pragma unroll 1
+        for (int k = 0; k < a.m; k += 16) {
+          unsigned a0, a1, a2, a3, b0, b1;
+          ldmatrix_x4_trans(a_addr + k * a.row_c * 2, a0, a1, a2, a3);
+          ldmatrix_x2_trans(b_addr + k * a.row_g * 2, b0, b1);
+          mma_bf16(dw[s], a0, a1, a2, a3, b0, b1);
+        }
+      }
+    }
+    if (gather) {
+      // the lists in equal runs, one a thread and 8 channels: the sums go to
+      // dx wherever the run's pixel changes, and at its end
+      const int n = *total;
+      const int per = (n + (kGradThreads >> a.lg_nq) - 1) / (kGradThreads >> a.lg_nq);
+      const int q8 = (threadIdx.x & (a.nq - 1)) * 8;
+      const int k0 = (threadIdx.x >> a.lg_nq) * per, k1 = min(k0 + per, n);
+      float* dx_img = a.dx + size_t(tt.b) * a.h * a.w * a.c + size_t(chunk) * a.cc + q8;
+      int pix = -1;
+      float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), s1 = s0;
+      for (int k = k0; k <= k1; ++k) {
+        const int2 v = k < k1 ? list[k] : make_int2(-1, 0);
+        if ((v.x >> 20) != pix) {
+          if (pix >= 0) {
+            const int wy = pix / a.by_wc;
+            const int y = tt.wy0 + wy, xx = tt.wx0 + pix - wy * a.wc;
+            if (y >= 0 && y < a.h && xx >= 0 && xx < a.w) {
+              float* d = dx_img + (size_t(y) * a.w + xx) * a.c;
+              atomicAdd(reinterpret_cast<float4*>(d), s0);
+              atomicAdd(reinterpret_cast<float4*>(d + 4), s1);
+            }
+          }
+          pix = v.x >> 20;
+          s0 = s1 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        if (k == k1) break;
+        const float* g = gcol + (v.x & 0xfffff) + q8;
+        const float4 g0 = *reinterpret_cast<const float4*>(g), g1 = *reinterpret_cast<const float4*>(g + 4);
+        const float w = __int_as_float(v.y);
+        s0 = make_float4(fmaf(w, g0.x, s0.x), fmaf(w, g0.y, s0.y), fmaf(w, g0.z, s0.z), fmaf(w, g0.w, s0.w));
+        s1 = make_float4(fmaf(w, g1.x, s1.x), fmaf(w, g1.y, s1.y), fmaf(w, g1.z, s1.z), fmaf(w, g1.w, s1.w));
+      }
+    }
+  }
+
+  if (!want_dw) return;
+  float* out = a.part + size_t(split) * a.c_out * a.c_g * a.taps;
+#pragma unroll
+  for (int s = 0; s < kGradSlots; ++s) {
+    const int u = warp + s * kGradWarps;
+    if (u >= a.dw_units) break;
+    const int r = u / a.by_dwnt, nt = u - r * a.dw_nt;
+    const int g = r / a.by_dwmt, mt = r - g * a.dw_mt;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = mt * 16 + (lane >> 2) + (k >> 1) * 8;  // tap * c_g + channel
+      const int o = nt * 8 + (lane & 3) * 2 + (k & 1);
+      if (row >= a.taps * a.c_g || o >= a.o_g) continue;
+      const int t = row / a.by_cg, c = row - t * a.c_g;
+      out[((size_t(chunk) * a.co + g * a.o_g + o) * a.c_g + c) * a.taps + t] = dw[s][k];
+    }
+  }
+}
+
 __global__ void deform_grad_cast_kernel(const float* acc, __nv_bfloat16* out, long long size) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < size; i += 256LL * gridDim.x)
     out[i] = __float2bfloat16_rn(acc[i]);
 }
 
-template <typename T>
-int launch_grad(GradArgs a, void* dx_out, void* dweight, cudaStream_t stream) {
-  cudaError_t err;
-  if (a.dx != nullptr || a.doff != nullptr || a.dmask != nullptr) {
-    const int smem = grad_data_bytes(a);
-    err = cudaFuncSetAttribute(deform_grad_data_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid(unsigned(a.tiles), unsigned(a.c / (a.gpc * a.c_g)));
-    deform_grad_data_kernel<T><<<grid, kGradThreads, smem, stream>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  }
-  if (a.part != nullptr) {
-    const int smem = grad_weight_bytes(a);
-    err = cudaFuncSetAttribute(deform_grad_weight_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid(unsigned(a.c_out / a.oc), unsigned(a.splits));
-    deform_grad_weight_kernel<T><<<grid, kGradThreads, smem, stream>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-    const int size = a.c_out * a.c_g * a.taps;
-    deform_grad_weight_sum_kernel<T><<<(size + 255) / 256, 256, 0, stream>>>(a.part, static_cast<T*>(dweight),
-                                                                            a.splits, size);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  }
+template <bool kWindow>
+int launch_grad_bf16_kernel(const GradPlan& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(deform_grad_bf16_kernel<kWindow>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return int(err);
+  deform_grad_bf16_kernel<kWindow><<<unsigned(a.chunks * a.splits), kGradThreads, a.smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+int launch_grad_bf16(GradPlan a, void* dx_out, void* dweight, cudaStream_t stream) {
+  int err = a.window > 0 ? launch_grad_bf16_kernel<true>(a, stream) : launch_grad_bf16_kernel<false>(a, stream);
+  if (err) return err;
+  if (a.part != nullptr &&
+      (err = launch_weight_sum<bf16>(a.part, dweight, a.splits, a.c_out * a.c_g * a.taps, stream)))
+    return err;
   if (dx_out != nullptr) {
-    const long long size = 1LL * (a.n / (a.ho * a.wo)) * a.h * a.w * a.c;
+    const long long size = 1LL * a.b * a.h * a.w * a.c;
     const long long blocks = (size + 255) / 256;
     deform_grad_cast_kernel<<<unsigned(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-        a.dx, static_cast<__nv_bfloat16*>(dx_out), size);
-    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+        a.dx, static_cast<bf16*>(dx_out), size);
+    return int(cudaGetLastError());
   }
   return int(cudaSuccess);
 }
@@ -1133,49 +1819,75 @@ int bags_deform_conv_forward(int dtype, const void* x, const float* offsets, con
 // dx_out, when not null, dx rounded to bf16); doff (B, Ho, Wo, 2 * taps) and
 // dmask (B, Ho, Wo, taps), f32, zeroed here; part (splits, C_out, c_g, kh,
 // kw) f32 scratch and dweight, in x's dtype, the weight's (both or neither).
-// tp, gpc, oc, splits, smem_data, smem_weight: the plan
-// (ops/deform_conv.py `backward_plan`), checked here.
+// p0..p5, the plan, checked here: bf16, th, tw, groups a chunk, tiles a
+// block, splits, shared memory bytes (ops/deform_conv.py `backward_plan`);
+// f32, tp, gpc, oc, splits, and the two passes' shared memory bytes
+// (`backward_plan_f32`).
 int bags_deform_conv_backward(int dtype, const void* x, const float* offsets, const float* mask,
                               const void* weight, const void* grad, float* dx_acc, void* dx_out, float* doff,
                               float* dmask, float* part, void* dweight, int b, int h, int w, int c, int ho,
                               int wo, int c_out, int kh, int kw, int stride, int pad, int groups, int window,
-                              int tp, int gpc, int oc, int splits, int smem_data, int smem_weight,
-                              cudaStream_t stream) {
+                              int p0, int p1, int p2, int p3, int p4, int p5, cudaStream_t stream) {
   if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
   if (groups <= 0 || c % groups || c_out % groups || b <= 0 || ho <= 0 || wo <= 0) return int(cudaErrorInvalidValue);
-  GradArgs a{};
-  a.x = x, a.offsets = offsets, a.mask = mask, a.weight = weight, a.grad = grad;
-  a.dx = dx_acc, a.doff = doff, a.dmask = dmask, a.part = part;
-  a.h = h, a.w = w, a.c = c, a.ho = ho, a.wo = wo, a.c_out = c_out, a.kh = kh, a.kw = kw, a.taps = kh * kw;
-  a.stride = stride, a.pad = pad, a.c_g = c / groups, a.o_g = c_out / groups, a.window = window;
-  a.tp = tp, a.gpc = gpc, a.oc = oc, a.splits = splits;
   const long long n = 1LL * b * ho * wo;
   if (n > 0x7fffffffLL || 1LL * b * h * w > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  a.n = int(n);
-  // the plan must be one these kernels run, and the wrapper's shared memory theirs
-  const bool whole = oc % a.o_g == 0 && groups % (oc / a.o_g) == 0;
-  if (tp <= 0 || gpc <= 0 || groups % gpc || c % 4 || a.c_g % 4 || oc <= 0 || !(whole || a.o_g % oc == 0) ||
-      oc * a.taps * a.c_g > kGradThreads * kGradAcc || splits <= 0)
-    return int(cudaErrorInvalidValue);
   if ((dmask != nullptr && mask == nullptr) || ((part == nullptr) != (dweight == nullptr)) ||
       (dx_out != nullptr && (dx_acc == nullptr || dtype != 1)))
     return int(cudaErrorInvalidValue);
-  if (grad_data_bytes(a) != smem_data || grad_weight_bytes(a) != smem_weight ||
-      size_t(smem_data) > kMaxShared || size_t(smem_weight) > kMaxShared)
-    return int(cudaErrorInvalidValue);
-  a.tiles = int((n + tp - 1) / tp);
-  a.per_split = (a.tiles + splits - 1) / splits;
-  if ((a.tiles + a.per_split - 1) / a.per_split != splits) return int(cudaErrorInvalidValue);
+  const int taps = kh * kw;
+  GradArgs f{};
+  GradPlan a{};
+  if (dtype == 0) {
+    // the plan must be one these kernels run, and the wrapper's shared memory theirs
+    f.x = static_cast<const float*>(x), f.offsets = offsets, f.mask = mask;
+    f.weight = static_cast<const float*>(weight), f.grad = static_cast<const float*>(grad);
+    f.dx = dx_acc, f.doff = doff, f.dmask = dmask, f.part = part, f.n = int(n);
+    f.h = h, f.w = w, f.c = c, f.ho = ho, f.wo = wo, f.c_out = c_out, f.kh = kh, f.kw = kw, f.taps = taps;
+    f.stride = stride, f.pad = pad, f.c_g = c / groups, f.o_g = c_out / groups, f.window = window;
+    f.tp = p0, f.gpc = p1, f.oc = p2, f.splits = p3;
+    const bool whole = f.oc % f.o_g == 0 && groups % (f.oc / f.o_g) == 0;
+    if (f.tp <= 0 || f.gpc <= 0 || groups % f.gpc || c % 4 || f.c_g % 4 || f.oc <= 0 ||
+        !(whole || f.o_g % f.oc == 0) || f.oc * taps * f.c_g > kGradThreads * kGradAcc || f.splits <= 0)
+      return int(cudaErrorInvalidValue);
+    if (grad_data_bytes(f) != p4 || grad_weight_bytes(f) != p5 || size_t(p4) > kMaxShared || size_t(p5) > kMaxShared)
+      return int(cudaErrorInvalidValue);
+    f.tiles = int((n + f.tp - 1) / f.tp);
+    f.per_split = (f.tiles + f.splits - 1) / f.splits;
+    if ((f.tiles + f.per_split - 1) / f.per_split != f.splits) return int(cudaErrorInvalidValue);
+  } else {
+    a.x = static_cast<const bf16*>(x), a.offsets = offsets, a.mask = mask;
+    a.weight = static_cast<const bf16*>(weight), a.grad = static_cast<const bf16*>(grad);
+    a.dx = dx_acc, a.doff = doff, a.dmask = dmask, a.part = part;
+    a.b = b, a.h = h, a.w = w, a.c = c, a.ho = ho, a.wo = wo, a.c_out = c_out, a.kh = kh, a.kw = kw;
+    a.stride = stride, a.pad = pad, a.c_g = c / groups, a.o_g = c_out / groups, a.window = window;
+    a.th = p0, a.tw = p1, a.gc = p2, a.tpb = p3, a.splits = p4;
+    if (a.th <= 0 || a.tw <= 0 || a.gc <= 0 || a.tpb <= 0 || groups % a.gc || a.c_g % 4 || (a.th * a.tw) % 16)
+      return int(cudaErrorInvalidValue);
+    lay_out_grad(a);
+    if (a.cc % 8 || a.nq > 32 || (a.nq & (a.nq - 1)) || a.smem != p5 || size_t(p5) > kMaxShared ||
+        a.dw_units > kGradWarps * kGradSlots || (window == 0 && (h >= 32767 || w >= 32767)) ||
+        a.npix >= 2048 || a.pt * a.gcs >= (1 << 20))  // a list entry packs the pixel and the grad_col row
+      return int(cudaErrorInvalidValue);
+    a.chunks = groups / a.gc;
+    a.tiles_y = (ho + a.th - 1) / a.th;
+    a.tiles_x = (wo + a.tw - 1) / a.tw;
+    a.tiles = b * a.tiles_y * a.tiles_x;
+    a.by_tx = fast_div(a.tiles_x);
+    a.by_txy = fast_div(a.tiles_y * a.tiles_x);
+    if ((a.tiles + a.tpb - 1) / a.tpb != a.splits || 1LL * a.chunks * a.splits > 0x7fffffffLL)
+      return int(cudaErrorInvalidValue);
+    a.g_async = a.o_g % 8 == 0 && reinterpret_cast<uintptr_t>(grad) % 16 == 0;
+  }
   cudaError_t err;
   if (dx_acc != nullptr &&
       (err = cudaMemsetAsync(dx_acc, 0, size_t(b) * h * w * c * sizeof(float), stream)) != cudaSuccess)
     return int(err);
-  if (doff != nullptr && (err = cudaMemsetAsync(doff, 0, size_t(n) * 2 * a.taps * sizeof(float), stream)) != cudaSuccess)
+  if (doff != nullptr && (err = cudaMemsetAsync(doff, 0, size_t(n) * 2 * taps * sizeof(float), stream)) != cudaSuccess)
     return int(err);
-  if (dmask != nullptr && (err = cudaMemsetAsync(dmask, 0, size_t(n) * a.taps * sizeof(float), stream)) != cudaSuccess)
+  if (dmask != nullptr && (err = cudaMemsetAsync(dmask, 0, size_t(n) * taps * sizeof(float), stream)) != cudaSuccess)
     return int(err);
-  return dtype == 0 ? launch_grad<float>(a, dx_out, dweight, stream)
-                    : launch_grad<__nv_bfloat16>(a, dx_out, dweight, stream);
+  return dtype == 0 ? launch_grad_f32(f, dweight, stream) : launch_grad_bf16(a, dx_out, dweight, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
-"""Where K7's, K2b's, the NMS kernels', K8's and K6's time goes, and what one launch costs on the card's host.
+"""Where K7's, K7b's, K2b's, the NMS kernels', K8's and K6's time goes, and what one launch costs on the card's host.
 
-    python3 -m balancedgroupsoftmax_torch.kernel_study [k7] [k2b] [nms] [launch] [fused] [k6]
+    python3 -m balancedgroupsoftmax_torch.kernel_study [k7] [k7b] [k2b] [nms] [launch] [fused] [k6]
 
-(all six parts when none is named)
+(all seven parts when none is named)
 
 Needs an H100 and nvcc; it builds variants of `csrc/deform_conv.cu`,
 `csrc/roi_align.cu`, `csrc/nms.cu`, `csrc/fused_block.cu` and `csrc/gather.cu`
@@ -18,6 +18,19 @@ prints:
 2. every launch plan that fits at those layers, fastest first, each checked
    to give the same output as the picked plan (the sums run in one order
    whatever the plan);
+2b. K7b (bf16, D = 4, v1, as the HTC-DCN step asks: dx, the offsets' and the
+   weight's gradients) at the six distinct shapes of the X101's 30
+   deformable layers, whole, each pass alone (the data gradients, the
+   weight's), and with one part of the kernel cut out at a time (`K7B_CUTS`:
+   for the tile-walking kernel, the window copies, the sampling pass, the
+   grad_col product, the dW product, the dx lists, gather and flush, and dx
+   by per-sample atomics in place of the window; for the first design, run
+   from a tree that holds it, its data pass without its dx atomics or
+   grad_col and its weight pass without its products or sampling); then,
+   for the tile-walking kernel, each phase's cycles a (block, tile) from a
+   variant that reads `clock64` at its barriers, with two blocks an SM and
+   with one (more shared memory asked), and every plan that fits, fastest
+   first, each held to the picked plan's result;
 3. the host's cost of one launch: an empty kernel with nine arguments
    launched from C in a loop, through the static and the shared CUDA
    runtime, the same launch through one ctypes call, and through
@@ -383,6 +396,212 @@ def study_k7(fns: dict) -> None:
               + "; ".join(f"{t:.4f} ms {p}" for t, p, _ in rows[:6]), flush=True)
 
 
+DCN_GRAD_LAYERS = {  # name: (H, W, C, stride) of the six distinct K7b shapes; 64 groups, D = 4
+    "c3.0": (200, 336, 512, 2),
+    "c3.x": (100, 168, 512, 1),
+    "c4.0": (100, 168, 1024, 2),
+    "c4.x": (50, 84, 1024, 1),
+    "c5.0": (50, 84, 2048, 2),
+    "c5.x": (25, 42, 2048, 1),
+}
+# K7b's parts cut out, for each design of csrc/deform_conv.cu (the study takes
+# the table whose texts the source holds): name: (edits, the gradients timed).
+# "first" is the two-pass design that the tile-walking kernel ("tiles")
+# replaced; run the study from a tree that holds it to time it.
+K7B_CUTS = {
+    "first": {
+        "data pass: no dx atomics": (("        if (pix[r] >= 0)", "        if (pix[r] >= 0 && wk[r] == 1.0e30f)"), "data"),
+        "data pass: no grad_col": (("    for (int o = 0; o < a.o_g; ++o) {", "    if (0) for (int o = 0; o < a.o_g; ++o) {"),
+                                   "data"),
+        "weight pass: no products": (("    for (int p = 0; p < a.tp; ++p) {", "    if (0) for (int p = 0; p < a.tp; ++p) {"),
+                                     "weight"),
+        "weight pass: no sampling": (("    for (int e = threadIdx.x; e < pt * nq; e += blockDim.x) {",
+                                      "    if (0) for (int e = threadIdx.x; e < pt * nq; e += blockDim.x) {"), "weight"),
+    },
+    "tiles": {
+        "window copies": (("    for (int e = threadIdx.x; e < a.npix * a.nq; e += kGradThreads) {\n      const int pix",
+                           "    if (0) for (int e = threadIdx.x; e < a.npix * a.nq; e += kGradThreads) {\n      const int pix"),
+                          "all"),
+        "sampling pass": (("      for (int e0 = 0; e0 < a.pt; e0 += step) {",
+                           "      if (0) for (int e0 = 0; e0 < a.pt; e0 += step) {"), "all"),
+        "grad_col product": (("      for (int u = u0; u < u1; u += 2) {", "      if (0) for (int u = u0; u < u1; u += 2) {"),
+                             "data"),
+        "dW product": (("#pragma unroll 1\n        for (int k = 0; k < a.m; k += 16) {",
+                        "#pragma unroll 1\n        if (0) for (int k = 0; k < a.m; k += 16) {"),
+                       "weight"),
+        "dx window (per-sample atomics instead)": ([
+            ("  const bool gather = kWindow && a.dx != nullptr;", "  const bool gather = false;"),
+            ("          if (!kWindow && a.dx != nullptr) {  // D = 0: each corner's share straight to dx",
+             "          if (kWindow) {\n            const int b0 = ent.x & 0xffffff, wy = b0 / a.by_wc;\n"
+             "            y0 = tt.wy0 + wy;\n            x0 = tt.wx0 + b0 - wy * a.wc;\n          }\n"
+             "          if (a.dx != nullptr) {")], "all"),
+        "dx lists, gather and flush": ([
+            ("        for (int k = 0; k < 4; ++k) {\n          const int pos = atomicAdd(",
+             "        if (0) for (int k = 0; k < 4; ++k) {\n          const int pos = atomicAdd("),
+            ("      for (int k = k0; k <= k1; ++k) {", "      if (0) for (int k = k0; k <= k1; ++k) {")], "data"),
+    },
+}
+# The tile-walking design with thread 0 of each block adding up the cycles
+# between its barriers and inside phases B1 and C: the wait for the tile's
+# copies, the table, B1's scan, its products (warp 0's share), its copies
+# going out and the wait for the other warps, B2 (lists, sampling, the
+# offsets' gradient), C's weight-gradient products and its dx gather, and the
+# block's whole run.
+K7B_CYCLES = [
+    ('#include "launch.cuh"\n', '#include "launch.cuh"\n\n__device__ unsigned long long k7b_cycles[9];\n'
+     "#define K7B_LAP(k) if (threadIdx.x == 0) { const unsigned long long now = clock64(); "
+     "k7b_acc[k] += now - k7b_mark; k7b_mark = now; }\n"),
+    ("  float dw[kGradSlots][4];\n", "  float dw[kGradSlots][4];\n  unsigned long long k7b_mark = clock64(), "
+     "k7b_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  const unsigned long long k7b_start = k7b_mark;\n"),
+    ("    cp_async_wait<0>();\n    __syncthreads();  // this tile's copies are in; the last tile's phase C is done\n",
+     "    K7B_LAP(7);\n    cp_async_wait<0>();\n    __syncthreads();  // this tile's copies are in; the last tile's phase C is done\n"
+     "    K7B_LAP(0);\n"),
+    ("    if (gather) {\n      // the lists in equal runs",
+     "    K7B_LAP(6);\n    if (gather) {\n      // the lists in equal runs"),
+    ("    __syncthreads();  // the table, counts and grad_out are in; the staged offsets are free\n",
+     "    __syncthreads();  // the table, counts and grad_out are in; the staged offsets are free\n    K7B_LAP(1);\n"),
+    ("      if (lane == 31) wsum[warp] = incl;\n    }\n", "      if (lane == 31) wsum[warp] = incl;\n    }\n    K7B_LAP(2);\n"),
+    ("    if (tile + 1 < last) {\n      grad_issue<kWindow>(a, grad_tile(a, tile + 1)",
+     "    K7B_LAP(3);\n    if (tile + 1 < last) {\n      grad_issue<kWindow>(a, grad_tile(a, tile + 1)"),
+    ("    __syncthreads();  // the scanned counts and grad_col are in\n",
+     "    __syncthreads();  // the scanned counts and grad_col are in\n    K7B_LAP(4);\n"),
+    ("    __syncthreads();  // the columns and the lists are in\n",
+     "    __syncthreads();  // the columns and the lists are in\n    K7B_LAP(5);\n"),
+    ("  if (!want_dw) return;\n  float* out = a.part + size_t(split)",
+     "  K7B_LAP(7);\n  __syncthreads();\n  K7B_LAP(0);\n  if (threadIdx.x == 0) {\n    for (int k = 0; k < 8; ++k) atomicAdd(&k7b_cycles[k], k7b_acc[k]);\n"
+     "    atomicAdd(&k7b_cycles[8], clock64() - k7b_start);\n  }\n  if (!want_dw) return;\n  float* out = a.part + size_t(split)"),
+    ("BAGS_PACKED(bags_deform_conv_backward)\n", "BAGS_PACKED(bags_deform_conv_backward)\n"
+     'extern "C" int k7b_cycles_read(unsigned long long* out, int zero) {\n'
+     "  if (zero) {\n    const unsigned long long z[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "    return int(cudaMemcpyToSymbol(k7b_cycles, z, sizeof z));\n  }\n"
+     "  return int(cudaMemcpyFromSymbol(out, k7b_cycles, sizeof(k7b_cycles)));\n}\n"),
+]
+# The same with 120 KB more shared memory a block, so that one block, not two,
+# holds an SM: whether a block's tile gets faster alone (throughput-bound) or
+# not (latency-bound).
+K7B_ONE_A_SM = [
+    ("cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);\n  if (err != cudaSuccess) return int(err);\n"
+     "  deform_grad_bf16_kernel<kWindow><<<unsigned(a.chunks * a.splits), kGradThreads, a.smem, stream>>>(a);",
+     "cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem + 120000);\n  if (err != cudaSuccess) return int(err);\n"
+     "  deform_grad_bf16_kernel<kWindow><<<unsigned(a.chunks * a.splits), kGradThreads, a.smem + 120000, stream>>>(a);"),
+]
+K7B_NEEDS = {"all": (True, True, True, False), "data": (True, True, False, False), "weight": (False, False, True, False)}
+
+
+def study_k7b(tmp: Path) -> None:
+    """K7b (bf16, D = 4, v1: dx, the offsets' and the weight's gradients, as
+    the HTC-DCN step asks) at the six distinct shapes of the X101's 30
+    deformable layers: whole, each pass alone, and each pass with one part
+    cut out, timed through `deform_conv2d_backward` with the variant's
+    launcher bound in turn (medians of 3 runs of 5 launches). The whole
+    kernel is held to the plain version. For the tile-walking design, also
+    every plan that fits (`study_k7b_plans`)."""
+    src = (cuda.CSRC / "deform_conv.cu").read_text()
+    text = lambda edits: (edits if isinstance(edits, tuple) else edits[0])[0]
+    # the newest design first: the f32 route keeps the first design's kernels
+    design = next(d for d, cuts in reversed(K7B_CUTS.items()) if all(text(e[0]) in src for e in cuts.values()))
+    cuts = K7B_CUTS[design]
+    fns = build_variants(tmp, "deform_conv.cu", "bags_deform_conv_backward", {k: v[0] for k, v in cuts.items()})
+    kernel = cuda.DEFORM_CONV_BACKWARD
+    kernel.bind()
+    own = kernel.address
+    runs = [("whole", "whole", n) for n in K7B_NEEDS] + [(v, f"no {v}", cuts[v][1]) for v in cuts]
+    if design == "tiles":
+        timed = edited(src, K7B_CYCLES, "deform_conv.cu", "cycle count")
+        cycles = {}
+        for label, text in (("two blocks an SM", timed),
+                            ("one block an SM", edited(timed, K7B_ONE_A_SM, "deform_conv.cu", "launch"))):
+            stem = f"k7b_cycles_{len(cycles)}"
+            (tmp / f"{stem}.cu").write_text(text)
+            subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-shared", str(tmp / f"{stem}.cu"),
+                            "-o", str(tmp / f"lib{stem}.so")], check=True, capture_output=True, text=True)
+            lib = ctypes.CDLL(str(tmp / f"lib{stem}.so"))
+            cycles[label] = {name: ctypes.cast(getattr(lib, name), ctypes.c_void_p).value
+                             for name in ("bags_deform_conv_backward_packed", "k7b_cycles_read")}
+    print(f"K7b ({design} design), ms a call:", flush=True)
+    gen = torch.Generator().manual_seed(17)
+    try:
+        for name, (h, w, c, stride) in DCN_GRAD_LAYERS.items():
+            x, off, weight, out = layer_inputs(h, w, c, stride, gen)
+            gout = torch.randn(out.shape, generator=gen).to("cuda", torch.bfloat16)
+            args = (gout, x, off, weight, None, stride, 1, 64, 4)
+            kernel.address = fns["whole"]
+            got = ops_dcn.deform_conv2d_backward(*args)
+            want = ops_dcn.deform_conv2d_backward_reference(*args)
+            for g, r in zip(got, want):
+                if r is not None and (g.float() - r.float()).abs().max().item() > 2.0**-7 * r.float().abs().max().item():
+                    raise AssertionError(f"K7b at {name} differs from the plain version")
+            del got, want
+            times = {}
+            for label, variant, needs in runs:
+                kernel.address = fns[variant]
+                call = lambda: ops_dcn.deform_conv2d_backward(*args, needs=K7B_NEEDS[needs])
+                times[label if variant != "whole" else needs] = statistics.median(cuda_time_ms(call, 5) for _ in range(3))
+            print(f"  {name} x {(2, h, w, c)} stride {stride}: " + ", ".join(f"{k} {t:.4f}" for k, t in times.items()),
+                  flush=True)
+            if design == "tiles":
+                for label, fn in cycles.items():
+                    k7b_phase_cycles(args, fn, kernel, label)
+                study_k7b_plans(args, fns["whole"], kernel)
+    finally:
+        kernel.address = own
+
+
+def k7b_phase_cycles(args, fns: dict, kernel, label: str) -> None:
+    """The cycle-counting variant (`K7B_CYCLES`, or with `K7B_ONE_A_SM`):
+    its time a call, and in one launch each phase's cycles a (block, tile)
+    on thread 0's clock and its share of the blocks' runs."""
+    kernel.address = fns["bags_deform_conv_backward_packed"]
+    ms = statistics.median(cuda_time_ms(lambda: ops_dcn.deform_conv2d_backward(*args), 5) for _ in range(3))
+    read = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_int)(fns["k7b_cycles_read"])
+    out = (ctypes.c_ulonglong * 9)()
+    ops_dcn.deform_conv2d_backward(*args)
+    torch.cuda.synchronize()
+    read(None, 1)
+    ops_dcn.deform_conv2d_backward(*args)
+    torch.cuda.synchronize()
+    if read(out, 0):
+        raise RuntimeError("could not read K7b's cycle counts")
+    gout, x, _, _, _, stride, _, groups, window = args
+    b, ho, wo, c_out = gout.shape
+    plan = ops_dcn.backward_plan(b, ho, wo, x.shape[-1], groups, c_out, 3, 3, stride, window)
+    pairs = b * -(-ho // plan.th) * -(-wo // plan.tw) * (groups // plan.gc)
+    names = ("wait for the copies", "T", "B1 scan", "B1 products (warp 0)", "B1 copies out + barrier", "B2", "C dW",
+             "C gather")
+    print(f"    {label}: {ms:.4f} ms; cycles a (block, tile): " + ", ".join(f"{n} {out[k] / pairs:.0f} ({out[k] / out[8]:.2f})"
+                                                  for k, n in enumerate(names))
+          + f"; a block's run {out[8] / plan.blocks:.0f}", flush=True)
+
+
+def study_k7b_plans(args, address: int, kernel) -> None:
+    """Every bf16 plan of K7b that fits the layer, timed whole (the picked
+    plan first), fastest first, each held to the picked plan's result to one
+    bf16 step (the gradients' sums run in another order)."""
+    gout, x, off, weight, mask, stride, _, groups, window = args
+    b, ho, wo, c_out = gout.shape
+    kernel.address = address
+    picked = ops_dcn.backward_plan(b, ho, wo, x.shape[-1], groups, c_out, 3, 3, stride, window)
+    want = ops_dcn.deform_conv2d_backward(*args)
+    own = ops_dcn.backward_plan
+    rows = []
+    try:
+        for cost, plan in sorted(ops_dcn.backward_plans(b, ho, wo, x.shape[-1], groups, c_out, 3, 3, stride, window),
+                                 key=lambda cp: cp[1] != picked):
+            ops_dcn.backward_plan = lambda *_, plan=plan: plan
+            got = ops_dcn.deform_conv2d_backward(*args)
+            same = all(g is None or (g.float() - r.float()).abs().max().item() <= 2.0**-7 * r.float().abs().max().item()
+                       for g, r in zip(got, want))
+            t = statistics.median(cuda_time_ms(lambda: ops_dcn.deform_conv2d_backward(*args), 3) for _ in range(3))
+            rows.append((t, plan[:5], plan.smem, round(cost), plan == picked, same))
+    finally:
+        ops_dcn.backward_plan = own
+    rows.sort()
+    print(f"    {len(rows)} plans (th, tw, gc, tiles a block, splits), {sum(not r[5] for r in rows)} disagreeing; "
+          "fastest: " + "; ".join(f"{t:.4f} ms {p} {m} B cost {k}{' (picked)' if pk else ''}"
+                                  for t, p, m, k, pk, _ in rows[:5])
+          + "; picked: " + "; ".join(f"{t:.4f} ms {p}" for t, p, _, _, pk, _ in rows if pk), flush=True)
+
+
 def study_k2b(fns: dict) -> None:
     """K2b at the training shape (B = 2, R = 512 an image, S = 7, C = 256,
     bf16, 800 x 1344, proposal-like rois as chip_smoke.py draws them): each
@@ -716,11 +935,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"{card}; torch {torch.__version__}", flush=True)
-    parts = set(sys.argv[1:]) or {"k7", "k2b", "nms", "launch", "fused", "k6"}
+    parts = set(sys.argv[1:]) or {"k7", "k7b", "k2b", "nms", "launch", "fused", "k6"}
     with tempfile.TemporaryDirectory() as tmp:
         if "k7" in parts:
             study_k7(build_variants(Path(tmp), "deform_conv.cu", "bags_deform_conv_forward", CUTS,
                                     {"no weights, sampling, copies": ("weights", "sampling", "copies")}))
+        if "k7b" in parts:
+            study_k7b(Path(tmp))
         if "k2b" in parts:
             study_k2b(build_variants(Path(tmp), "roi_align.cu", "bags_roi_align_backward", K2B_CUTS))
         if "nms" in parts:

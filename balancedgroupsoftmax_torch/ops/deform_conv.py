@@ -385,15 +385,41 @@ def deform_conv2d_backward_reference(
     return dx, d_off, dw, d_mask
 
 
-BACKWARD_TILE = 32  # output positions a tile of K7b
-BACKWARD_ACC = 16  # weight-gradient sums a thread of K7b's weight pass holds
+BACKWARD_TILE_F32 = 32  # output positions a tile of K7b's f32 route
+BACKWARD_ACC_F32 = 16  # weight-gradient sums a thread of the f32 route's weight pass holds
 _THREADS = 256
+GRAD_WARPS = _THREADS // 32
+GRAD_SLOTS = 12  # weight-gradient fragments (16 x 8 sums) a warp of K7b's bf16 route holds
+SM_SHARED = 228 * 1024  # shared memory of one SM, 1 KB of it reserved a block
+_GRAD_TILES = ((8, 8), (4, 8), (8, 16), (4, 16), (16, 8), (8, 4), (4, 4))  # (rows, columns) of output positions
+_GRAD_TILE_COST = 8192  # a tile's fixed cost (barriers, scan), in the plan's units (a sample channel's is 4)
+_GRAD_ENTRY_COST = 24  # a (position, tap)'s cost whatever its channels (the table, its counts, its lists)
 
 
 class BackwardPlan(NamedTuple):
-    """How K7b cuts one layer (csrc/deform_conv.cu checks the same numbers).
-    Data pass: tiles of `tp` positions x chunks of `gpc` groups. Weight pass:
-    blocks of `oc` output channels x `splits` ranges of the tiles."""
+    """How K7b's bf16 route cuts one layer (csrc/deform_conv.cu `lay_out_grad`
+    checks the same numbers): a block takes a chunk of `gc` whole groups and
+    walks `tiles_per_block` tiles of `th` x `tw` output positions; `splits`
+    ranges of the tiles. The first six fields are what the kernel takes."""
+
+    th: int
+    tw: int
+    gc: int
+    tiles_per_block: int
+    splits: int
+    smem: int  # shared memory a block, bytes: the five parts below and the (position, tap) table and offsets
+    smem_window: int  # two tiles' windows of x, bf16
+    smem_dx: int  # the dx gather: grad_col in f32, the corners' lists, two tiles' counts a window pixel
+    smem_cols: int  # the sampled columns, bf16
+    smem_grad: int  # two tiles' rows of grad_out, bf16
+    smem_weight: int  # the chunk's weights, bf16
+    blocks: int
+
+
+class BackwardPlanF32(NamedTuple):
+    """How K7b's f32 route cuts one layer. Data pass: tiles of `tp` positions
+    x chunks of `gpc` groups. Weight pass: blocks of `oc` output channels x
+    `splits` ranges of the tiles."""
 
     tp: int
     gpc: int
@@ -403,15 +429,105 @@ class BackwardPlan(NamedTuple):
     smem_weight: int
 
 
-def backward_plan(n: int, c: int, groups: int, c_out: int, kh: int, kw: int) -> Optional[BackwardPlan]:
-    """K7b's plan for n = B * Ho * Wo output positions, or None if no plan
-    fits. The data pass takes the most whole groups of at most 64 input and
-    64 output channels a block. The weight pass gives each block the most
-    output channels (whole groups, or a divisor of one group) whose
-    taps x c_g sums fit `BACKWARD_ACC` a thread, and enough ranges of the
-    positions that the grid holds two blocks an SM."""
-    c_g, o_g, taps, tp = c // groups, c_out // groups, kh * kw, BACKWARD_TILE
-    per = _THREADS * BACKWARD_ACC
+def backward_shared_bytes(th: int, tw: int, gc: int, c_g: int, o_g: int, kh: int, kw: int, stride: int,
+                          window: int) -> dict:
+    """Shared memory of one block of K7b's bf16 route, part by part (as
+    `lay_out_grad` in csrc/deform_conv.cu lays it out), and the total: per
+    (position, tap) an int4 table entry and the staged offsets and mask
+    (12 bytes); at D > 0 two tiles' windows of x ((th - 1) s + kh + 2D + 1 by
+    (tw - 1) s + kw + 2D + 1 pixels of the chunk's channels), the corners'
+    lists (an int2 a corner: its pixel and grad_col row, its weight), two
+    tiles' counts a pixel, and the warps' sums of them and the lists'
+    length; grad_col in f32 (the chunk's channels + 4 a (position, tap));
+    the columns, positions x (groups, taps * c_g padded to 16), rows padded
+    by 8; two tiles' grad_out rows, (groups, o_g padded to 8) padded to 16,
+    + 8; the weights, (groups, taps * c_g padded to 16) x (o_g padded to 8,
+    to 16, + 8)."""
+    m, taps = th * tw, kh * kw
+    pt, cc = m * taps, gc * c_g
+    kp, ogp = _round_up(taps * c_g, 16), _round_up(o_g, 8)
+    npix = ((th - 1) * stride + kh + 2 * window + 1) * ((tw - 1) * stride + kw + 2 * window + 1) if window > 0 else 0
+    parts = dict(
+        window=2 * npix * cc * 2,
+        dx=pt * (cc + 4) * 4 + (pt * 32 + _round_up((2 * (npix + 1) + 2 * GRAD_WARPS) * 4, 16) if window > 0 else 0),
+        cols=m * (gc * kp + 8) * 2,
+        grad=2 * m * (_round_up(gc * ogp, 16) + 8) * 2,
+        weight=gc * kp * (_round_up(ogp, 16) + 8) * 2,
+    )
+    parts["total"] = pt * 16 + _round_up(pt * 12, 16) + sum(parts.values())
+    return parts
+
+
+def backward_plans(
+    b: int, ho: int, wo: int, c: int, groups: int, c_out: int, kh: int, kw: int, stride: int, window: int
+) -> list[tuple[float, BackwardPlan]]:
+    """Every plan of K7b's bf16 route that fits one layer, with its cost (see
+    `backward_plan`)."""
+    c_g, o_g, taps = c // groups, c_out // groups, kh * kw
+    plans = []
+    for th, tw in _GRAD_TILES:
+        for gc in (d for d in range(1, groups + 1) if groups % d == 0):
+            nq = gc * c_g // 8
+            if c_g % 4 or (gc * c_g) % 8 or nq > 32 or nq & (nq - 1):
+                continue
+            if gc * (_round_up(taps * c_g, 16) // 16) * (_round_up(o_g, 8) // 8) > GRAD_WARPS * GRAD_SLOTS:
+                continue
+            parts = backward_shared_bytes(th, tw, gc, c_g, o_g, kh, kw, stride, window)
+            smem = parts["total"]
+            npix = parts["window"] // (4 * gc * c_g)
+            if smem > SHARED_BYTES or npix >= 2048 or th * tw * taps * (gc * c_g + 4) >= 1 << 20:
+                continue  # (a list entry packs the pixel in 11 bits and the grad_col row in 20)
+            per_sm = min(2, SM_SHARED // (smem + 1024))
+            chunks = groups // gc
+            tiles = max(1, b * -(-ho // th) * -(-wo // tw))
+            slots = SMS * per_sm
+            splits = min(tiles, max(1, slots // chunks))
+            tpb = -(-tiles // splits)
+            splits = -(-tiles // tpb)
+            blocks = chunks * splits
+            if blocks < SMS and splits < tiles:  # the grid must fill the card where the tiles allow
+                continue
+            work = gc * c_g * (th * tw * taps * 4 + npix) + th * tw * taps * _GRAD_ENTRY_COST + _GRAD_TILE_COST
+            cost = -(-blocks // slots) * per_sm * tpb * work / (1.0 + 0.25 * (per_sm - 1))
+            plans.append((cost, BackwardPlan(th, tw, gc, tpb, splits, smem, parts["window"], parts["dx"],
+                                             parts["cols"], parts["grad"], parts["weight"], blocks)))
+    return plans
+
+
+def backward_plan(
+    b: int, ho: int, wo: int, c: int, groups: int, c_out: int, kh: int, kw: int, stride: int, window: int
+) -> Optional[BackwardPlan]:
+    """K7b's bf16 plan for one layer, or None if no plan fits.
+
+    A chunk is whole groups whose channels make a power-of-two count of
+    16-byte pieces (at most 32), whose weight-gradient fragments fit
+    `GRAD_SLOTS` a warp, and whose shared memory fits. Each block walks the
+    same number of tiles; the tile ranges are as many as keep every block
+    resident at once (one or two a SM, as shared memory allows), or one when
+    the chunks alone are more; a grid of fewer than `SMS` blocks is taken
+    only with one tile a block. Of the (tile, chunk) pairs, the one whose
+    busiest SM has the least work is taken: a tile's work is its chunk's
+    channels times (its samples times 4, for the sampling, the gather and
+    the products, plus its window's pixels), plus a cost a (position, tap)
+    and a fixed cost (weighed against `kernel_study`'s timings of every plan
+    at the X101's layers); two blocks on an SM are counted a quarter faster
+    than one, for hiding each other's barriers. Ties go to two blocks an
+    SM, then to the larger tile."""
+    plans = backward_plans(b, ho, wo, c, groups, c_out, kh, kw, stride, window)
+    if not plans:
+        return None
+    return min(plans, key=lambda cp: (cp[0], -(SM_SHARED // (cp[1].smem + 1024)), -cp[1].th * cp[1].tw))[1]
+
+
+def backward_plan_f32(n: int, c: int, groups: int, c_out: int, kh: int, kw: int) -> Optional[BackwardPlanF32]:
+    """K7b's f32 plan for n = B * Ho * Wo output positions, or None if no
+    plan fits. The data pass takes the most whole groups of at most 64 input
+    and 64 output channels a block. The weight pass gives each block the
+    most output channels (whole groups, or a divisor of one group) whose
+    taps x c_g sums fit `BACKWARD_ACC_F32` a thread, and enough ranges of
+    the positions that the grid holds two blocks an SM."""
+    c_g, o_g, taps, tp = c // groups, c_out // groups, kh * kw, BACKWARD_TILE_F32
+    per = _THREADS * BACKWARD_ACC_F32
     divisors = lambda v: [d for d in range(1, v + 1) if v % d == 0]
     gpc = max([d for d in divisors(groups) if d * c_g <= 64 and d * o_g <= 64], default=1)
     whole = [d * o_g for d in divisors(groups) if d * o_g * taps * c_g <= per]
@@ -427,7 +543,7 @@ def backward_plan(n: int, c: int, groups: int, c_out: int, kh: int, kw: int) -> 
     tiles = -(-n // tp)
     splits = min(tiles, max(1, -(-2 * SMS // (c_out // oc))))
     splits = -(-tiles // -(-tiles // splits))  # every range holds at least one tile
-    return BackwardPlan(tp, gpc, oc, splits, smem_data, smem_weight)
+    return BackwardPlanF32(tp, gpc, oc, splits, smem_data, smem_weight)
 
 
 def deform_conv2d_backward(
@@ -444,7 +560,9 @@ def deform_conv2d_backward(
 ) -> tuple[Optional[torch.Tensor], ...]:
     """K7b: (dx, d_offsets, d_weight, d_mask) of `deform_conv2d`, as
     `deform_conv2d_backward_reference` gives them. The kernel takes C and
-    C / groups multiples of 4 and x aligned to 16 bytes, and refuses
+    C / groups multiples of 4, x aligned to 16 bytes and a plan that fits
+    (`backward_plan` in bf16, where a chunk of whole groups must also be a
+    power-of-two count of 8 channels; `backward_plan_f32`), and refuses
     others."""
     if x.device.type == "cpu":
         return deform_conv2d_backward_reference(
@@ -452,7 +570,10 @@ def deform_conv2d_backward(
         )
     b, h, w, c, ho, wo, c_out, c_g, kh, kw = _check_args(x, offsets, weight, mask, stride, padding, groups)
     cuda.check(grad_out, x.dtype, (b, ho, wo, c_out), "grad_out")
-    plan = backward_plan(b * ho * wo, c, groups, c_out, kh, kw)
+    if x.dtype == torch.bfloat16:
+        plan = backward_plan(b, ho, wo, c, groups, c_out, kh, kw, stride, shift_window)
+    else:
+        plan = backward_plan_f32(b * ho * wo, c, groups, c_out, kh, kw)
     if c % 4 or c_g % 4 or x.data_ptr() % 16 or plan is None:
         raise ValueError(
             f"the deform_conv backward kernel takes channels in groups of 4 (C % 4 == 0, C / groups % 4 == 0, "
@@ -478,7 +599,7 @@ def deform_conv2d_backward(
         x.data_ptr(), offsets.data_ptr(), ptr(mask), weight.data_ptr(), grad_out.data_ptr(),
         ptr(acc), 0 if dx is None or dx is acc else dx.data_ptr(), ptr(d_off), ptr(d_mask), ptr(part), ptr(dw),
         b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window,
-        plan.tp, plan.gpc, plan.oc, plan.splits, plan.smem_data, plan.smem_weight,
+        *plan[:6],
     )
     return dx, d_off, dw, d_mask
 

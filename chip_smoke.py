@@ -2000,9 +2000,12 @@ def compare_small_htc(torch, model) -> None:
 
 
 # f32 operations K7b does a sample and channel beyond the contractions: the
-# sample's blend (7, for the weight's and the mask's gradients), the blend's
-# derivatives in the two fractions (7 each) and the four corners' shares (4)
-DCN_GRAD_SAMPLE_OPS = 25
+# sample's blend (7, for the weight's and the mask's gradients), grad_s times
+# each of the four corners summed over the channels (four multiply-adds, 8:
+# the derivatives in the two fractions follow from those sums once a
+# (position, tap)) and the four corners' shares of dx added up (four
+# multiply-adds, 8)
+DCN_GRAD_SAMPLE_OPS = 23
 HTC_DCN_SHAPES = 6  # distinct (input, stride) among the X101's 30 deformable layers
 
 

@@ -678,6 +678,54 @@ def test_deform_conv_backward_offsets_at_and_beyond_the_window_match_plain(dev, 
     deform_backward_matches_plain(dev, dtype, x, off, weight, mask if modulated else None, stride, groups, window)
 
 
+def tile_edge_offsets(ho, wo, th, tw, window, seed):
+    """(1, ho, wo, 18) offsets that put K7b's corners on its staged window's
+    outermost pixels: -D at each tile's first row (first column), so that
+    tap 0 samples the window's first row (column) at full weight; D - 1/4
+    and D in turns at each tile's last row (column) and at the output's
+    last, so that the last tap reaches the window's last rows (columns);
+    random within +-D elsewhere."""
+    rng = np.random.RandomState(seed)
+    off = rng.uniform(-window, window, (1, ho, wo, 18)).astype(np.float32)
+    last = np.array([window - 0.25, window], np.float32)
+    i, j = np.arange(ho), np.arange(wo)
+    off[:, i % th == 0, :, 0::2] = -window
+    rows = (i % th == th - 1) | (i == ho - 1)
+    off[:, rows, :, 0::2] = last[np.arange(rows.sum()) % 2][:, None, None]
+    off[:, :, j % tw == 0, 1::2] = -window
+    cols = (j % tw == tw - 1) | (j == wo - 1)
+    off[:, :, cols, 1::2] = last[np.arange(cols.sum()) % 2][None, :, None]
+    return off
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_backward_corners_on_the_window_edges_match_plain(dev, dtype, stride):
+    """Corners on the outermost pixels of each tile's staged window, at the
+    image's border too, with a ragged last tile both ways: the dx gather's
+    halo and its flush, which skips pixels outside the image."""
+    window, groups, c = 4, 16, 128
+    x, _, weight, mask = deform_case(51 + stride, c, c, groups, stride, window, True, hw=(19, 29))
+    ho, wo = (19 - 1) // stride + 1, (29 - 1) // stride + 1
+    plan = ops_dcn.backward_plan(2, ho, wo, c, groups, c, 3, 3, stride, window)
+    assert ho % plan.th and wo % plan.tw, plan  # a ragged last tile both ways
+    off = np.concatenate([tile_edge_offsets(ho, wo, plan.th, plan.tw, window, 52 + k) for k in range(2)])
+    deform_backward_matches_plain(dev, dtype, x, off, weight, mask, stride, groups, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [4, 0])
+def test_deform_conv_backward_walking_several_tiles_a_block_matches_plain(dev, dtype, window):
+    """A plan whose blocks walk several tiles each: the weight gradient's
+    sums stay in registers across the walk, and each tile's copies go out
+    while the last one is worked on."""
+    groups, c = 8, 64
+    x, off, weight, mask = deform_case(61, c, c, groups, 1, window, True, hw=(47, 61))
+    plan = ops_dcn.backward_plan(2, 47, 61, c, groups, c, 3, 3, 1, window)
+    assert plan.tiles_per_block > 1, plan
+    deform_backward_matches_plain(dev, dtype, x, off, weight, mask, 1, groups, window)
+
+
 def test_deform_conv_function_has_a_gradient_on_the_card(dev, exact_f32):
     """Through `DeformConv`, K7's output has a grad_fn, and the backward
     launches K7b once and gives every input and parameter the gradient the

@@ -25,14 +25,18 @@ from balancedgroupsoftmax_torch.ops.deform_conv import (
     SHARED_BYTES,
     DeformConv,
     _DeformConv,
+    GRAD_SLOTS,
+    GRAD_WARPS,
     backward_plan,
+    backward_plan_f32,
+    backward_shared_bytes,
     deform_conv2d_backward,
     deform_conv2d_backward_reference,
     deform_conv2d_reference,
     geometry,
 )
 from test_torch_cuda import DCN_LAYER_SHAPES, deform_case, window_edge_offsets
-from test_torch_deform_conv import _np, _offset_params, htc_dcn_layers
+from test_torch_deform_conv import _np, _offset_params, card_test_layers, htc_dcn_layers
 
 TOL = 1e-5
 
@@ -189,27 +193,46 @@ def test_deform_conv_layer_gradients_match_jax(window, modulated):
 
 @pytest.mark.parametrize("layer", sorted(set(htc_dcn_layers())), ids=lambda t: "x".join(map(str, t[1:4])) + f"-s{t[5]}")
 def test_backward_plan_fits_at_the_x101_layers(layer):
-    """K7b's plan at the six distinct shapes of the 30 HTC-DCN layers: whole
-    groups a data chunk, a weight block of whole groups or a divisor of one,
-    at most 16 sums a thread, shared memory within 227 KB, two blocks an SM
-    in the weight pass where the positions allow."""
-    b, h, w, c, groups, stride, _ = layer
+    """K7b's bf16 plan at the six distinct shapes of the 30 HTC-DCN layers:
+    whole groups a chunk, in a power-of-two count of 16-byte pieces; shared
+    memory within 227 KB and equal to its parts (`backward_shared_bytes`);
+    the weight-gradient fragments within a warp's slots; every block walks
+    at least one tile, the ranges cover every tile; and the grid holds at
+    least 132 blocks, or one for every (chunk, tile)."""
+    b, h, w, c, groups, stride, window = layer
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    n = b * ho * wo
-    plan = backward_plan(n, c, groups, c, 3, 3)
+    plan = backward_plan(b, ho, wo, c, groups, c, 3, 3, stride, window)
     c_g = c // groups
-    assert plan is not None and groups % plan.gpc == 0 and plan.gpc * c_g <= 64
-    assert (plan.oc % c_g == 0 and groups % (plan.oc // c_g) == 0) or c_g % plan.oc == 0
-    assert plan.oc * 9 * c_g <= 256 * 16
-    assert max(plan.smem_data, plan.smem_weight) <= SHARED_BYTES
-    tiles = -(-n // plan.tp)
-    per = -(-tiles // plan.splits)
-    assert (plan.splits - 1) * per < tiles  # no empty range
-    assert (c // plan.oc) * plan.splits >= 2 * 132 or plan.splits == tiles
+    assert plan is not None and groups % plan.gc == 0
+    pieces = plan.gc * c_g // 8
+    assert plan.gc * c_g % 8 == 0 and pieces & (pieces - 1) == 0 and pieces <= 32
+    assert (plan.th * plan.tw) % 16 == 0
+    parts = backward_shared_bytes(plan.th, plan.tw, plan.gc, c_g, c_g, 3, 3, stride, window)
+    assert plan.smem == parts["total"] <= SHARED_BYTES
+    assert (plan.smem_window, plan.smem_dx, plan.smem_cols, plan.smem_grad, plan.smem_weight) == (
+        parts["window"], parts["dx"], parts["cols"], parts["grad"], parts["weight"])
+    assert plan.gc * -(-9 * c_g // 16) * -(-c_g // 8) <= GRAD_WARPS * GRAD_SLOTS
+    tiles = b * -(-ho // plan.th) * -(-wo // plan.tw)
+    assert (plan.splits - 1) * plan.tiles_per_block < tiles <= plan.splits * plan.tiles_per_block
+    assert plan.blocks == groups // plan.gc * plan.splits
+    assert plan.blocks >= 132 or plan.splits == tiles
 
 
 def test_backward_plan_refuses_what_does_not_fit():
-    assert backward_plan(100, 1024, 1, 1024, 3, 3) is None  # one group of 1024: no weight block fits
+    # one group of 1024 channels: its weight-gradient fragments (576 x 1024) fit no block
+    assert backward_plan(1, 8, 8, 1024, 1, 1024, 3, 3, 1, 4) is None
+
+
+@pytest.mark.parametrize("layer", card_test_layers(), ids=lambda t: "x".join(map(str, t[1:4])) + f"-g{t[4]}-s{t[5]}-d{t[6]}-o{t[7]}")
+def test_backward_plan_fits_every_card_test_shape(layer):
+    """K7b's bf16 plan and the f32 route's plan exist at every deformable
+    shape the card tests give K7b, and fit."""
+    b, h, w, c, groups, stride, window, c_out = layer
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    plan = backward_plan(b, ho, wo, c, groups, c_out, 3, 3, stride, window)
+    assert plan is not None and plan.smem <= SHARED_BYTES
+    f32 = backward_plan_f32(b * ho * wo, c, groups, c_out, 3, 3)
+    assert f32 is not None and max(f32.smem_data, f32.smem_weight) <= SHARED_BYTES
 
 
 def test_card_tests_take_the_x101_layer_shapes():
