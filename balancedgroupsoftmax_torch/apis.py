@@ -25,6 +25,8 @@ MODELS = {
     "faster_rcnn_r50": (zoo.faster_rcnn_r50_fpn_lvis, "faster_rcnn_r50_fpn_lvis"),
     "gs_faster_rcnn_r50": (zoo.gs_faster_rcnn_r50_fpn_lvis, "gs_faster_rcnn_r50_fpn_lvis"),
     "faster_rcnn_x101": (zoo.faster_rcnn_x101_64x4d_fpn_lvis, "faster_rcnn_x101_64x4d_fpn_lvis"),
+    "mask_rcnn_r50": (zoo.mask_rcnn_r50_fpn_lvis, "mask_rcnn_r50_fpn_lvis"),
+    "gs_mask_rcnn_r50": (functools.partial(zoo.mask_rcnn_r50_fpn_lvis, use_gs=True), "gs_mask_rcnn_r50_fpn_lvis"),
     "cascade_rcnn_r50": (zoo.cascade_rcnn_r50_fpn_lvis, "cascade_rcnn_r50_fpn_lvis"),
     "gs_cascade_rcnn_r50": (
         functools.partial(zoo.cascade_rcnn_r50_fpn_lvis, use_gs=True),

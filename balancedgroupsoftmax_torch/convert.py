@@ -1,11 +1,12 @@
 """Weights of the JAX detector -> the port's `state_dict`.
 
 `params_from_flax` reads the flax variables of the JAX `models/detector.py`
-`FasterRCNN`, `models/cascade.py` `CascadeRCNN` (whose stage heads
-`bbox_head_{i}` become `bbox_heads.{i}`) or `models/htc.py` `HTC` (with
-`semantic_head` and `mask_head_{i}`, which become `mask_heads.{i}`) as a tree
-of dicts of arrays ({"params": ..., "batch_stats": ...}; anything `np.asarray`
-reads) and returns the tensors of the port's model under their names: conv
+`FasterRCNN` (Mask R-CNN's with its `mask_head`), `models/cascade.py`
+`CascadeRCNN` (whose stage heads `bbox_head_{i}` become `bbox_heads.{i}`) or
+`models/htc.py` `HTC` (with `semantic_head` and `mask_head_{i}`, which become
+`mask_heads.{i}`) as a tree of dicts of arrays ({"params": ..., "batch_stats":
+...}; anything `np.asarray` reads) and returns the tensors of the port's model
+under their names, refusing a top-level node it has no mapping for: conv
 kernels HWIO -> OIHW (a grouped kernel (kh, kw, C / g, C) becomes the
 (C, C / g, kh, kw) that `Conv2d(groups=g)` holds; a deformable conv's
 `kernel` and its `conv_offset` alike), dense kernels (in, out) -> (out, in),
@@ -94,9 +95,28 @@ def bottleneck_from_flax(params: Dict[str, Any], stats: Dict[str, Any]) -> Dict[
     return _tensors({k[1:]: v for k, v in sd.items()})
 
 
+def _mask_head(sd, dst, head) -> None:
+    """An `FCNMaskHead`: conv{i} -> convs.{i}, the flipped `upsample`,
+    `conv_logits` and HTC's `conv_res` as they are."""
+    for name, node in head.items():
+        m = re.fullmatch(r"conv(\d+)", name)
+        if name == "upsample":
+            _conv_transpose(sd, f"{dst}.upsample", node)
+        else:
+            _conv(sd, f"{dst}.convs.{m[1]}" if m else f"{dst}.{name}", node)
+
+
+# the top-level nodes of the JAX detectors' params that the port maps
+MAPPED = r"backbone|neck|rpn_head|bbox_head(_\d+)?|semantic_head|mask_head(_\d+)?"
+
+
 def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    unmapped = sorted(k for k in params if re.fullmatch(MAPPED, k) is None)
+    unmapped += sorted(f"batch_stats/{k}" for k in stats if k != "backbone")
+    if unmapped:
+        raise ValueError(f"no mapping to the port's model for the flax nodes {unmapped}")
     sd: Dict[str, np.ndarray] = {}
 
     bb, bs = params["backbone"], stats["backbone"]
@@ -126,16 +146,9 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         kind = {"lateral": "lateral", "conv": "convs"}[m[1]] if m else None
         _conv(sd, f"semantic_head.{kind}.{m[2]}" if m else f"semantic_head.{name}", node)
     for key, head in params.items():
-        stage = re.fullmatch(r"mask_head_(\d+)", key)
-        if stage is None:
-            continue
-        dst = f"mask_heads.{stage[1]}"
-        for name, node in head.items():
-            m = re.fullmatch(r"conv(\d+)", name)
-            if name == "upsample":
-                _conv_transpose(sd, f"{dst}.upsample", node)
-            else:
-                _conv(sd, f"{dst}.convs.{m[1]}" if m else f"{dst}.{name}", node)
+        stage = re.fullmatch(r"mask_head(?:_(\d+))?", key)
+        if stage is not None:
+            _mask_head(sd, "mask_head" if stage[1] is None else f"mask_heads.{stage[1]}", head)
 
     return _tensors(sd)
 

@@ -1,7 +1,9 @@
-"""The federated LVIS evaluator, box results only, in numpy.
+"""The federated LVIS evaluator of box ("bbox") and mask ("segm") results, in
+numpy.
 
-A copy of the bbox path of JAX `eval/lvis_eval.py` (`box_iou_xywh` :43,
-`LvisEvaluator` :76-406), which follows the reference's lvis-api
+A copy of JAX `eval/lvis_eval.py` (`box_iou_xywh` :43, `LvisEvaluator`
+:76-406, its mask IoU `_default_mask_iou` :184 with JAX `native.py:185-190`'s
+numpy branch), which follows the reference's lvis-api
 (lvis/eval.py LVISEval, lvis/results.py LVISResults):
 - at most `max_dets` (300) detections an image, by score, at load time;
 - federated filtering: an image's detections of a category neither in its
@@ -12,11 +14,16 @@ A copy of the bbox path of JAX `eval/lvis_eval.py` (`box_iou_xywh` :43,
   ground truth last; areas all / < 32^2 / 32^2-96^2 / > 96^2; 101-point
   interpolated precision; IoU thresholds .5:.05:.95;
 - frequency groups r/c/f from the categories' `frequency` for APr/APc/APf;
-- box IoU on xywh boxes with no +1 (pycocotools' bbIou).
+- box IoU on xywh boxes with no +1 (pycocotools' bbIou); mask IoU on the
+  bitmaps of the detections' RLEs and the ground truth's polygons or RLEs
+  (lvis-api `_to_mask` and pycocotools' mask.iou, no crowd);
+- a record's area is its box's w x h in segm mode too (LVISResults'
+  precedence for records that carry a "bbox", results.py:42-62).
 
 Detections are the records {image_id, category_id, bbox [x, y, w, h], score}
-that `eval.results` writes. Mask results ("segm") are not ported (ROADMAP
-A4).
+that `eval.results` writes, with a "segmentation" RLE for segm. Records
+without a box, and Mask-Scoring R-CNN's "segm_score", are not ported
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from collections import OrderedDict, defaultdict
 from typing import Dict, List
 
 import numpy as np
+
+from ..utils.rle import decode_rle, segmentation_to_mask
 
 IOU_THRS = np.linspace(0.5, 0.95, 10, endpoint=True)
 REC_THRS = np.linspace(0.0, 1.0, 101, endpoint=True)
@@ -58,6 +67,19 @@ def box_iou_xywh(dt, gt) -> np.ndarray:
     return inter / np.maximum(union, 1e-12)
 
 
+def mask_iou_bitmaps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(A, B) IoU of flattened binary masks (A, P) and (B, P), no crowd. The
+    intersections are a product of 0/1 matrices whose every partial sum is a
+    whole number of at most P, exact in f32 below 2^24 pixels."""
+    if len(a) == 0 or len(b) == 0:
+        return np.zeros((len(a), len(b)))
+    dtype = np.float32 if a.shape[1] < 2**24 else np.float64
+    a, b = np.asarray(a, dtype), np.asarray(b, dtype)
+    inter = (a @ b.T).astype(np.float64)
+    union = a.sum(-1, dtype=np.float64)[:, None] + b.sum(-1, dtype=np.float64)[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+
+
 class LvisEvaluator:
     def __init__(
         self,
@@ -69,14 +91,16 @@ class LvisEvaluator:
     ):
         """federated=False scores every category on every image (the COCO
         protocol, for files without `neg_category_ids`)."""
-        if iou_type != "bbox":
-            raise NotImplementedError(f"iou_type={iou_type!r}: mask evaluation is not ported yet (ROADMAP A4)")
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"iou_type={iou_type!r}: bbox or segm")
+        self.iou_type = iou_type
         self.max_dets = max_dets
         self.federated = federated
         self.results = OrderedDict()
 
         self.cat_ids = sorted(c["id"] for c in gt_data["categories"])
         self.cats = {c["id"]: c for c in gt_data["categories"]}
+        self.imgs = {i["id"]: i for i in gt_data["images"]}
 
         # LVISResults: the max_dets best of each image, by score
         by_img: Dict[int, List[dict]] = defaultdict(list)
@@ -118,9 +142,23 @@ class LvisEvaluator:
                 n = cat.get("image_count", 100)
                 self.freq_groups[0 if n < 10 else (1 if n < 100 else 2)].append(idx)
 
+    def _mask_iou(self, dts, gts) -> np.ndarray:
+        """The detections' RLEs and the ground truth's polygons or RLEs as
+        bitmaps of the image, and their IoU."""
+        if not dts or not gts:
+            return np.zeros((len(dts), len(gts)))
+        img = self.imgs[gts[0]["image_id"]]
+        h, w = img["height"], img["width"]
+        dm = np.stack([decode_rle(d["segmentation"]).reshape(-1) for d in dts])
+        gm = np.stack([segmentation_to_mask(g["segmentation"], h, w).reshape(-1) for g in gts])
+        return mask_iou_bitmaps(dm, gm)
+
     def _compute_iou(self, gts, dts):
         idx = np.argsort([-d["score"] for d in dts], kind="mergesort")
-        return box_iou_xywh([dts[i]["bbox"] for i in idx], [g["bbox"] for g in gts])
+        dts = [dts[i] for i in idx]
+        if self.iou_type == "bbox":
+            return box_iou_xywh([d["bbox"] for d in dts], [g["bbox"] for g in gts])
+        return self._mask_iou(dts, gts)
 
     def _evaluate_img(self, img_id, cat_id, area_rng, ious_sorted):
         gts = self.gts_by_img_cat.get((img_id, cat_id), [])

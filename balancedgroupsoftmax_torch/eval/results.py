@@ -1,7 +1,8 @@
 """Detections -> LVIS result records and their JSON (JAX `eval/results.py`
 :17-46; the reference's mmdet/core/evaluation/lvis_utils.py `det2json` and
-its xyxy -> xywh with the +1 convention). Labels are 0-based foreground
-indices; category_id = cat_ids[label]."""
+its xyxy -> xywh with the +1 convention), and their masks pasted into the
+image and RLE-encoded (JAX tools/test_lvis.py:590-603). Labels are 0-based
+foreground indices; category_id = cat_ids[label]."""
 
 from __future__ import annotations
 
@@ -9,6 +10,9 @@ import json
 from typing import List, Sequence
 
 import numpy as np
+
+from ..ops.mask import paste_mask
+from ..utils.rle import encode_mask
 
 
 def xyxy2xywh(b: np.ndarray) -> List[float]:
@@ -33,6 +37,21 @@ def detections_to_records(
         for i in range(len(boxes))
         if valid[i]
     ]
+
+
+def add_segmentations(
+    records: List[dict],  # detections_to_records' records of one image
+    masks: np.ndarray,  # (M, 28, 28) f32 probabilities of the image's detections
+    boxes: np.ndarray,  # (M, 4) xyxy at the original image scale
+    valid: np.ndarray,  # (M,) bool
+    img_h: int,
+    img_w: int,
+) -> None:
+    """Give each record the "segmentation" of its detection: the mask pasted
+    at the original size (`paste_mask`) and RLE-encoded. The records are
+    those of the valid slots, in order."""
+    for rec, i in zip(records, np.flatnonzero(valid)):
+        rec["segmentation"] = encode_mask(paste_mask(masks[i], boxes[i], img_h, img_w))
 
 
 def write_results_json(records: List[dict], path: str) -> None:

@@ -1,16 +1,21 @@
-"""Faster R-CNN with the BAGS grouped-softmax head, inference and training
-losses (JAX `models/detector.py`: `FasterRCNN` :45, `loss` :138, `_loss_core`
-:169, `predict` :355, `propose` :415, `rescore` :432, `build_detector` :537,
-`build_model` :543).
+"""Faster R-CNN with the BAGS grouped-softmax head, and Mask R-CNN (the same
+with an FCN mask head), inference and training losses (JAX
+`models/detector.py`: `FasterRCNN` :45, `loss` :138, `_loss_core` :169,
+`_mask_branch` :291, `predict` :355, `propose` :415, `rescore` :432,
+`predict_masks` :468, `predict_with_masks` :483, `_masks_feats` :513,
+`build_detector` :537, `build_model` :543).
 
 Inference: ResNet -> FPN -> RPN proposals (K1) -> multi-level RoIAlign (K2)
--> shared-FC head -> GS score merge -> per-class NMS (K3). Training: the RPN
-loss over sampled anchors, detached proposals (K4 at the training RPN's
-2000 boxes a level), sampled RoI targets, RoIAlign (K2, and K2b for its
-gradient) and the GS (or softmax) and regression losses. Images enter and
-results leave in the JAX layout; inside, feature maps are NCHW tensors in
-channels-last memory, so the RoIAlign kernels read them as NHWC without a
-copy.
+-> shared-FC head -> GS score merge -> per-class NMS (K3); with a mask head,
+the detections pooled again at 14 x 14 (K2) -> the class-selected mask
+logits -> sigmoid. Training: the RPN loss over sampled anchors, detached
+proposals (K4 at the training RPN's 2000 boxes a level), sampled RoI
+targets, RoIAlign (K2, and K2b for its gradient) and the GS (or softmax)
+and regression losses; with a mask head, the positive slots pooled at
+14 x 14 (K2 and K2b) against targets resampled from the gt crops. Images
+enter and results leave in the JAX layout; inside, feature maps are NCHW
+tensors in channels-last memory, so the RoIAlign kernels read them as NHWC
+without a copy.
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ from ..gs.partition import GSPartition
 from ..kernels import batched_multiclass_nms, batched_multilevel_roi_align
 from ..ops.boxes import delta2bbox
 from ..ops.deform_conv import DeformConv
+from ..ops.mask import mask_targets
 from .bbox_head import SharedFCBBoxHead, bbox_head_loss, bbox_reg_loss
 from .fpn import FPN
 from .layers import Conv2d, ConvTranspose2d, Linear
+from .mask_head import FCNMaskHead, mask_head_loss
 from .resnet import ResNet
 from .rpn import RPNHead, rpn_loss, rpn_proposals_batched
 
@@ -61,11 +68,14 @@ class FasterRCNN(nn.Module):
         )
         self.neck = FPN(cfg.fpn.in_channels, cfg.fpn.out_channels, cfg.fpn.num_outs)
         self.rpn_head = RPNHead(cfg.fpn.out_channels, cfg.anchors.num_base_anchors)
+        self.mask_head: Optional[FCNMaskHead] = None
         self._init_roi_heads()
         self._anchor_cache: dict = {}
 
     def _init_roi_heads(self) -> None:
         self.bbox_head = SharedFCBBoxHead(self.cfg.bbox_head)
+        if self.cfg.mask_head is not None:
+            self.mask_head = FCNMaskHead(self.cfg.mask_head)
 
     def _init_special(self) -> dict:
         """Layers whose JAX initialiser is not the default: layer -> ("normal",
@@ -76,6 +86,11 @@ class FasterRCNN(nn.Module):
             special.update({head.fc_cls: ("normal", 0.01), head.fc_reg: ("normal", 0.001)})
         for dcn in (m for m in self.modules() if isinstance(m, DeformConv)):
             special.update({dcn: ("he", None), dcn.conv_offset: ("zeros", None)})
+        # the mask heads' convs and upsampling are he-normal, their 1x1
+        # logits normal(0.001) (JAX mask_head.py :29, :90, :102)
+        for head in (m for m in self.modules() if isinstance(m, FCNMaskHead)):
+            special.update({conv: ("he", None) for conv in head.convs})
+            special.update({head.upsample: ("he", None), head.conv_logits: ("normal", 0.001)})
         return special
 
     @torch.no_grad()
@@ -83,8 +98,9 @@ class FasterRCNN(nn.Module):
         """Seeded random weights, drawn on the CPU so every device gets the
         same ones: the JAX initialisers' distributions (lecun-normal convs,
         normal(0.01) RPN and fc_cls, xavier-uniform shared FCs, normal(0.001)
-        fc_reg, he-normal deformable convs, zero DCN offset convs, zero
-        biases) and identity BatchNorm statistics."""
+        fc_reg, he-normal deformable convs and mask-head convs, normal(0.001)
+        mask logits, zero DCN offset convs, zero biases) and identity
+        BatchNorm statistics."""
         gen = torch.Generator().manual_seed(seed)
         special = self._init_special()
         for m in self.modules():
@@ -167,11 +183,13 @@ class FasterRCNN(nn.Module):
         gt_labels: torch.Tensor,  # (B, G) int, 1-based
         gt_mask: torch.Tensor,  # (B, G) bool
         img_shapes: torch.Tensor,  # (B, 2) content (h, w) before padding
+        gt_mask_crops: Optional[torch.Tensor] = None,  # (B, G, CROP, CROP) box-normalised gt masks
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """The training losses (two_stage.py forward_train parity): the RPN's,
         then the GS head's per-bin losses (or softmax CE and accuracy) and the
-        box regression. Sampling draws from `generator`."""
+        box regression, and "loss_mask" where the model has a mask head and
+        `gt_mask_crops` are given. Sampling draws from `generator`."""
         c = self.cfg
         feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
         with torch.no_grad():
@@ -197,7 +215,34 @@ class FasterRCNN(nn.Module):
                 flat(cls_logits), flat(bbox_deltas), flat(t.labels), flat(t.label_weights),
                 flat(t.bbox_targets), flat(t.bbox_weights),
             )
+        if self.mask_head is not None and gt_mask_crops is not None:
+            losses["loss_mask"] = self._mask_loss(feats, t, gt_boxes, gt_mask_crops)
         return losses
+
+    def _mask_loss(self, feats, t, gt_boxes, gt_mask_crops, pool=None, head=None) -> torch.Tensor:
+        """The mask branch (two_stage.py:238-262) on the RoI targets `t`: the
+        sampler puts the positives first, so only the first `mask_cap` =
+        sampler.num x pos_fraction slots are pooled, at mask_size / 2 (K2,
+        and K2b for its gradient), through the class-selected head, against
+        the gt crops resampled into each positive's box. HTC passes its
+        stage's `pool(feats, rois)` and `head(x, labels) -> logits`."""
+        c = self.cfg
+        pool = pool or (lambda f, r: self._pool(f, r, c.mask_head.mask_size // 2))
+        head = head or (lambda x, labels: self.mask_head(x, labels=labels)[0])
+        mask_cap = max(int(c.rcnn_train.sampler.num * c.rcnn_train.sampler.pos_fraction), 1)
+        m_rois, m_labels = t.rois[:, :mask_cap].contiguous(), t.labels[:, :mask_cap]
+        m_pos = (m_labels > 0) & t.roi_valid[:, :mask_cap]
+        x = pool(feats, m_rois).flatten(0, 1).permute(0, 3, 1, 2)
+        num_fg = c.mask_head.num_classes - 1
+        logits = head(x, None if c.mask_head.class_agnostic else (m_labels.flatten() - 1).clamp(0, num_fg - 1))
+        with torch.no_grad():
+            m_targets = mask_targets(
+                m_rois, gt_boxes, t.pos_gt_inds[:, :mask_cap], gt_mask_crops, m_pos, c.mask_head.mask_size
+            )
+        return mask_head_loss(
+            logits, m_targets.flatten(0, 1), m_labels.flatten(), m_pos.flatten(),
+            class_agnostic=c.mask_head.class_agnostic, preselected=not c.mask_head.class_agnostic,
+        )
 
     @torch.inference_mode()
     def predict(
@@ -257,6 +302,56 @@ class FasterRCNN(nn.Module):
         rescaled, scores (B, P, C))."""
         return self._score_rois(self.extract_feats(images), rois, img_shapes.float())
 
+    @torch.inference_mode()
+    def predict_masks(
+        self,
+        images: torch.Tensor,  # (B, H, W, 3)
+        det_boxes: torch.Tensor,  # (B, M, 4) at the original image scale
+        det_labels: torch.Tensor,  # (B, M) int, 0-based foreground class
+        scale_factors: torch.Tensor,  # (B,) network / original scale
+    ) -> torch.Tensor:
+        """(B, M, 28, 28) mask probabilities of each detection's class, in the
+        model dtype (simple_test_mask, test_mixins.py:178): the boxes scaled
+        back to the network's scale and pooled (K2)."""
+        return self._masks_feats(self.extract_feats(images), det_boxes, det_labels, scale_factors)
+
+    @torch.inference_mode()
+    def predict_with_masks(
+        self,
+        images: torch.Tensor,  # (B, H, W, 3)
+        img_shapes: torch.Tensor,  # (B, 2) content (h, w) in network scale
+        scale_factors: torch.Tensor,  # (B,) network / original scale
+        rescale: bool = True,
+    ) -> tuple[Detections, torch.Tensor]:
+        """The detections and their masks (B, M, 28, 28) from one backbone
+        pass (two_stage.py simple_test :267-290)."""
+        feats = self.extract_feats(images)
+        dets = self._predict_feats(feats, images, img_shapes, scale_factors, rescale)
+        # the rois pool at network scale: with rescale=False the boxes are there already
+        sf = scale_factors if rescale else torch.ones_like(scale_factors)
+        return dets, self._masks_feats(feats, dets.boxes, dets.labels, sf)
+
+    def _masks_feats(self, feats, det_boxes, det_labels, scale_factors, pool=None, logits=None) -> torch.Tensor:
+        """The detections' boxes scaled back to the network's scale (times
+        the scale factors), pooled at mask_size / 2 (K2) and through the
+        class-selected head: (B, M, 28, 28) probabilities, the sigmoid in
+        f32, the result in the model dtype. HTC passes its fused
+        `pool(feats, rois)` and `logits(x, labels)`, its stages' mean."""
+        c = self.cfg
+        if self.mask_head is None and logits is None:
+            raise ValueError("this model has no mask head")
+        pool = pool or (lambda f, r: self._pool(f, r, c.mask_head.mask_size // 2))
+        logits = logits or (lambda x, labels: self.mask_head(x, labels=labels)[0].float())
+        pooled = pool(feats, det_boxes * scale_factors.float()[:, None, None])  # (B, M, S, S, C)
+        b, m = pooled.shape[:2]
+        # class-selected logits: no (B * M, 1230, 28, 28) tensor; the head
+        # clamps the labels of invalid slots into range
+        labels = None if c.mask_head.class_agnostic else det_labels.flatten()
+        out = logits(pooled.flatten(0, 1).permute(0, 3, 1, 2), labels)
+        if c.mask_head.class_agnostic:
+            out = out[:, 0]
+        return torch.sigmoid(out).to(self.dtype).reshape(b, m, *out.shape[-2:])
+
     def _multiclass_nms(self, boxes, scores, valid) -> Detections:
         t = self.cfg.rcnn_test
         return Detections(
@@ -280,8 +375,10 @@ def build_model(
 ) -> FasterRCNN:
     """The detector family `cfg` names (JAX `detector.py:543`): HTC when
     `cfg.htc` is set, else Cascade R-CNN when `cfg.cascade` is, else Faster
-    R-CNN. All have `predict` and `loss` (HTC's also takes the gt mask
-    crops). The detector variants are not ported."""
+    R-CNN, which is Mask R-CNN when `cfg.mask_head` is set. All have
+    `predict` and `loss` (HTC's and Mask R-CNN's also take the gt mask
+    crops, and have `predict_with_masks`). The detector variants are not
+    ported."""
     if getattr(cfg, "variant", None) is not None:
         raise NotImplementedError("variant detectors are not ported yet")
     if cfg.htc is not None:

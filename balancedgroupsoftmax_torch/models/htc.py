@@ -24,6 +24,7 @@ resampled from the gt crops of `ops/mask.py`).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -32,10 +33,9 @@ from torch import nn
 from ..config import DetectorConfig
 from ..gs.partition import GSPartition
 from ..kernels import batched_multilevel_roi_align
-from ..ops.mask import mask_targets
 from .cascade import CascadeRCNN
 from .detector import Detections
-from .mask_head import FCNMaskHead, mask_head_loss
+from .mask_head import FCNMaskHead
 from .semantic_head import FusedSemanticHead, semantic_seg_loss
 
 
@@ -54,15 +54,6 @@ class HTC(CascadeRCNN):
             FCNMaskHead(c.mask_head, with_conv_res=c.htc.mask_info_flow and i > 0)
             for i in range(c.cascade.num_stages)
         )
-
-    def _init_special(self) -> dict:
-        # the mask heads' convs and upsampling are he-normal, their 1x1
-        # logits normal(0.001) (JAX mask_head.py :29, :90, :102)
-        special = super()._init_special()
-        for head in self.mask_heads:
-            special.update({conv: ("he", None) for conv in head.convs})
-            special.update({head.upsample: ("he", None), head.conv_logits: ("normal", 0.001)})
-        return special
 
     def loss(
         self,
@@ -83,8 +74,8 @@ class HTC(CascadeRCNN):
         pos_fraction rows of them are pooled at mask_size / 2, run through
         the heads of stages 0..i-1 for the information flow and then stage
         i's head, class-selected, against the resampled gt crops
-        (htc.py forward_train). Each stage's losses are times its weight.
-        Sampling draws from `generator`."""
+        (htc.py forward_train; `FasterRCNN._mask_loss`). Each stage's losses
+        are times its weight. Sampling draws from `generator`."""
         c = self.cfg
         feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
         trunk = self.semantic_head(feats)
@@ -94,11 +85,8 @@ class HTC(CascadeRCNN):
                 self.semantic_head.conv_logits(trunk), gt_semantic_seg,
                 c.htc.semantic_ignore_label, c.htc.semantic_loss_weight,
             )
-        m_size = c.mask_head.mask_size // 2
         bbox_pool = self._fused_pool(sem_feat, "bbox")
-        mask_pool = self._fused_pool(sem_feat, "mask", m_size)
-        mask_cap = max(int(c.rcnn_train.sampler.num * c.rcnn_train.sampler.pos_fraction), 1)
-        num_fg = c.mask_head.num_classes - 1
+        mask_pool = self._fused_pool(sem_feat, "mask", c.mask_head.mask_size // 2)
         rois, roi_valid = proposals.boxes, proposals.valid
         targets = lambda i, r, v: self._stage_targets(i, r, v, gt_boxes, gt_labels, gt_mask, generator)
         for i, head in enumerate(self.bbox_heads):
@@ -107,26 +95,21 @@ class HTC(CascadeRCNN):
             losses.update(self._stage_losses(i, cls_logits, deltas, t, generator))
             refined = self._refine(i, t, deltas, img_shapes)
             mt = targets(i, refined, t.roi_valid) if c.htc.interleaved else t
-            m_rois, m_labels = mt.rois[:, :mask_cap].contiguous(), mt.labels[:, :mask_cap]
-            m_pos = (m_labels > 0) & mt.roi_valid[:, :mask_cap]
-            x = mask_pool(feats, m_rois).flatten(0, 1).permute(0, 3, 1, 2)
-            last = None
-            if c.htc.mask_info_flow:
-                for j in range(i):
-                    _, last = self.mask_heads[j](x, res_feat=last)
-            labels = None if c.mask_head.class_agnostic else (m_labels.flatten() - 1).clamp(0, num_fg - 1)
-            logits, _ = self.mask_heads[i](x, res_feat=last, labels=labels)
-            with torch.no_grad():
-                m_targets = mask_targets(
-                    m_rois, gt_boxes, mt.pos_gt_inds[:, :mask_cap], gt_mask_crops, m_pos, c.mask_head.mask_size
-                )
-            losses[f"s{i}.loss_mask"] = c.cascade.stage_loss_weights[i] * mask_head_loss(
-                logits, m_targets.flatten(0, 1), m_labels.flatten(), m_pos.flatten(),
-                class_agnostic=c.mask_head.class_agnostic, preselected=not c.mask_head.class_agnostic,
+            losses[f"s{i}.loss_mask"] = c.cascade.stage_loss_weights[i] * self._mask_loss(
+                feats, mt, gt_boxes, gt_mask_crops, mask_pool, functools.partial(self._stage_mask_logits, i)
             )
             if i < len(self.bbox_heads) - 1:
                 rois, roi_valid = refined, t.roi_valid
         return losses
+
+    def _stage_mask_logits(self, i: int, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """Stage i's mask logits in training, the heads of stages 0..i-1
+        feeding it their features (the mask information flow)."""
+        last = None
+        if self.cfg.htc.mask_info_flow:
+            for j in range(i):
+                _, last = self.mask_heads[j](x, res_feat=last)
+        return self.mask_heads[i](x, res_feat=last, labels=labels)[0]
 
     def _semantic(self, feats, trunk: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The semantic feature (B, C, H / 8, W / 8), channels-last, so that K2
@@ -186,25 +169,23 @@ class HTC(CascadeRCNN):
         sf = scale_factors if rescale else torch.ones_like(scale_factors)
         return dets, self._masks_feats(feats, dets.boxes, dets.labels, sf, sem_feat)
 
-    def _masks_feats(self, feats, det_boxes, det_labels, scale_factors, sem_feat) -> torch.Tensor:
-        c = self.cfg
-        rois = det_boxes * scale_factors.float()[:, None, None]
-        size = c.mask_head.mask_size // 2
-        pooled = self._fused_pool(sem_feat, "mask", size)(feats, rois)  # (B, M, S, S, C)
-        b, m = pooled.shape[:2]
-        x = pooled.flatten(0, 1).permute(0, 3, 1, 2)
-        labels = None if c.mask_head.class_agnostic else det_labels.flatten()
+    def _masks_feats(self, feats, det_boxes, det_labels, scale_factors, sem_feat=None) -> torch.Tensor:
+        if sem_feat is None:
+            sem_feat = self._semantic(feats)
+        pool = self._fused_pool(sem_feat, "mask", self.cfg.mask_head.mask_size // 2)
+        return super()._masks_feats(feats, det_boxes, det_labels, scale_factors, pool, self._mean_mask_logits)
+
+    def _mean_mask_logits(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """The mean of every stage's mask logits in f32, each stage fed the
+        previous one's feature when the information flow is on."""
         last = agg = None
         for i, head in enumerate(self.mask_heads):
             logits, feat = head(x, res_feat=last if i > 0 else None, labels=labels)
-            if c.htc.mask_info_flow:
+            if self.cfg.htc.mask_info_flow:
                 last = feat
             agg = logits if agg is None else agg + logits
         # divided by a tensor, so the card rounds as the CPU does
-        avg = agg.float() / torch.tensor(float(len(self.mask_heads)), device=agg.device)
-        if c.mask_head.class_agnostic:
-            avg = avg[:, 0]
-        return torch.sigmoid(avg).to(self.dtype).reshape(b, m, *avg.shape[-2:])
+        return agg.float() / torch.tensor(float(len(self.mask_heads)), device=agg.device)
 
 
 def build_htc(

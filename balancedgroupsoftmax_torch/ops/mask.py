@@ -1,5 +1,6 @@
-"""Mask targets from fixed-size gt crops (JAX `ops/mask.py`: `GT_MASK_CROP`
-:24, `rasterize_gt_masks` :26, `mask_target_single` :57).
+"""Mask targets from fixed-size gt crops, and masks pasted into their images
+(JAX `ops/mask.py`: `GT_MASK_CROP` :24, `rasterize_gt_masks` :26,
+`mask_target_single` :57, `paste_mask` :122).
 
 The input pipeline rasterises each gt mask on the host into a (CROP, CROP)
 crop normalised to its own box (`rasterize_gt_masks`). In training
@@ -115,3 +116,27 @@ def mask_targets(
     vals = torch.where(inside, vals, 0.0)
     targets = (vals >= 0.5).float()
     return torch.where(pos_mask[..., None, None], targets, 0.0)
+
+
+def paste_mask(
+    mask: np.ndarray,  # (M, M) sigmoid probabilities
+    box: np.ndarray,  # (4,) xyxy at the original image scale
+    img_h: int,
+    img_w: int,
+) -> np.ndarray:
+    """(img_h, img_w) uint8: the mask resized to its box by cv2's bilinear
+    resize and thresholded at > 0.5 (fcn_mask_head.py:125-170). The box is
+    rounded half to even with the +1 convention and clipped to the image;
+    the probabilities are resized in f32 (a bf16 model's are cast first)."""
+    import cv2
+
+    x1 = max(int(np.round(box[0])), 0)
+    y1 = max(int(np.round(box[1])), 0)
+    w = min(max(int(np.round(box[2] - box[0] + 1)), 1), img_w - x1)
+    h = min(max(int(np.round(box[3] - box[1] + 1)), 1), img_h - y1)
+    out = np.zeros((img_h, img_w), np.uint8)
+    if w <= 0 or h <= 0:
+        return out
+    resized = cv2.resize(mask.astype(np.float32), (w, h))
+    out[y1 : y1 + h, x1 : x1 + w] = (resized > 0.5).astype(np.uint8)
+    return out

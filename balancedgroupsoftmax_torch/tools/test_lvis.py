@@ -12,13 +12,18 @@ dropped. `--tau` tau-normalises the classifier first (`apis.tau_norm`).
 `--tau-select TAU` runs tau-norm-select (JAX :192-256): a copy of the
 classifier, tau-normalised with TAU but for its background row, rescores the
 same proposals, and takes a RoI's score row where its class has fewer than
-`--tail-threshold` training instances (`models/dual_head.py`). It prints the
-time split into preprocessing, prediction (with the copies to and from the
-card) and evaluation, then the evaluator's table. It runs on the card unless
+`--tail-threshold` training instances (`models/dual_head.py`). A model with
+a mask head (Mask R-CNN, HTC) serves with `predict_with_masks`, one backbone
+pass, or, behind `--tau-select`, runs `predict_masks` on the final boxes
+(JAX :576-607); each valid detection's mask is pasted at the original size
+and RLE-encoded into its record's "segmentation". It prints the time split
+into preprocessing, prediction (with the copies to and from the card),
+records, masks (paste and encode) and evaluation, then the evaluator's bbox
+table and, for a mask model, its segm table. It runs on the card unless
 `--device cpu` is given.
 
 Not ported here: test-time augmentation (`--flip-aug`, `--aug-scales`,
-`--aug-rescore`, ROADMAP A5), `--distributed` (A6), and mask results (A4).
+`--aug-rescore`, ROADMAP A5) and `--distributed` (A6).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..apis import MODELS, resolve_device, tau_norm
 from ..data.lvis import LvisDataset
 from ..data.pipeline import PipelineConfig, preprocess_image_file
 from ..eval.lvis_eval import LvisEvaluator
-from ..eval.results import detections_to_records, write_results_json
+from ..eval.results import add_segmentations, detections_to_records, write_results_json
 from ..gs.partition import load_partition
 from ..models.detector import Detections, FasterRCNN, build_model
 from ..models.dual_head import tail_class_mask_from_counts, update_scores_with_reweight
@@ -122,43 +127,60 @@ def infer_dataset(
 ) -> Tuple[List[dict], Dict[str, float]]:
     """`predict` (`model.predict` by default) over the dataset's first
     `limit` images (all by default) on the model's device -> (result
-    records, seconds spent in "preprocess", "predict" and "records")."""
+    records, seconds spent in "preprocess", "predict" and "records"). A
+    model with a mask head serves with `predict_with_masks` (or runs
+    `predict_masks` on what `predict` found), its records carry their
+    "segmentation", and the seconds pasting and encoding them are under
+    "masks"."""
     device = next(model.parameters()).device
-    predict = predict or model.predict
+    with_masks = model.cfg.mask_head is not None
     n = min(len(ds), limit or len(ds))
-    times = dict(preprocess=0.0, predict=0.0, records=0.0)
+    times = dict(preprocess=0.0, predict=0.0, records=0.0, **(dict(masks=0.0) if with_masks else {}))
     records: List[dict] = []
     for idxs, batch in bucket_batches(ds, pcfg, batch_size, n, times):
         t0 = time.perf_counter()
-        dets = predict(*(torch.from_numpy(batch[k]).to(device) for k in ("image", "img_shape", "scale_factor")))
+        images, shapes, sfs = (torch.from_numpy(batch[k]).to(device) for k in ("image", "img_shape", "scale_factor"))
+        masks = None
+        if with_masks and predict is None:
+            dets, masks = model.predict_with_masks(images, shapes, sfs)
+        else:
+            dets = (predict or model.predict)(images, shapes, sfs)
+            if with_masks:
+                masks = model.predict_masks(images, dets.boxes, dets.labels, sfs)
         boxes, scores, labels, valid = (t.cpu().numpy() for t in dets)
-        t1 = time.perf_counter()
+        if masks is not None:
+            masks = masks.float().cpu().numpy()  # cv2 takes f32, not bf16
+        times["predict"] += time.perf_counter() - t0
         for bi, idx in enumerate(idxs):
-            records += detections_to_records(
-                ds.img_infos[idx]["id"], boxes[bi], scores[bi], labels[bi], valid[bi], ds.cat_ids
-            )
-        times["predict"] += t1 - t0
-        times["records"] += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            info = ds.img_infos[idx]
+            recs = detections_to_records(info["id"], boxes[bi], scores[bi], labels[bi], valid[bi], ds.cat_ids)
+            t2 = time.perf_counter()
+            times["records"] += t2 - t1
+            if masks is not None:
+                add_segmentations(recs, masks[bi], boxes[bi], valid[bi], info["height"], info["width"])
+                times["masks"] += time.perf_counter() - t2
+            records += recs
     return records, times
 
 
-def evaluate(ann: str, records: List[dict], img_ids=None) -> LvisEvaluator:
-    """The evaluator run over `records`; with `img_ids`, over those images'
-    ground truth alone."""
+def evaluate(ann: str, records: List[dict], img_ids=None, iou_type: str = "bbox") -> LvisEvaluator:
+    """The evaluator run over `records` (their boxes, or with iou_type "segm"
+    their masks); with `img_ids`, over those images' ground truth alone."""
     with open(ann) as f:
         gt = json.load(f)
     if img_ids is not None:
         keep = set(img_ids)
         gt["images"] = [i for i in gt["images"] if i["id"] in keep]
         gt["annotations"] = [a for a in gt["annotations"] if a["image_id"] in keep]
-    ev = LvisEvaluator(gt, records)
+    ev = LvisEvaluator(gt, records, iou_type=iou_type)
     ev.run()
     return ev
 
 
 def main(argv=None) -> dict:
-    """Returns the records, the evaluator (None with --no-eval) and the
-    times in seconds."""
+    """Returns the records, the evaluator (None with --no-eval), the segm
+    evaluator (None but for a mask model) and the times in seconds."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     builder, _ = MODELS[args.model]
@@ -192,20 +214,27 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     records, times = infer_dataset(model, ds, pcfg, args.batch_size, n, predict)
     wall = time.perf_counter() - t0
+    masks = f", masks {times['masks']:.3f} s" if "masks" in times else ""
     print(f"inference done: {n} images in {wall:.3f} s ({n / wall:.3f} img/s): preprocess "
-          f"{times['preprocess']:.3f} s, predict {times['predict']:.3f} s, records {times['records']:.3f} s")
+          f"{times['preprocess']:.3f} s, predict {times['predict']:.3f} s, records {times['records']:.3f} s{masks}")
     if args.out:
         write_results_json(records, args.out)
         print(f"wrote {len(records)} detections to {args.out}")
-    ev = None
+    ev = ev_segm = None
     if not args.no_eval:
+        img_ids = [ds.img_infos[i]["id"] for i in range(n)] if args.limit else None
         t0 = time.perf_counter()
-        ev = evaluate(args.ann, records, [ds.img_infos[i]["id"] for i in range(n)] if args.limit else None)
+        ev = evaluate(args.ann, records, img_ids)
+        if det_cfg.mask_head is not None:
+            ev_segm = evaluate(args.ann, records, img_ids, "segm")
         times["evaluate"] = time.perf_counter() - t0
         print(f"evaluate {times['evaluate']:.3f} s")
         print("bbox results:")
         ev.print_results()
-    return dict(records=records, evaluator=ev, times=times)
+        if ev_segm is not None:
+            print("segm results:")
+            ev_segm.print_results()
+    return dict(records=records, evaluator=ev, segm_evaluator=ev_segm, times=times)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,17 @@
-"""COCO segmentations to binary masks, in numpy: a copy of what the mask
-targets need from JAX `utils/rle.py` (`counts_to_mask` :39, `decode_counts`
-:70, `decode_rle` :96, `rle_counts_from_polygon` :111, `polygons_to_mask`
-:169, `segmentation_to_mask` :179).
+"""COCO's mask codec in numpy, a copy of JAX `utils/rle.py`: binary masks to
+run lengths and LVIS's compressed strings (`mask_to_counts` :26,
+`encode_counts` :51, `encode_mask` :91), back (`counts_to_mask` :39,
+`decode_counts` :70, `decode_rle` :96) and polygons to masks
+(`rle_counts_from_polygon` :111, `polygons_to_mask` :169,
+`segmentation_to_mask` :179). The evaluator's mask IoU is
+`eval/lvis_eval.py mask_iou_bitmaps`.
 
 Run lengths are column-major (Fortran order), starting with a run of zeros;
-compressed counts are COCO's base-48 strings; a polygon is rasterised as
-pycocotools' rleFrPoly does (the boundary walked at 5x upsampling, a fill
-toggle where it crosses a column), and a polygon list is the union of its
-polygons.
+compressed counts are COCO's base-48 strings (rleToString: from the third
+run on, each the difference from the run two before, in 5-bit groups with a
+continuation bit); a polygon is rasterised as pycocotools' rleFrPoly does
+(the boundary walked at 5x upsampling, a fill toggle where it crosses a
+column), and a polygon list is the union of its polygons.
 """
 
 from __future__ import annotations
@@ -15,6 +19,19 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
+
+
+def mask_to_counts(mask: np.ndarray) -> List[int]:
+    """Binary (H, W) mask -> column-major run lengths, starting with the run
+    of zeros."""
+    flat = np.asarray(mask, np.uint8).flatten(order="F")
+    if flat.size == 0:
+        return [0]
+    change = np.nonzero(np.diff(flat))[0] + 1
+    runs = np.diff(np.concatenate([[0], change, [flat.size]])).tolist()
+    if flat[0] == 1:  # the counts start with a run of zeros
+        runs = [0] + runs
+    return [int(r) for r in runs]
 
 
 def counts_to_mask(counts: Sequence[int], h: int, w: int) -> np.ndarray:
@@ -27,6 +44,24 @@ def counts_to_mask(counts: Sequence[int], h: int, w: int) -> np.ndarray:
         pos += c
         val ^= 1
     return flat.reshape((h, w), order="F")
+
+
+def encode_counts(counts: Sequence[int]) -> str:
+    """Run lengths -> COCO's compressed string (rleToString)."""
+    out = []
+    for i, cnt in enumerate(counts):
+        x = int(cnt)
+        if i > 2:
+            x -= int(counts[i - 2])
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not ((x == 0 and not (c & 0x10)) or (x == -1 and (c & 0x10)))
+            if more:
+                c |= 0x20
+            out.append(chr(c + 48))
+    return "".join(out)
 
 
 def decode_counts(s: str) -> List[int]:
@@ -48,6 +83,12 @@ def decode_counts(s: str) -> List[int]:
             x += counts[-2]
         counts.append(int(x))
     return counts
+
+
+def encode_mask(mask: np.ndarray) -> Dict:
+    """(H, W) binary mask -> {"size": [H, W], "counts": compressed string}."""
+    h, w = mask.shape
+    return {"size": [int(h), int(w)], "counts": encode_counts(mask_to_counts(mask))}
 
 
 def decode_rle(rle: Dict) -> np.ndarray:

@@ -1,5 +1,5 @@
 """The detector configurations of the ported slices (JAX `zoo.py` :27, :38,
-:83, :109 and :127): each constructor returns its `DetectorConfig`, and
+:65, :83, :109 and :127): each constructor returns its `DetectorConfig`, and
 `TRAIN_CONFIGS` holds the `TrainConfig` that the JAX constructor returns
 beside it."""
 
@@ -26,6 +26,16 @@ def gs_faster_rcnn_r50_fpn_lvis(num_classes: int = 1231, num_bins: int = 5) -> D
     """configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py equivalent."""
     return DetectorConfig(
         bbox_head=BBoxHeadConfig(num_classes=num_classes, use_gs=True, gs=GSConfig(num_bins=num_bins))
+    )
+
+
+def mask_rcnn_r50_fpn_lvis(num_classes: int = 1231, use_gs: bool = False, num_bins: int = 5) -> DetectorConfig:
+    """configs/baselines/mask_rcnn_r50_fpn_1x_lvis.py; with `use_gs`,
+    configs/bags/gs_mask_rcnn_r50_fpn_1x_lvis_with0_bg8.py: Faster R-CNN with
+    an FCN mask head (28 x 28 class-selected masks)."""
+    return DetectorConfig(
+        bbox_head=BBoxHeadConfig(num_classes=num_classes, use_gs=use_gs, gs=GSConfig(num_bins=num_bins)),
+        mask_head=MaskHeadConfig(num_classes=num_classes),
     )
 
 
@@ -70,12 +80,14 @@ def htc_x101_64x4d_fpn_lvis(
     )
 
 
-# the BAGS recipe trains phase 2 with only fc_cls (bg8.py:193,198); the GS
-# cascade and the GS HTC train every stage's fc_cls (selectp=3); HTC runs 20
-# epochs (the _20e configs)
+# the BAGS recipe trains phase 2 with only fc_cls (bg8.py:193,198), GS Mask
+# R-CNN's too; the GS cascade and the GS HTC train every stage's fc_cls
+# (selectp=3); HTC runs 20 epochs (the _20e configs)
 TRAIN_CONFIGS = {
     "faster_rcnn_r50_fpn_lvis": TrainConfig(),
     "gs_faster_rcnn_r50_fpn_lvis": TrainConfig(selectp=1),
+    "mask_rcnn_r50_fpn_lvis": TrainConfig(),
+    "gs_mask_rcnn_r50_fpn_lvis": TrainConfig(selectp=1),
     "cascade_rcnn_r50_fpn_lvis": TrainConfig(),
     "gs_cascade_rcnn_r50_fpn_lvis": TrainConfig(selectp=3),
     "faster_rcnn_x101_64x4d_fpn_lvis": TrainConfig(),

@@ -30,8 +30,9 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    timed steps of full training (selectp=0), checking that the losses are
    finite, that K4 and K2b were launched and that the parameters moved;
    hold K4 against its plain version, and time it, on the boxes and
-   validity the first step handed it; profile one step; then one BAGS
-   phase-2 step (selectp=1), which must move fc_cls alone;
+   validity the first step handed it; profile one step; then two BAGS
+   phase-2 steps (selectp=1), a first and a timed one, which must move
+   fc_cls alone;
 6. take one small f32 training step on the card and on the CPU from the
    same weights and batch, sampling made deterministic by the
    configuration, and compare the loss dicts;
@@ -68,17 +69,40 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    launching K7b or K2b; hold K7b against its plain version, and time it, at
    the first layer of each of the six shapes of the 30 (bf16, and f32 at two),
    and K2/K2b on the semantic pyramid at S = 14; then one small f32 HTC-DCN
-   step (depth 50) on the card and on the CPU, the loss dicts compared;
+   step (depth 50) on the card and on the CPU, the loss dicts and gradients
+   compared;
+12c. serve BAGS Mask R-CNN R50-FPN (gs_mask_rcnn_r50: 1231 classes, bf16,
+   800 x 1344, batch 2, seeded weights, synthetic partition) through
+   `init_detector` and `predict_with_masks`, which must launch K1 once, K2
+   twice (S = 7 over the proposals, S = 14 over the 300 detections an
+   image) and K3 once a call, with well-formed detections and (2, 300, 28,
+   28) masks in [0, 1]; profile one call; hold K2 at S = 14 against its
+   plain version, and time it, on the detections one call pooled; compare a
+   small f32 predict_with_masks card vs CPU (detections and masks); train
+   mask_rcnn_r50 (bf16 compute, f32 parameters, batch 2 at 800 x 1344, 20 gt
+   boxes with random polygon masks an image, rasterised into crops as the
+   train CLI does): a warm-up step and timed selectp=0 steps, each launching
+   K4 once and K2 and K2b twice, "loss_mask" finite and the mask head
+   moving, then two selectp=1 steps (only fc_cls moves) and two selectp=4
+   steps (only the bbox and mask heads move, no K2b), each a first and a
+   timed one, of gs_mask_rcnn_r50
+   warm-started from its weights; hold K2b at S = 14 against its plain
+   version, and time it, on the mask branch's gradient and rois; then one
+   small f32 Mask R-CNN step on the card and on the CPU, the loss dicts and
+   gradients compared;
 13. drive the BAGS two-phase recipe through the CLIs' `main(argv)` at full
    width (`run_flow`): an LVIS-shaped fixture of 8 JPEGs in both buckets
    with 1230 classes, the partition, phase 1 (K4, K2 and K2b once a step),
    phase 2 warm-started from it (only fc_cls fresh, only fc_cls moves), a
    resume (at the saved step, with the optimizer's state), the test CLI
    with and without --tau 0.5 (K1, K2 and K3 once a batch; the records
-   finite and inside their images) and the eval CLI (the same table); K1-K4
+   finite and inside their images) and the eval CLI (the same table); then
+   a mask_rcnn_r50 train-CLI step with the gt crops and the test CLI on its
+   checkpoint (segm records, each a mask of its image, and a finite segm
+   table; K1 and K3 once and K2 twice a batch); K1-K4
    and K2 are held to their plain versions on the CLIs' inputs, and the
-   train CLI's images/s from JPEG files and the test CLI's time split are
-   printed;
+   train CLI's images/s from JPEG files and the test CLIs' time splits (the
+   masks' paste and encode among them) are printed;
 14. the BAGS ablation (`run_ablation`): a long-tailed fixture from
    `tools.make_longtail` (120 train images and the injected tail ones, 24
    val, 320 x 320, 48 classes) and its 4-bin partition, then
@@ -1222,20 +1246,29 @@ def train_batch(seed: int, partition, size=(427, 640), masks: bool = False):
     return batch
 
 
-def run_train_path(torch, model, phase2):
+def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
     """Full training steps of `model` (bf16, on the card) at 800 x 1344,
-    batch 2, then one BAGS phase-2 step with the TrainConfig `phase2`, which
-    must move the fc_cls tensors alone. Each step launches K4 once, and K2
-    and K2b once a stage. Returns the launches of the selectp=0 steps and
-    what the first of them handed K4 (boxes, valid, iou_thr) and the mean
-    ms of the timed steps."""
+    batch 2, then BAGS phase-2 steps with the TrainConfig `phase2` of
+    `phase2_model` (`model` by default), a first and a timed one, which must
+    move the fc_cls tensors alone. Each step launches K4 once, and K2 and
+    K2b once a stage and once more for a mask head. With a mask head the batch holds gt mask crops
+    (`train_batch(masks=True)`), "loss_mask" must be finite, the mask head
+    must move, and two selectp=4 steps of `phase2_model` must move the bbox
+    and mask heads alone and launch no K2b. Returns the launches of the
+    selectp=0 steps, what the first of them handed K4 (boxes, valid,
+    iou_thr) and, with a mask head, K2b at S = 14 ((args, kwargs)), the
+    mean ms of the timed steps and the peak GiB."""
     from balancedgroupsoftmax_torch import cuda
     from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
+    from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
 
     dev = next(model.parameters()).device
     stages = model.cfg.cascade.num_stages if model.cfg.cascade else 1
-    batch = train_batch(8, model.partition)
+    masks = model.mask_head is not None
+    pools = stages + masks
+    batch = train_batch(8, model.partition or synthetic_partition(model.cfg.bbox_head.num_classes), masks=masks)
     if tuple(batch["images"].shape[1:3]) != MAIN_SIZE or int(batch["gt_mask"].sum()) != MAIN_BATCH * TRAIN_GTS:
         raise AssertionError(f"training batch {batch['images'].shape}, {int(batch['gt_mask'].sum())} gts")
     # loading the batch is set-up: the timed steps start from the card
@@ -1250,9 +1283,11 @@ def run_train_path(torch, model, phase2):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    # the first step also records what the RPN's NMS hands K4
-    out = []
-    seen = capture_calls(("nms_keep_tiled",), lambda: out.append(step(batch, gen)))
+    # the first step also records what the RPN's NMS hands K4, and K2b with a mask head
+    out, k2b = [], []
+    first = lambda: out.append(step(batch, gen))
+    with_k2b = (lambda: k2b.extend(record_calls(ops_roi, "roi_align_backward", first))) if masks else first
+    seen = capture_calls(("nms_keep_tiled",), with_k2b)
     metrics, k4_inputs = out[0], seen["nms_keep_tiled"][0]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1272,30 +1307,103 @@ def run_train_path(torch, model, phase2):
     log(f"  launches over {TIMED_STEPS + 1} steps: {launches}")
     log("  losses: " + ", ".join(f"{k} {v.item():.5f}" for k, v in metrics.items()))
     steps = TIMED_STEPS + 1
-    for sym, each in (("bags_nms_keep_tiled", 1), ("bags_roi_align_forward", stages), ("bags_roi_align_backward", stages)):
+    for sym, each in (("bags_nms_keep_tiled", 1), ("bags_roi_align_forward", pools), ("bags_roi_align_backward", pools)):
         if launches[sym] != each * steps:
             raise AssertionError(f"{sym} launched {launches[sym]} times in {steps} steps, not {each} a step")
-    if not all(torch.isfinite(v).item() for v in metrics.values()):
-        raise AssertionError(f"a loss is not finite: {metrics}")
+    if not all(torch.isfinite(v).item() for v in metrics.values()) or masks != ("loss_mask" in metrics):
+        raise AssertionError(f"a loss is not finite, or loss_mask is amiss: {metrics}")
     moved = {n for n, p in named.items() if not torch.equal(p.detach(), before[n])}
     trainable = {n for n, p in named.items() if p.requires_grad}
-    if moved - trainable or not all(any(n.startswith(m) for n in moved) for m in ("backbone", "neck", "rpn_head", "bbox_head")):
+    heads = ("backbone", "neck", "rpn_head", "bbox_head") + (("mask_head.",) if masks else ())
+    if moved - trainable or not all(any(n.startswith(m) for n in moved) for m in heads):
         raise AssertionError(f"selectp=0 moved {len(moved)} tensors of {len(trainable)} trainable")
-    log(f"  selectp=0 moved {len(moved)} of {len(trainable)} trainable tensors, no frozen one")
+    log(f"  selectp=0 moved {len(moved)} of {len(trainable)} trainable tensors, no frozen one"
+        + (", the mask head's among them" if masks else ""))
     profile_device(torch, "train step", lambda: step(batch, gen))
+    del step, state
 
-    state = create_train_state(model, phase2)
-    before = {n: p.detach().clone() for n, p in named.items()}
-    step1 = make_train_step(state)
+    phase_model = phase2_model or model
+    named = dict(phase_model.named_parameters())
+    phases = [(phase2, sorted(n for n in named if "fc_cls" in n))]
+    if masks:
+        phases.append((TrainConfig(selectp=4), sorted(n for n in named if n.startswith(("bbox_head.", "mask_head.")))))
+    for cfg, expect in phases:
+        phase = make_train_step(create_train_state(phase_model, cfg))
+        before = {n: p.detach().clone() for n, p in named.items()}
+        for k in cuda.KERNELS:
+            k.launches = 0
+        # a first step, then a timed one
+        took = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            m = phase(batch, gen)
+            torch.cuda.synchronize()
+            took.append((time.perf_counter() - t0) * 1e3)
+        moved = sorted(n for n, p in named.items() if not torch.equal(p.detach(), before[n]))
+        if moved != expect or not torch.isfinite(m["loss"]):
+            raise AssertionError(f"selectp={cfg.selectp} moved {moved}, loss {m['loss'].item()}")
+        if cuda.ROI_ALIGN_BACKWARD.launches:
+            raise AssertionError(f"selectp={cfg.selectp} launched K2b {cuda.ROI_ALIGN_BACKWARD.launches} times")
+        what = f"only {moved}" if cfg.selectp != 4 else f"{len(moved)} tensors, the bbox and mask heads'"
+        log(f"  selectp={cfg.selectp}: first step {took[0]:.3f} ms, then {took[1]:.3f} ms; two steps moved {what}, "
+            f"K2b not launched, loss {m['loss'].item():.5f}")
+        del phase
+    k2b_14 = [c for c in k2b if c[0][4] == 14]
+    return dict(launches=launches, k4_inputs=k4_inputs, k2b=k2b_14[0] if k2b_14 else None, ms=ms, peak=peak)
+
+
+def run_mask_rcnn_path(torch, bgs, ops_roi, dev):
+    """GS Mask R-CNN serving at the main shape: `predict_with_masks`, with
+    K1 once, K2 twice (S = 7 over the proposals, then S = 14 over the 300
+    detections an image) and K3 once a call; a profiled call; then K2 at
+    S = 14 held to its plain version, and timed, on the detections one more
+    call pooled (the "/mask-rcnn" row). Returns the model and that row."""
+    from balancedgroupsoftmax_torch.models import detector
+
     t0 = time.perf_counter()
-    metrics = step1(batch, gen)
-    torch.cuda.synchronize()
-    moved = sorted(n for n, p in named.items() if not torch.equal(p.detach(), before[n]))
-    if moved != sorted(n for n in named if "fc_cls" in n):
-        raise AssertionError(f"selectp={phase2.selectp} moved {moved}")
-    log(f"  selectp={phase2.selectp} step {(time.perf_counter() - t0) * 1e3:.3f} ms moved only {moved}, "
-        f"loss {metrics['loss'].item():.5f}")
-    return launches, k4_inputs, ms
+    model = bgs.init_detector("gs_mask_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
+    log(f"  model built on the card in {time.perf_counter() - t0:.1f} s")
+    launches, inputs = run_predicts(
+        torch, model, {"bags_nms_keep": 1, "bags_roi_align_forward": 2, "bags_nms_keep_gathered": 1},
+        call=model.predict_with_masks,
+    )
+    profile_device(torch, "Mask R-CNN predict_with_masks", lambda: model.predict_with_masks(*inputs))
+    calls = record_calls(detector, "batched_multilevel_roi_align", lambda: model.predict_with_masks(*inputs))
+    (feats, rois, strides, out_size), _ = calls[-1][0][:4], calls[-1][1]
+    if [c[0][3] for c in calls] != [7, 14] or tuple(rois.shape) != (MAIN_BATCH, MAX_PER_IMG, 4):
+        raise AssertionError(f"Mask R-CNN's K2 calls: sizes {[c[0][3] for c in calls]}, mask rois {tuple(rois.shape)}")
+    row = k2_row(torch, ops_roi, feats, rois, strides, out_size, "roi_align_forward/mask-rcnn",
+                 f"on Mask R-CNN's {MAX_PER_IMG} detections an image, S = 14")
+    row["launches"] = launches["bags_roi_align_forward"]
+    return model, row
+
+
+def run_mask_rcnn_train(torch, bgs, ops_roi, dev) -> dict:
+    """Mask R-CNN training at the main shape through `run_train_path`:
+    mask_rcnn_r50's selectp=0 steps (K4 once, K2 and K2b twice a step), then
+    a selectp=1 and a selectp=4 step of gs_mask_rcnn_r50 warm-started from
+    its weights (all but fc_cls copied, as the BAGS recipe's phase 2); K2b
+    at S = 14 held to its plain version, and timed, on the gradient and rois
+    of the first step's mask branch (the "/mask-rcnn" row). Returns
+    `run_train_path`'s numbers and the row."""
+    from balancedgroupsoftmax_torch.utils.checkpoint import warm_start
+    from balancedgroupsoftmax_torch.zoo import TRAIN_CONFIGS
+
+    model = bgs.init_detector("mask_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
+    gs = bgs.init_detector("gs_mask_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=1).model
+    _, fresh = warm_start(gs, model.state_dict())
+    if sorted(fresh) != ["bbox_head.fc_cls.bias", "bbox_head.fc_cls.weight"]:
+        raise AssertionError(f"the GS Mask R-CNN's warm start left fresh {fresh}")
+    trained = run_train_path(torch, model, TRAIN_CONFIGS["gs_mask_rcnn_r50_fpn_lvis"], phase2_model=gs)
+    del gs, trained["k4_inputs"]
+    if trained["k2b"] is None:
+        raise AssertionError("no K2b call at S = 14 in the Mask R-CNN step")
+    args, kw = trained.pop("k2b")
+    grad, rois, shapes, strides, size = args[:5]
+    trained["row"] = k2b_row(torch, ops_roi, grad, rois, shapes, strides, size, kw["dtype"], kw["levels"],
+                             "roi_align_backward/mask-rcnn", f"on the mask branch's {tuple(rois.shape[:2])} rois, S = 14")
+    trained["row"]["launches"] = trained["launches"]["bags_roi_align_backward"]
+    return trained
 
 
 def compare_small_train(torch, model) -> None:
@@ -1953,27 +2061,20 @@ def run_htc_path(torch, dev):
     return launches, model, row
 
 
-def compare_small_htc(torch, model) -> None:
-    """HTC-DCN in f32 on a 256 x 384 image, on a reduced ResNeXt (depth 50,
-    the X101's widths, 64 groups, deformable c3-c5 at D = 4, offsets spread
-    as on the main path): the card (kernels) against the CPU (plain
-    versions), as `compare_small` does for the detections; for the
-    detections found alike, the masks must agree within 1e-3."""
-    import dataclasses
-
-    from balancedgroupsoftmax_torch.models.detector import build_model
-
-    dev = next(model.parameters()).device
-    cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(model.cfg.backbone, depth=50))
+def small_image(torch):
+    """The seeded 256 x 384 image (batch 1) and its shape and scale of the
+    small card-vs-CPU predicts."""
     gen = torch.Generator().manual_seed(5)
-    images = torch.randn(1, 256, 384, 3, generator=gen)
-    shapes = torch.tensor([[256.0, 384.0]])
-    sf = torch.ones(1)
-    cpu_model = build_model(cfg, model.partition, torch.float32).init_weights(0).eval()
-    spread_offsets(torch, cpu_model, images)
-    gpu_model = build_model(cfg, model.partition, torch.float32).eval()
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    gpu_model.to(dev)
+    return torch.randn(1, 256, 384, 3, generator=gen), torch.tensor([[256.0, 384.0]]), torch.ones(1)
+
+
+def compare_masks_card_cpu(torch, cpu_model, gpu_model, label: str) -> None:
+    """`predict_with_masks` of two f32 copies of a model on `small_image`:
+    the card's (kernels) against the CPU's (plain versions), as
+    `compare_small` does for the detections; for the detections found
+    alike, the masks must agree within 1e-3."""
+    dev = next(gpu_model.parameters()).device
+    images, shapes, sf = small_image(torch)
     allow = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1993,10 +2094,40 @@ def compare_small_htc(torch, model) -> None:
             j = int(torch.nonzero(same)[0])
             mask_err = max(mask_err, (gm[0, i] - cm[0, j]).abs().max().item())
     total = int(gv.sum())
-    log(f"  small HTC-DCN input, card vs CPU: max score diff {score_err:.3e}, {matched}/{total} detections "
+    log(f"  small {label} input, card vs CPU: max score diff {score_err:.3e}, {matched}/{total} detections "
         f"matched, max mask diff over them {mask_err:.3e}")
     if not (score_err <= 1e-4 and total > 0 and matched >= 0.95 * total and mask_err <= 1e-3):
         raise AssertionError("card and CPU detections or masks disagree")
+
+
+def compare_small_htc(torch, model) -> None:
+    """HTC-DCN in f32 on `small_image`, on a reduced ResNeXt (depth 50, the
+    X101's widths, 64 groups, deformable c3-c5 at D = 4, offsets spread as
+    on the main path): `compare_masks_card_cpu`."""
+    import dataclasses
+
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    dev = next(model.parameters()).device
+    cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(model.cfg.backbone, depth=50))
+    cpu_model = build_model(cfg, model.partition, torch.float32).init_weights(0).eval()
+    spread_offsets(torch, cpu_model, small_image(torch)[0])
+    gpu_model = build_model(cfg, model.partition, torch.float32).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    compare_masks_card_cpu(torch, cpu_model, gpu_model.to(dev), "HTC-DCN")
+
+
+def compare_small_mask_rcnn(torch, model) -> None:
+    """The serving Mask R-CNN's weights in f32 on `small_image`:
+    `compare_masks_card_cpu`."""
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    dev = next(model.parameters()).device
+    cpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    gpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    compare_masks_card_cpu(torch, cpu_model, gpu_model.to(dev), "Mask R-CNN")
 
 
 # f32 operations K7b does a sample and channel beyond the contractions: the
@@ -2241,28 +2372,31 @@ def run_htc_train_path(torch, model):
 GRAD_NORM_LIMIT = 1e-2
 
 
-def small_htc_train_case(torch, model):
-    """The reduced HTC-DCN that `compare_small_htc_train` steps, from the
-    main model's configuration: (its configuration, a batch of two 256 x 384
-    images with eight polygon-masked gt boxes each, seeded f32 weights with
-    the offset convs spread as on the main path)."""
+def small_mask_train_case(torch, model):
+    """The reduced model that `compare_small_mask_train` steps, from the
+    main HTC-DCN's or Mask R-CNN's configuration (depth 50): (its
+    configuration, a batch of two 256 x 384 images with eight
+    polygon-masked gt boxes each, seeded f32 weights, an HTC's offset convs
+    spread as on the main path)."""
     import dataclasses
 
     import numpy as np
 
+    from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
     from balancedgroupsoftmax_torch.models.detector import build_model
     from balancedgroupsoftmax_torch.ops.mask import rasterize_gt_masks
 
     cfg = model.cfg
     num_anchors = 3 * sum(-(-256 // s) * -(-384 // s) for s in cfg.anchors.strides)
     take_all = lambda sc, num: dataclasses.replace(sc, sampler=dataclasses.replace(sc.sampler, num=num, pos_fraction=1.0))
+    # HTC adds the 8 gt boxes again in each later stage and each mask resampling
+    samplings = 6 if cfg.htc else 1
     cfg = dataclasses.replace(
         cfg,
         backbone=dataclasses.replace(cfg.backbone, depth=50),
         rpn_train=take_all(cfg.rpn_train, num_anchors),
         rpn_proposal_train=dataclasses.replace(cfg.rpn_proposal_train, nms_post=100, max_num=100),
-        # the 100 proposals and the 8 gt boxes, added again by each later stage and each mask resampling
-        rcnn_train=take_all(cfg.rcnn_train, 100 + 8 * 6),
+        rcnn_train=take_all(cfg.rcnn_train, 100 + 8 * samplings),
         bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
     )
     gen = torch.Generator().manual_seed(11)
@@ -2272,38 +2406,43 @@ def small_htc_train_case(torch, model):
     boxes = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([383.0, 255.0]))], -1).floor()
     crops = np.stack([rasterize_gt_masks([[polygon_in(rng, b)] for b in bs.numpy()], bs.numpy(), 256, 384, 8)
                       for bs in boxes])
+    partition = model.partition or synthetic_partition(cfg.bbox_head.num_classes)
     batch = dict(
         images=torch.randn(MAIN_BATCH, 256, 384, 3, generator=gen),
         gt_boxes=boxes,
-        gt_labels=torch.from_numpy(np.stack([gt_labels(rng, model.partition, 8) for _ in range(MAIN_BATCH)])),
+        gt_labels=torch.from_numpy(np.stack([gt_labels(rng, partition, 8) for _ in range(MAIN_BATCH)])),
         gt_mask=torch.ones(MAIN_BATCH, 8, dtype=torch.bool),
         img_shapes=torch.tensor([[256.0, 384.0]] * MAIN_BATCH),
         gt_mask_crops=torch.from_numpy(crops),
     )
     cpu_model = build_model(cfg, model.partition, torch.float32).init_weights(0)
-    spread_offsets(torch, cpu_model, batch["images"])
+    if cfg.htc:
+        spread_offsets(torch, cpu_model, batch["images"])
     return cfg, batch, cpu_model.state_dict()
 
 
-def compare_small_htc_train(torch, model) -> None:
-    """One f32 training step of a reduced HTC-DCN (depth 50, the X101's
-    widths, 64 groups, deformable c3-c5 at D = 4, offsets spread as on the
-    main path) on two 256 x 384 images with polygon masks, on the card
-    (kernels, K7b among them) and on the CPU (plain versions), from the same
-    weights; sampling made deterministic by the configuration (every anchor
-    and RoI candidate sampled, also for the interleaved mask targets, the GS
-    others' budget covering them all). The loss dicts must agree to 1e-3
-    relative, as `compare_small_train`'s, and every trained parameter's
-    gradient (clipped, as the step leaves it) to GRAD_NORM_LIMIT in the
-    relative norm |card - cpu| / |cpu|: the deformable layers' weights and
-    offset convs, whose gradient K7b gives on the card, among them. The
-    largest elementwise difference is printed beside it."""
+def compare_small_mask_train(torch, model, label: str) -> None:
+    """One f32 training step of the reduced `small_mask_train_case` model
+    (for HTC-DCN depth 50 with the X101's widths, 64 groups, deformable
+    c3-c5 at D = 4, offsets spread as on the main path) on two 256 x 384
+    images with polygon masks, on the card (kernels, K7b among them for
+    HTC) and on the CPU (plain versions), from the same weights; sampling
+    made deterministic by the configuration (every anchor and RoI candidate
+    sampled, also for the interleaved mask targets, the GS others' budget
+    covering them all). The loss dicts must agree to 1e-3 relative, as
+    `compare_small_train`'s, and every trained parameter's gradient
+    (clipped, as the step leaves it) to GRAD_NORM_LIMIT in the relative norm
+    |card - cpu| / |cpu|: the mask head's, and the deformable layers'
+    weights and offset convs, whose gradient K7b gives on the card, among
+    them. The largest elementwise difference is printed beside it."""
     from balancedgroupsoftmax_torch.config import TrainConfig
     from balancedgroupsoftmax_torch.models.detector import build_model
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
 
     dev = next(model.parameters()).device
-    cfg, batch, weights = small_htc_train_case(torch, model)
+    cfg, batch, weights = small_mask_train_case(torch, model)
+    n_dcn = 13 if cfg.htc else 0  # deformable c3-c5 of depth 50
+    mask_loss = "s2.loss_mask" if cfg.htc else "loss_mask"
     out, grads = {}, {}
     allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -2316,27 +2455,30 @@ def compare_small_htc_train(torch, model) -> None:
             step = make_train_step(create_train_state(m, TrainConfig(selectp=0)))
             out[name] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
             grads[name] = {n: p.grad.double().cpu() for n, p in m.named_parameters() if p.grad is not None}
-            if name == "card" and cuda_launches()["bags_deform_conv_backward"] - before["bags_deform_conv_backward"] != 13:  # c3-c5 of depth 50
-                raise AssertionError("the small HTC step did not launch K7b once a deformable layer")
+            if name == "card" and cuda_launches()["bags_deform_conv_backward"] - before["bags_deform_conv_backward"] != n_dcn:
+                raise AssertionError(f"the small {label} step did not launch K7b once a deformable layer")
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
     worst = max(abs(out["card"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-6) for k in out["cpu"])
-    log(f"  small f32 HTC-DCN train step, card vs CPU: max relative loss difference {worst:.3e} over "
+    log(f"  small f32 {label} train step, card vs CPU: max relative loss difference {worst:.3e} over "
         f"{len(out['cpu'])} losses")
-    if not (sorted(out["card"]) == sorted(out["cpu"]) and worst <= 1e-3 and "s2.loss_mask" in out["cpu"]):
+    if not (sorted(out["card"]) == sorted(out["cpu"]) and worst <= 1e-3 and mask_loss in out["cpu"]):
         raise AssertionError(f"card and CPU losses disagree: {out}")
     if sorted(grads["card"]) != sorted(grads["cpu"]):
         raise AssertionError("the card and the CPU step trained different parameters")
     norm, peak = grad_differences(grads["card"], grads["cpu"])
     dcn = [n for n in norm if n.endswith(("conv2.weight", "conv2.conv_offset.weight", "conv2.conv_offset.bias"))
            and n.rsplit("conv2.", 1)[0] + "conv2.conv_offset.weight" in norm]
+    heads = [n for n in norm if n.startswith(("mask_head.", "mask_heads."))]
     far = max(norm, key=norm.get)
     log(f"  gradients, card vs CPU: relative norm worst {norm[far]:.3e} ({far}) over {len(norm)} tensors, "
-        f"{max(norm[n] for n in dcn):.3e} over the {len(dcn)} deformable weights and offset convs; "
-        f"largest elementwise difference {max(peak.values()):.3e} of its tensor's largest ({max(peak, key=peak.get)})")
+        f"{max(norm[n] for n in heads):.3e} over the {len(heads)} mask-head tensors"
+        + (f", {max(norm[n] for n in dcn):.3e} over the {len(dcn)} deformable weights and offset convs" if dcn else "")
+        + f"; largest elementwise difference {max(peak.values()):.3e} of its tensor's largest "
+        f"({max(peak, key=peak.get)})")
     # each layer's offset conv weight and bias, and its weight (no bias); the
     # limit is GRAD_NORM_LIMIT's
-    if len(dcn) != 3 * 13 or norm[far] > GRAD_NORM_LIMIT:
+    if len(dcn) != 3 * n_dcn or not heads or norm[far] > GRAD_NORM_LIMIT:
         raise AssertionError(f"card and CPU gradients disagree: {sorted(norm.items(), key=lambda kv: -kv[1])[:5]}")
 
 
@@ -2416,6 +2558,25 @@ def check_records(records, ann: str) -> None:
             raise AssertionError(f"a record's score or class is wrong: {r}")
 
 
+def check_segmentations(records, ann: str) -> None:
+    """Every record's "segmentation" decodes to a mask of its image's size;
+    some masks are not empty."""
+    import json
+
+    from balancedgroupsoftmax_torch.utils.rle import decode_rle
+
+    with open(ann) as f:
+        sizes = {i["id"]: (i["height"], i["width"]) for i in json.load(f)["images"]}
+    areas = []
+    for r in records:
+        m = decode_rle(r["segmentation"])
+        if m.shape != sizes[r["image_id"]] or r["segmentation"]["size"] != list(m.shape):
+            raise AssertionError(f"a mask of {m.shape} on a {sizes[r['image_id']]} image: {r['segmentation']['size']}")
+        areas.append(int(m.sum()))
+    if not any(areas):
+        raise AssertionError("every pasted mask is empty")
+
+
 def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
     """The BAGS two-phase recipe through the CLIs' `main(argv)` on the card,
     gs_faster_rcnn_r50_fpn_lvis at full width (1230 classes, bf16,
@@ -2426,7 +2587,11 @@ def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
     only fc_cls moves); a resume (restarts at the saved step with the
     optimizer's state); the test CLI with and without --tau 0.5 (K1, K2 and
     K3 once a batch; records finite and inside their images); the eval CLI,
-    whose table must equal the test CLI's. K1-K4 and K2 are held to their
+    whose table must equal the test CLI's; then one mask_rcnn_r50 train-CLI
+    step with the gt crops (K4 once, K2 and K2b twice) and the test CLI on
+    its checkpoint (K1 and K3 once and K2 twice a batch; every record's
+    segmentation a mask of its image, the segm table finite, the masks'
+    paste-and-encode seconds printed). K1-K4 and K2 are held to their
     plain versions again on what the CLIs handed them (the portrait bucket
     too). The fixture, partition and checkpoints stay in `root`. Returns the
     flow's numbers."""
@@ -2554,6 +2719,31 @@ def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
     if eval_text.strip() != table.strip() or ev.results != out["evaluator"].results:
         raise AssertionError("the eval CLI's table differs from the test CLI's")
     log(f"  eval CLI: the same table as the test CLI's (AP {ev.results['AP']:.6f})")
+
+    # Mask R-CNN: one train-CLI step with the gt crops, then the test CLI with masks on its checkpoint
+    (rm, _), launches = counted(torch, lambda: run_cli(train.main, [
+        "--model", "mask_rcnn_r50", *train_args, "--selectp", "0", "--work-dir", os.path.join(root, "wm"),
+        "--max-steps", "1"]))
+    expect_launches(launches, {"bags_nms_keep_tiled": 1, "bags_roi_align_forward": 2, "bags_roi_align_backward": 2},
+                    1, "Mask R-CNN steps")
+    if not (math.isfinite(rm["log"][-1]["loss_mask"]) and rm["log"][-1]["loss_mask"] > 0):
+        raise AssertionError(f"the Mask R-CNN step's loss_mask: {rm['log'][-1]}")
+    (mout, mtext), launches = counted(torch, lambda: run_cli(test_lvis.main, [
+        "--model", "mask_rcnn_r50", *common, "--checkpoint", rm["checkpoint"]]))
+    del rm
+    expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 2, "bags_nms_keep_gathered": 1},
+                    n_batches, "Mask R-CNN test batches")
+    check_records(mout["records"], ann)
+    check_segmentations(mout["records"], ann)
+    segm = mout["segm_evaluator"]
+    if "segm results:" not in mtext or not all(math.isfinite(v) for v in segm.results.values()):
+        raise AssertionError(f"the test CLI's segm table: {segm and segm.results}")
+    t = mout["times"]
+    numbers["test_masks"] = dict(t, images=8)
+    log(f"  Mask R-CNN test CLI: {len(mout['records'])} records with masks, launches {launches}; preprocess "
+        f"{t['preprocess']:.3f} s, predict {t['predict']:.3f} s, records {t['records']:.3f} s, masks {t['masks']:.3f} s "
+        f"({t['masks'] / 8 * 1e3:.1f} ms an image), evaluate {t['evaluate']:.3f} s over 8 images; segm AP "
+        f"{segm.results['AP']:.6f} ({card_line()})")
     return numbers
 
 
@@ -2799,11 +2989,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     train_model = bgs.init_detector("gs_faster_rcnn_r50", dtype=torch.bfloat16, device=dev, seed=0).model
-    train_launches, k4_inputs, train_ms = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
-    k4_row = check_k4(torch, ops_nms, *k4_inputs)
+    trained = run_train_path(torch, train_model, TRAIN_CONFIGS["gs_faster_rcnn_r50_fpn_lvis"])
+    train_launches, train_ms = trained["launches"], trained["ms"]
+    k4_row = check_k4(torch, ops_nms, *trained.pop("k4_inputs"))
     log_row(k4_row)
     rows.append(k4_row)
-    del k4_inputs
     log(f"phase training path: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2855,9 +3045,30 @@ def main() -> int:
     log(f"phase HTC-DCN training: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    compare_small_htc_train(torch, htc)
+    compare_small_mask_train(torch, htc, "HTC-DCN")
     log(f"phase small HTC-DCN train step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
     del htc
+
+    t0 = time.perf_counter()
+    mask_rcnn, k2_mask_row = run_mask_rcnn_path(torch, bgs, ops_roi, dev)
+    log_row(k2_mask_row)
+    rows.append(k2_mask_row)
+    log(f"phase Mask R-CNN serving: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_mask_rcnn(torch, mask_rcnn)
+    log(f"phase small Mask R-CNN predict_with_masks card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    k2b_mask_row = run_mask_rcnn_train(torch, bgs, ops_roi, dev)["row"]
+    log_row(k2b_mask_row)
+    rows.append(k2b_mask_row)
+    log(f"phase Mask R-CNN training: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_mask_train(torch, mask_rcnn, "Mask R-CNN")
+    log(f"phase small Mask R-CNN train step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    del mask_rcnn
 
     with tempfile.TemporaryDirectory() as flow_root:
         t0 = time.perf_counter()
@@ -2877,8 +3088,9 @@ def main() -> int:
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
     # cascade's predicts for K5 and K6, the HTC's for K7, its selectp=0
     # training steps for K7b, one pass of the
-    # R50's stride-1 runs for K8 and K9; the "/ablation-train" and
-    # "/tnorm-select" rows carry their ablation rows' counts
+    # R50's stride-1 runs for K8 and K9; the "/mask-rcnn" rows carry Mask
+    # R-CNN's predicts' and selectp=0 steps' counts, the "/ablation-train"
+    # and "/tnorm-select" rows their ablation rows' counts
     symbols = {
         "nms_keep": (launches, "bags_nms_keep"),
         "roi_align_forward": (launches, "bags_roi_align_forward"),
@@ -2893,7 +3105,7 @@ def main() -> int:
         "fused_layer": (fused_launches, "bags_fused_layer"),
     }
     for r in rows:
-        if "launches" not in r:  # the ablation's rows carry their own counts
+        if "launches" not in r:  # the Mask R-CNN and ablation rows carry their own counts
             counts, sym = symbols[r["name"]]
             r["launches"] = counts[sym]
         del r["shape"]

@@ -1,9 +1,12 @@
-"""How far f32 rounding alone moves the HTC-DCN loss's gradient: the readings
-behind `tests/test_torch_htc_train.py` OFFSET_SCALE and `chip_smoke.py`
-GRAD_NORM_LIMIT. A script, not a test: it prints what it measures.
+"""How far f32 rounding alone moves the HTC-DCN and Mask R-CNN losses'
+gradients: the readings behind `tests/test_torch_htc_train.py` OFFSET_SCALE,
+`chip_smoke.py` GRAD_NORM_LIMIT and the mask-head tolerances of
+`tests/test_torch_mask_rcnn.py`. A script, not a test: it prints what it
+measures.
 
     python tests/f64_witness.py tiny    # about 5 min on 4 CPU threads
     python tests/f64_witness.py small   # about 2 min on 8 CPU threads
+    python tests/f64_witness.py mask    # about 3 min on 4 CPU threads
 
 `tiny`: the HTC of test_torch_htc_train.py (GS heads, D = 4) with its offset
 convs at a scale of 1.0, through JAX in f32 and in f64 (`jax.enable_x64`;
@@ -17,6 +20,17 @@ from its f64 run.
 `small`: `chip_smoke.py`'s small HTC-DCN step (depth 50 at the X101's
 widths, two 256 x 384 images) on the CPU, the port in f32 against the port
 in f64: each gradient's relative norm and largest elementwise difference.
+
+`mask`: the tiny GS Mask R-CNN of test_torch_mask_rcnn.py with its 0/1 gt
+crops. JAX's gradient is taken from two compiles of the same loss: "jax A",
+the whole `loss` in one jit, and "jax B", `_loss_core` in one jit and
+`_mask_branch` on its features and targets in another (as the test's branch
+check does); then JAX in f64, and the port in f32 and in f64. For each pair
+it prints the rois' largest difference, the resampled target pixels that
+differ with their sampled crop values in f64, and each mask-head gradient's
+largest difference over its largest value; then the ReLU inputs after the
+mask head's upsampling that the port's f32 run puts on the other side of 0
+from its f64 run.
 """
 
 import copy
@@ -107,7 +121,7 @@ def small() -> None:
 
     torch.set_num_threads(8)
     model = chip_smoke.htc_model(torch, torch.device("cpu"))
-    cfg, batch, weights = chip_smoke.small_htc_train_case(torch, model)
+    cfg, batch, weights = chip_smoke.small_mask_train_case(torch, model)
     keys = ("images", "gt_boxes", "gt_labels", "gt_mask", "img_shapes", "gt_mask_crops")
     grads = {}
     for dtype in (torch.float32, torch.float64):
@@ -128,5 +142,118 @@ def small() -> None:
               + f"; over the {len(dcn)} deformable tensors {max(d[n] for n in dcn):.3e}")
 
 
+def mask() -> None:
+    import scipy.optimize
+    import test_torch_mask_rcnn as T
+    from balancedgroupsoftmax_torch import config as tconfig
+    from balancedgroupsoftmax_torch.gs.partition import make_partition
+    from balancedgroupsoftmax_torch.models import detector as port_detector
+    from test_torch_cascade_train import total_loss
+    from test_torch_detector import COUNTS, to_port
+    from test_torch_deform_conv import _np
+    from test_torch_htc_train import mask_inputs
+    from tests.test_detector import make_batch, tiny_partition
+
+    torch.set_num_threads(4)
+    jcfg = T.deterministic_mask_config(True)
+    batch = make_batch()
+    crops, _ = mask_inputs(np.asarray(batch[3]))
+    inputs = [np.asarray(x) for x in (*batch, crops)]
+    build = lambda dtype: T.jax_build_model(jcfg, partition=tiny_partition(), dtype=dtype)
+    variables = _np(jax.jit(build(jnp.float32).init)(jax.random.PRNGKey(0), batch[0][:1]))
+    rngs = {"sampling": jax.random.PRNGKey(0)}
+    setup = dict(variables=variables)
+    as_port = lambda g: {k[len("mask_head."):]: t.double().numpy() for k, t in T.grads_as_port(setup, _np(g)).items()
+                         if k.startswith("mask_head.")}
+
+    def whole(m, *a):
+        losses, feats, t = m._loss_core(*a[:-1])
+        out = m._mask_branch(feats, t, a[1], a[-1], losses)
+        return losses, (t.rois, t.pos_gt_inds, out["m_targets"])
+
+    def jax_a(dtype):
+        model = build(dtype)
+        cast = lambda a: jnp.asarray(a, dtype) if np.issubdtype(np.asarray(a).dtype, np.floating) else jnp.asarray(a)
+        v = jax.tree_util.tree_map(cast, variables)
+        ins = [cast(x) for x in inputs]
+
+        def loss_fn(params):
+            losses, aux = model.apply({"params": params, "batch_stats": v["batch_stats"]}, *ins, method=whole,
+                                      rngs=rngs)
+            return total_loss(losses), aux
+
+        (_, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+        return as_port(grads), [np.asarray(x) for x in aux], None
+
+    def jax_b():
+        model = build(jnp.float32)
+        _, feats, t = jax.jit(lambda v: model.apply(v, *batch, method=lambda m, *a: m._loss_core(*a), rngs=rngs))(
+            variables)
+
+        def branch(m, f, tt, gb, c):
+            out = {}
+            return out, m._mask_branch(f, tt, gb, c, out)["m_targets"]
+
+        def loss_fn(params):
+            out, m_targets = model.apply({"params": params, "batch_stats": variables["batch_stats"]}, feats, t,
+                                         batch[1], jnp.asarray(crops), method=branch)
+            return out["loss_mask"], m_targets
+
+        (_, m_targets), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+        return as_port(grads), [np.asarray(x) for x in (t.rois, t.pos_gt_inds, m_targets)], None
+
+    def port(dtype):
+        model = port_detector.build_model(to_port(tconfig.DetectorConfig, jcfg), make_partition(COUNTS), dtype)
+        model.load_state_dict(T.to_torch_tree(variables))
+        model.to(dtype)
+        relu_inputs = []
+        model.mask_head.upsample.register_forward_hook(lambda mod, a, out: relu_inputs.append(out.detach().double()))
+        seen = []
+        targets = port_detector.mask_targets
+
+        def recorded(rois, *a, **k):
+            out = targets(rois, *a, **k)
+            seen.append((rois, a[1], out))
+            return out
+
+        port_detector.mask_targets = recorded
+        try:
+            ins = [torch.from_numpy(np.array(x)) for x in inputs]
+            ins = [x.to(dtype) if x.is_floating_point() else x for x in ins]
+            total_loss(model.loss(*ins, generator=torch.Generator().manual_seed(0))).backward()
+        finally:
+            port_detector.mask_targets = targets
+        rois, gt_inds, m_targets = seen[0]
+        grads = {n: p.grad.double().numpy() for n, p in model.mask_head.named_parameters()}
+        return grads, [t.detach().double().numpy() for t in (rois, gt_inds, m_targets)], relu_inputs[0]
+
+    runs = {"jax A": jax_a(jnp.float32), "jax B": jax_b()}
+    with jax.enable_x64(True):
+        runs["jax A f64"] = jax_a(jnp.float64)
+    runs["port f32"] = port(torch.float32)
+    runs["port f64"] = port(torch.float64)
+    print("tiny GS Mask R-CNN, 0/1 gt crops: each mask-head gradient's largest difference over its largest value")
+    for a, b in [("jax B", "jax A"), ("port f32", "jax A"), ("port f64", "jax A"), ("jax A f64", "jax A"),
+                 ("port f64", "jax A f64"), ("port f32", "port f64")]:
+        (ga, (ra, ia, ta), _), (gb, (rb, ib, tb), _) = runs[a], runs[b]
+        rel = {n: np.abs(ga[n] - gb[n]).max() / np.abs(gb[n]).max() for n in gb}
+        cap = ta.shape[1]
+        # the two samplers may order equal candidates differently: pair the
+        # rows of the same gt by their nearest rois
+        dist = np.abs(ra[:, :cap, None] - rb[:, None, :cap]).max(-1) + 1e9 * (ia[:, :cap, None] != ib[:, None, :cap])
+        pairs = [scipy.optimize.linear_sum_assignment(d) for d in dist]
+        ra, ia, ta = (np.stack([x[i][r[np.argsort(c)]] for i, (r, c) in enumerate(pairs)])
+                      for x in (ra[:, :cap], ia[:, :cap], ta))
+        diff = ta != tb
+        vals = T.sampled_crops(rb[:, :cap], inputs[1], ib[:, :cap], crops)[diff]
+        print(f"  {a} vs {b}: rois {np.abs(ra - rb).max():.3e}, {int(diff.sum())} target pixels differ"
+              + (f" (sampled values {[float(f'{v:.9f}') for v in vals]})" if diff.any() else ""))
+        print("    " + ", ".join(f"{n} {r:.3e}" for n, r in rel.items()))
+    lo, hi = runs["port f32"][2], runs["port f64"][2]
+    flip = (lo > 0) != (hi > 0)
+    print(f"  mask_head.upsample: {int(flip.sum())} ReLU inputs change side in the port's f32, f64 values "
+          f"{[float(f'{v:.3e}') for v in hi[flip].tolist()]} (largest |input| {hi.abs().max().item():.3e})")
+
+
 if __name__ == "__main__":
-    {"tiny": tiny, "small": small}[sys.argv[1]]()
+    {"tiny": tiny, "small": small, "mask": mask}[sys.argv[1]]()

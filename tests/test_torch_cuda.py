@@ -955,3 +955,118 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops_fb.fused_layer(x[:, 1:-1].contiguous().double(), [p])
     with pytest.raises(ValueError):  # channels the block does not keep without a downsample
         ops_fb.fused_layer(x[:, 1:-1, :, :32].contiguous(), [p])
+
+
+def tiny_mask_rcnn(take_all=False):
+    """A small f32 Mask R-CNN (full-width R50, 9 classes, 64-wide shared FCs,
+    two 32-channel mask convs, 10 detections an image at 128 x 128, GS
+    head) with seeded weights; with `take_all`, sampling made deterministic
+    (every anchor and RoI candidate sampled, the GS others' budget covering
+    them all)."""
+    import dataclasses
+
+    from balancedgroupsoftmax_torch import config as C
+    from balancedgroupsoftmax_torch.gs.partition import make_partition
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    cfg = C.DetectorConfig(
+        bbox_head=C.BBoxHeadConfig(num_classes=9, use_gs=True, fc_out_channels=64, gs=C.GSConfig(num_bins=5)),
+        rpn_proposal_train=C.ProposalConfig(nms_pre=128, nms_post=64, max_num=64),
+        rpn_proposal_test=C.ProposalConfig(nms_pre=128, nms_post=64, max_num=64),
+        rcnn_train=C.RCNNTrainConfig(sampler=C.SamplerConfig(num=32, pos_fraction=0.25)),
+        rcnn_test=C.RCNNTestConfig(max_per_img=10),
+        mask_head=C.MaskHeadConfig(num_classes=9, conv_out_channels=32, num_convs=2),
+    )
+    if take_all:
+        anchors = 3 * sum((128 // s) ** 2 for s in cfg.anchors.strides)
+        every = lambda sc, num: dataclasses.replace(sc, sampler=dataclasses.replace(sc.sampler, num=num, pos_fraction=1.0))
+        cfg = dataclasses.replace(
+            cfg, rpn_train=every(cfg.rpn_train, anchors), rcnn_train=every(cfg.rcnn_train, 64 + 8),
+            bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
+        )
+    partition = make_partition(np.array([0, 5, 50, 500, 5000, 7, 70, 700, 7000]))
+    return cfg, partition, build_model(cfg, partition).init_weights(0)
+
+
+def mask_rcnn_batch(seed=0):
+    """Two 128 x 128 images with three gt boxes each and their mask crops
+    (seeded ellipses)."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    labels = np.zeros((2, 8), np.int64)
+    valid = np.zeros((2, 8), bool)
+    for i in range(2):
+        for j in range(3):
+            x1, y1 = rng.uniform(0, 60, 2)
+            w, h = rng.uniform(20, 50, 2)
+            boxes[i, j] = [x1, y1, min(x1 + w, 127), min(y1 + h, 127)]
+            labels[i, j], valid[i, j] = rng.randint(1, 9), True
+    yy, xx = np.mgrid[:112, :112] / 112.0
+    crops = np.zeros((2, 8, 112, 112), np.float32)
+    for i, j in zip(*np.nonzero(valid)):
+        cy, cx = rng.uniform(0.3, 0.7, 2)
+        ry, rx = rng.uniform(0.2, 0.5, 2)
+        crops[i, j] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    return dict(
+        images=torch.from_numpy(rng.randn(2, 128, 128, 3).astype(np.float32)), gt_boxes=torch.from_numpy(boxes),
+        gt_labels=torch.from_numpy(labels), gt_mask=torch.from_numpy(valid),
+        img_shapes=torch.tensor([[128.0, 128.0]] * 2), gt_mask_crops=torch.from_numpy(crops),
+    )
+
+
+def test_mask_rcnn_predict_with_masks_on_the_card_equals_the_cpu(dev, exact_f32):
+    """Detections with the same label within 1e-2 px and scores within 1e-4
+    (convolutions sum in other orders), their masks within 1e-3."""
+    _, _, cpu_model = tiny_mask_rcnn()
+    cpu_model.eval()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    images = mask_rcnn_batch()["images"]
+    shapes, sf = torch.tensor([[128.0, 128.0]] * 2), torch.tensor([1.0, 0.5])
+    before = cuda.ROI_ALIGN.launches
+    g, gm = card_model.predict_with_masks(images.to(dev), shapes.to(dev), sf.to(dev))
+    assert cuda.ROI_ALIGN.launches == before + 2
+    g, gm = [t.cpu() for t in g], gm.cpu()
+    c, cm = cpu_model.predict_with_masks(images, shapes, sf)
+    assert gm.shape == cm.shape == (2, 10, 28, 28)
+    assert (g[1] - c[1]).abs().max().item() <= 1e-4
+    matched = 0
+    for b in range(2):
+        for i in torch.nonzero(g[3][b]).flatten().tolist():
+            same = c[3][b] & (c[2][b] == g[2][b, i]) & ((c[0][b] - g[0][b, i]).abs().amax(-1) <= 1e-2)
+            if bool(same.any()):
+                matched += 1
+                j = int(torch.nonzero(same)[0])
+                assert (gm[b, i] - cm[b, j]).abs().max().item() <= 1e-3
+    assert matched >= 0.95 * int(g[3].sum()) > 0
+
+
+def test_mask_rcnn_training_step_on_the_card_equals_the_cpu(dev, exact_f32, monkeypatch):
+    """One f32 selectp=0 step, sampling deterministic: the loss dicts within
+    1e-3 relative, every gradient within 1e-2 of its norm (chip_smoke.py's
+    GRAD_NORM_LIMIT), and K2b at S = 14, as the mask branch called it, equal
+    to its plain version (f32: 1e-5 of the largest value)."""
+    from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
+
+    _, _, cpu_model = tiny_mask_rcnn(take_all=True)
+    card_model = copy.deepcopy(cpu_model)
+    batch = mask_rcnn_batch()
+    calls = []
+    backward = ops_roi.roi_align_backward
+    monkeypatch.setattr(ops_roi, "roi_align_backward", lambda *a, **k: calls.append((a, k)) or backward(*a, **k))
+    out, grads = {}, {}
+    for name, model, device in (("card", card_model.to(dev), dev), ("cpu", cpu_model, torch.device("cpu"))):
+        step = make_train_step(create_train_state(model, TrainConfig(selectp=0)))
+        out[name] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
+        grads[name] = {n: p.grad.double().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    assert sorted(out["card"]) == sorted(out["cpu"]) and "loss_mask" in out["cpu"]
+    for k, v in out["cpu"].items():
+        assert abs(out["card"][k] - v) <= 1e-3 * max(abs(v), 1e-6), k
+    assert sorted(grads["card"]) == sorted(grads["cpu"])
+    for n, w in grads["cpu"].items():
+        assert (grads["card"][n] - w).norm() <= 1e-2 * w.norm().clamp(min=1e-30), n
+    (grad, rois, shapes, strides, size), kw = next((a[:5], k) for a, k in calls if a[0].is_cuda and a[4] == 14)
+    out = backward(grad, rois, shapes, strides, size, dtype=kw["dtype"], levels=kw["levels"])
+    ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, size, dtype=kw["dtype"])
+    for o, r in zip(out, ref):
+        assert (o - r).abs().max().item() <= 1e-5 * max(r.abs().max().item() for r in ref)

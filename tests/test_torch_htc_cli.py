@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from balancedgroupsoftmax_torch import apis
+from balancedgroupsoftmax_torch import apis, zoo
 from balancedgroupsoftmax_torch.data.lvis import LvisDataset
 from balancedgroupsoftmax_torch.ops.mask import GT_MASK_CROP, rasterize_gt_masks
 from balancedgroupsoftmax_torch.tools import gs_partition, train
@@ -34,7 +34,14 @@ def test_models_name_the_htc_configs():
         assert cfg.htc is not None and cfg.bbox_head.use_gs == use_gs and cfg.backbone.depth == 101
         assert any(cfg.backbone.dcn_stages) == dcn
     assert apis.MODELS["gs_htc_dcn_x101"][1] == "gs_htc_x101_64x4d_fpn_lvis"
-    assert "mask_rcnn_r50" not in apis.MODELS  # waits for Mask R-CNN (ROADMAP A4)
+    # Mask R-CNN's names (JAX tools/train.py:137-138)
+    for name, use_gs in {"mask_rcnn_r50": False, "gs_mask_rcnn_r50": True}.items():
+        build, train_key = apis.MODELS[name]
+        cfg = build(num_classes=9)
+        assert cfg.mask_head is not None and cfg.htc is None and cfg.cascade is None
+        assert cfg.bbox_head.use_gs == use_gs and cfg.backbone.depth == 50
+        assert train_key == ("gs_" if use_gs else "") + "mask_rcnn_r50_fpn_lvis"
+        assert cfg == zoo.mask_rcnn_r50_fpn_lvis(num_classes=9, use_gs=use_gs)
 
 
 @pytest.mark.slow  # about 100 s: the full-width X101 on one thread

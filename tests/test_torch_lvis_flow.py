@@ -183,9 +183,18 @@ def test_evaluator_equals_jax(lvis, seed, federated):
         assert mine[key] == pytest.approx(ref[key], abs=1e-12), key
 
 
-def test_evaluator_refuses_masks(lvis):
-    with pytest.raises(NotImplementedError, match="A4"):
-        LvisEvaluator(lvis["gt"], [], iou_type="segm")
+@pytest.mark.parametrize("seed", [0, 1])
+def test_evaluator_segm_equals_jax(lvis, seed):
+    """The segm path (it raised before mask results were ported): notched
+    box masks, JAX-encoded, with their boxes."""
+    dets = _synth_detections(lvis["gt"], seed, segm=True)
+    mine = LvisEvaluator(json.loads(json.dumps(lvis["gt"])), dets, iou_type="segm").run()
+    ref = JLvisEvaluator(json.loads(json.dumps(lvis["gt"])), dets, iou_type="segm").run()
+    assert list(mine) == list(ref) and ref["AP"] > 0.05
+    for key in ref:
+        assert mine[key] == pytest.approx(ref[key], abs=1e-12), key
+    with pytest.raises(ValueError, match="bbox or segm"):
+        LvisEvaluator(lvis["gt"], [], iou_type="keypoints")
 
 
 def _jax_tau_norm():

@@ -127,8 +127,8 @@ def port_tree(setup, params):
 def test_deterministic_config_takes_every_candidate(setup):
     model = setup["port_model"]()
     b = setup["batch"]
-    a = model.loss(b["images"], b["gt_boxes"], b["gt_labels"], b["gt_mask"], b["img_shapes"], torch.Generator().manual_seed(0))
-    c = model.loss(b["images"], b["gt_boxes"], b["gt_labels"], b["gt_mask"], b["img_shapes"], torch.Generator().manual_seed(1))
+    a = model.loss(b["images"], b["gt_boxes"], b["gt_labels"], b["gt_mask"], b["img_shapes"], generator=torch.Generator().manual_seed(0))
+    c = model.loss(b["images"], b["gt_boxes"], b["gt_labels"], b["gt_mask"], b["img_shapes"], generator=torch.Generator().manual_seed(1))
     for k in a:
         torch.testing.assert_close(a[k], c[k], rtol=1e-6, atol=0)
 
@@ -136,7 +136,7 @@ def test_deterministic_config_takes_every_candidate(setup):
 def test_loss_dict_and_every_gradient_match_jax(setup):
     model = setup["port_model"]()
     b = setup["batch"]
-    losses = model.loss(b["images"], b["gt_boxes"], b["gt_labels"], b["gt_mask"], b["img_shapes"], torch.Generator().manual_seed(0))
+    losses = model.loss(b["images"], b["gt_boxes"], b["gt_labels"], b["gt_mask"], b["img_shapes"], generator=torch.Generator().manual_seed(0))
     want = setup["losses"][0]
     assert sorted(losses) == sorted(want)
     for k, v in want.items():
@@ -241,8 +241,9 @@ def test_lr_schedule_matches_jax():
 
 
 def test_zoo_train_configs_match_jax():
-    # the JAX zoo returns the GS cascade's and GS HTC's recipes from their use_gs argument
+    # the JAX zoo returns the GS Mask R-CNN's, GS cascade's and GS HTC's recipes from their use_gs argument
     jax_configs = {
+        "gs_mask_rcnn_r50_fpn_lvis": lambda: jzoo.mask_rcnn_r50_fpn_lvis(use_gs=True),
         "gs_cascade_rcnn_r50_fpn_lvis": lambda: jzoo.cascade_rcnn_r50_fpn_lvis(use_gs=True),
         "gs_htc_x101_64x4d_fpn_lvis": lambda: jzoo.htc_x101_64x4d_fpn_lvis(use_gs=True),
     }
