@@ -1,6 +1,7 @@
-"""User API: build (and load) a detector, run single-image inference, and
-tau-normalise its classifier (JAX `apis.py` `init_detector` :79,
-`inference_detector` :116; JAX tools/test_lvis.py `tau_norm` :99-115).
+"""User API: build (and load) a detector, run single-image inference, draw
+its detections, and tau-normalise its classifier (JAX `apis.py`
+`init_detector` :79, `inference_detector` :116, `show_result` :121; JAX
+tools/test_lvis.py `tau_norm` :99-115).
 
 The detector runs on the card: with no `device`, `init_detector` takes
 "cuda" and raises where there is none. Tests pass device="cpu".
@@ -9,7 +10,7 @@ The detector runs on the card: with no `device`, `init_detector` takes
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +32,11 @@ MODELS = {
     "gs_cascade_rcnn_r50": (
         functools.partial(zoo.cascade_rcnn_r50_fpn_lvis, use_gs=True),
         "gs_cascade_rcnn_r50_fpn_lvis",
+    ),
+    "cascade_rcnn_x101": (zoo.cascade_rcnn_x101_64x4d_fpn_lvis, "cascade_rcnn_x101_64x4d_fpn_lvis"),
+    "gs_cascade_rcnn_x101": (
+        functools.partial(zoo.cascade_rcnn_x101_64x4d_fpn_lvis, use_gs=True),
+        "gs_cascade_rcnn_x101_64x4d_fpn_lvis",
     ),
     "htc_x101": (zoo.htc_x101_64x4d_fpn_lvis, "htc_x101_64x4d_fpn_lvis"),
     "gs_htc_x101": (functools.partial(zoo.htc_x101_64x4d_fpn_lvis, use_gs=True), "gs_htc_x101_64x4d_fpn_lvis"),
@@ -112,6 +118,33 @@ def init_detector(
 def inference_detector(detector: Detector, image: np.ndarray) -> List[dict]:
     """Single-image inference (apis/inference.py inference_detector parity)."""
     return detector(image)
+
+
+def show_result(
+    image: np.ndarray,
+    detections: List[dict],
+    class_names: Optional[Tuple[str, ...]] = None,
+    score_thr: float = 0.3,
+    out_file: Optional[str] = None,
+) -> np.ndarray:
+    """A copy of the (H, W, 3) RGB `image` with each detection of
+    `inference_detector` scoring at least `score_thr` drawn (base.py
+    show_result): its box in green, and its class name (or category id) and
+    score above it; written to `out_file` as BGR when given."""
+    import cv2
+
+    img = image.copy()
+    for det in detections:
+        if det["score"] < score_thr:
+            continue
+        x1, y1, x2, y2 = [int(round(v)) for v in det["bbox"]]
+        cv2.rectangle(img, (x1, y1), (x2, y2), (0, 255, 0), 2)
+        name = class_names[det["label"]] if class_names is not None else str(det["category_id"])
+        cv2.putText(img, f"{name} {det['score']:.2f}", (x1, max(y1 - 3, 10)), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
+                    (0, 255, 0), 1)
+    if out_file:
+        cv2.imwrite(out_file, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    return img
 
 
 @torch.no_grad()

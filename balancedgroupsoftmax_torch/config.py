@@ -56,6 +56,8 @@ class ProposalConfig:
     nms_post: int = 2000
     max_num: int = 2000
     nms_thr: float = 0.7
+    # proposals narrower or lower than this (+1 widths, after the clip) are dropped before NMS
+    min_bbox_size: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +72,7 @@ class RCNNTestConfig:
     score_thr: float = 0.0
     nms_iou_thr: float = 0.5
     max_per_img: int = 300
-    nms_type: str = "nms"  # "soft_nms" is not ported yet
+    nms_type: str = "nms"  # or "soft_nms"
     # candidate boxes entering per-class NMS per class
     nms_candidates_per_class: int = 300
 
@@ -95,6 +97,13 @@ class BBoxHeadConfig:
     reg_class_agnostic: bool = False
     use_gs: bool = False
     gs: GSConfig = GSConfig()
+    # the classification loss: "softmax" (CE), "focal" (transferred/*focalloss*
+    # configs: sigmoid focal loss over all logits against one-hot targets) or
+    # "reweight" (ReweightBBoxHead: CE weighted by the target class's weight,
+    # `FasterRCNN(class_weights=...)`; with the GS head, GS-reweight).
+    loss_cls_type: str = "softmax"
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
 
 
 @dataclasses.dataclass(frozen=True)

@@ -111,12 +111,17 @@ def preprocess_image_file(
     rng: Optional[np.random.RandomState] = None,
 ) -> Dict[str, np.ndarray]:
     """`preprocess_image` of the image file at `path`, decoded by cv2."""
+    return preprocess_image(read_rgb(path), gt_bboxes, gt_labels, cfg, train, rng)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """The image file at `path` as (H, W, 3) uint8 RGB, decoded by cv2."""
     import cv2
 
     img = cv2.imread(path)
     if img is None:
         raise ValueError(f"cannot decode image file: {path}")
-    return preprocess_image(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), gt_bboxes, gt_labels, cfg, train, rng)
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 def repeat_factors(labels_per_image: Sequence[np.ndarray], num_classes: int, t: float = 0.001) -> np.ndarray:

@@ -19,6 +19,7 @@ def gs_loss(
     others_sample_ratio: float = 8.0,
     generator: Optional[torch.Generator] = None,
     others_priority: Optional[torch.Tensor] = None,  # (num_bins, N)
+    class_weights: Optional[torch.Tensor] = None,  # (C,), GS-reweight
 ) -> Dict[str, torch.Tensor]:
     """Per-bin cross-entropy losses {"loss_cls_bin{i}": scalar}.
 
@@ -27,7 +28,9 @@ def gs_loss(
     (rois whose within-bin label is 0), the others with the highest
     priorities -- uniform draws from `generator` unless `others_priority`
     (row i for bin i) is given; all of them when the budget covers them. A
-    bin with no foreground in the batch has loss 0 (gs_bbox_head_with0.py:63-89)."""
+    bin with no foreground in the batch has loss 0 (gs_bbox_head_with0.py:63-89).
+    `class_weights` (GS-reweight, gs/head.py:93-94) scales each foreground
+    roi's weight, inside its own bin, by its class's weight."""
     logits = cls_logits.float()
     dev = logits.device
     label2binlabel = torch.as_tensor(partition.label2binlabel, dtype=torch.long, device=dev)
@@ -53,6 +56,8 @@ def gs_loss(
             sampled = others & (ranks < budget)
             weight = torch.where(budget >= others.sum(), fg | others, fg | sampled).float()
             weight = torch.where(fg_num > 0, weight, 0.0)
+            if class_weights is not None:
+                weight = torch.where(fg, weight * class_weights[labels], weight)
         avg = weight.sum().clamp(min=1.0)
         losses[f"loss_cls_bin{i}"] = softmax_cross_entropy(bins[i], bin_labels, weight=weight, avg_factor=avg)
     return losses

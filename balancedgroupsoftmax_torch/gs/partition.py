@@ -2,7 +2,8 @@
 
 A copy of JAX `gs/partition.py` (`GSPartition` :34, `make_partition` :58,
 `partition_from_lvis` :108, `save_partition` :126, `load_partition` :136,
-`synthetic_partition` :161); the files of both packages are the same `.npz`.
+`synthetic_partition` :161, `class_weights_from_counts` :146); the files of
+both packages are the same `.npz`.
 Layout (B bins, C classes incl. background label 0, L = C + B logits):
 - label2binlabel (B, C): global label -> within-bin label (0 = others/bg);
   row 0 is the {bg, fg} bin.
@@ -139,3 +140,16 @@ def synthetic_partition(
     counts[0] = 0
     rng.shuffle(counts[1:])
     return make_partition(counts, thresholds)
+
+
+def class_weights_from_counts(instance_counts: np.ndarray, clip: tuple = (0.1, 5.0)) -> np.ndarray:
+    """Per-class CE weights of the re-weight baselines (partition.py:146;
+    tools/lvis_analyse.py get_cate_weight :338-367): 1 / count, normalised
+    by the foreground classes' mean, background 1, clipped to [0.1, 5]; in
+    f64, returned as f32."""
+    counts = np.asarray(instance_counts, np.float64).copy()
+    counts[0] = 1.0
+    w = 1.0 / np.maximum(counts, 1.0)
+    w = w / w[1:].mean()
+    w[0] = 1.0
+    return np.clip(w, clip[0], clip[1]).astype(np.float32)

@@ -10,7 +10,9 @@ wrappers in ops/ from the tensors' device, with no other switch.
   (`nms_keep_tiled`) above
 - `batched_multiclass_nms`, class-specific hard NMS -> K3
   (ops/nms.py `nms_keep_gathered`); class-agnostic hard NMS -> K6
-  (ops/gather.py `gather_lanes`), then K5 (ops/nms.py `nms_keep_batched_coords`)
+  (ops/gather.py `gather_lanes`), then K5 (ops/nms.py `nms_keep_batched_coords`);
+  soft-NMS -> ops/nms.py `soft_nms`, plain PyTorch on every device, as JAX
+  runs that branch as XLA on every device (kernels.py:142)
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.gather import gather_lanes
-from .ops.nms import nms_keep_batched, nms_keep_batched_coords, nms_keep_gathered, nms_keep_tiled
+from .ops.nms import nms_keep_batched, nms_keep_batched_coords, nms_keep_gathered, nms_keep_tiled, soft_nms
 from .ops.roi_align import multilevel_roi_align as batched_multilevel_roi_align  # JAX kernels.py:26
 from .ops.topk import top_k
 
@@ -60,6 +62,7 @@ def batched_multiclass_nms(
     max_per_img: int,
     candidates_per_class: int = 300,
     nms_type: str = "nms",
+    soft_min_score: float = 1e-3,
 ):
     """Per-class greedy NMS and the global top `max_per_img` (kernels.py:92).
 
@@ -76,9 +79,15 @@ def batched_multiclass_nms(
     candidates from its own coordinate planes. For class-agnostic boxes,
     K6 gathers every class's candidates from its image's (N, 4) box rows as
     they lie, and K5 then suppresses within (kernels.py:170-184).
-    Soft-NMS is not ported and raises NotImplementedError."""
-    if nms_type != "nms":
-        raise NotImplementedError(f"nms_type={nms_type!r} is not ported yet")
+
+    With nms_type "soft_nms" (kernels.py:214-228) each class's candidates,
+    gathered from its own boxes (class-specific) or its image's rows
+    (class-agnostic), go through linear soft-NMS at `iou_thr` and
+    `soft_min_score`, `candidates_per_class` selections a class, and the
+    decayed scores feed the global top-k. The class cap stays exact: a
+    class's best candidate is taken first and never decays."""
+    if nms_type not in ("nms", "soft_nms"):
+        raise ValueError(f"nms_type={nms_type!r}")
     b, n, c = scores.shape
     num_fg = c - 1
     k = min(candidates_per_class, n)
@@ -99,7 +108,22 @@ def batched_multiclass_nms(
     cand_valid = torch.isfinite(top_scores)
     cand_idx = top_idx.reshape(b * num_fg, k).to(torch.int32)
     flat_valid = cand_valid.reshape(b * num_fg, k)
-    if boxes.shape[-1] == 4:
+    if nms_type == "soft_nms":
+        # plain PyTorch on the card too: JAX runs this branch as XLA
+        image = torch.arange(b, device=scores.device)[:, None, None]
+        if boxes.shape[-1] == 4:
+            cand_rows = boxes.float()[image, top_idx]  # (B, num_fg, K, 4)
+        else:
+            cand_rows = boxes.float().reshape(b, n, c, 4)[image, top_idx, (classes + 1)[..., None]]
+        sb, ss, sv = soft_nms(
+            cand_rows.reshape(b * num_fg, k, 4),
+            torch.where(cand_valid, top_scores, 0.0).reshape(b * num_fg, k),
+            flat_valid, iou_thr, "linear", min_score=soft_min_score, max_out=k,
+        )
+        cand = sb.reshape(b, num_fg, k, 4).transpose(2, 3)
+        top_scores = ss.reshape(b, num_fg, k)
+        keep = cand_valid = sv.reshape(b, num_fg, k)
+    elif boxes.shape[-1] == 4:
         # each image's decoded (N, 4) rows, shared by its classes and read
         # where they lie: K6 takes the (B, 4, N) transposed view with no copy
         # (`.float()` is a no-op for the decoders' f32 boxes)
@@ -112,8 +136,9 @@ def batched_multiclass_nms(
         keep, cand = nms_keep_gathered(
             planes.reshape(b * num_fg, 4, n).contiguous(), cand_idx, flat_valid, iou_thr
         )
-    keep = keep.reshape(b, num_fg, k)
-    cand = cand.reshape(b, num_fg, 4, k)
+    if nms_type == "nms":
+        keep = keep.reshape(b, num_fg, k)
+        cand = cand.reshape(b, num_fg, 4, k)
 
     cand_scores = torch.where(keep & cand_valid, top_scores, torch.full_like(top_scores, -torch.inf))
     out_scores, flat_idx = top_k(cand_scores.reshape(b, -1), max_per_img)

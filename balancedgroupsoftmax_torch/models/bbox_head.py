@@ -1,6 +1,6 @@
 """Shared-FC bbox head and its losses (JAX `models/bbox_head.py`
 `SharedFCBBoxHead` :26, its `return_feature` hook :31-66, `bbox_reg_loss`
-:69, `bbox_head_loss` :91): two shared FCs, then fc_cls and fc_reg. The GS
+:69, `bbox_head_loss` :91 with its `loss_cls_type` branch :100-137): two shared FCs, then fc_cls and fc_reg. The GS
 variant widens fc_cls to num_classes + num_bins logits. Regression is
 class-specific (4 deltas per class), or one set of 4 deltas with
 `reg_class_agnostic` (the cascade's stage heads).
@@ -10,12 +10,20 @@ as in the JAX head, so `shared_fc0` is the flax kernel transposed."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import BBoxHeadConfig
-from ..ops.losses import accuracy, smooth_l1, softmax_cross_entropy
+from ..ops.losses import (
+    accuracy,
+    sigmoid_focal_loss,
+    smooth_l1,
+    softmax_cross_entropy,
+    weighted_softmax_cross_entropy_per_class,
+)
 from .layers import Linear
 
 
@@ -71,11 +79,31 @@ def bbox_head_loss(
     bbox_targets: torch.Tensor,  # (N, 4)
     bbox_weights: torch.Tensor,  # (N, 4)
     beta: float = 1.0,
+    loss_cls_type: str = "softmax",
+    class_weights: Optional[torch.Tensor] = None,  # (C,) for "reweight"
+    focal_gamma: float = 2.0,
+    focal_alpha: float = 0.25,
 ):
-    """(loss_cls, loss_bbox, acc): softmax CE averaged over the weighted rois,
-    the regression loss above, and top-1 accuracy (bbox_head.py:98-131)."""
+    """(loss_cls, loss_bbox, acc): the classification loss of
+    `loss_cls_type` on f32 logits averaged over the weighted rois -- softmax
+    CE, the sigmoid focal loss against one-hot targets ("focal"), or CE
+    weighted by `class_weights` of each roi's label ("reweight") --, the
+    regression loss above, and top-1 accuracy (bbox_head.py:91-142)."""
     avg_cls = (label_weights > 0).sum().clamp(min=1).float()
-    loss_cls = softmax_cross_entropy(cls_logits.float(), labels, weight=label_weights, avg_factor=avg_cls)
+    logits32 = cls_logits.float()
+    if loss_cls_type == "focal":
+        onehot = F.one_hot(labels.long(), logits32.shape[-1]).float()
+        loss_cls = sigmoid_focal_loss(
+            logits32, onehot, weight=label_weights[:, None], gamma=focal_gamma, alpha=focal_alpha, avg_factor=avg_cls
+        )
+    elif loss_cls_type == "reweight":
+        if class_weights is None:
+            raise ValueError('loss_cls_type "reweight" needs class_weights')
+        loss_cls = weighted_softmax_cross_entropy_per_class(
+            logits32, labels, class_weights, weight=label_weights, avg_factor=avg_cls
+        )
+    else:
+        loss_cls = softmax_cross_entropy(logits32, labels, weight=label_weights, avg_factor=avg_cls)
     loss_bbox = bbox_reg_loss(bbox_deltas, labels, bbox_targets, bbox_weights, beta)
     acc = accuracy(cls_logits, labels, mask=(label_weights > 0).float())
     return loss_cls, loss_bbox, acc

@@ -1,6 +1,7 @@
 """Cascade R-CNN with class-agnostic stage heads, GS or softmax, inference
 and training losses (JAX `models/cascade.py`: `CascadeRCNN` :35, `loss`
-:121, `_run_stages` :237, `predict` :270, `build_cascade` :352).
+:121, `_run_stages` :237, `predict` :270, `propose` :309, `rescore` :323,
+`build_cascade` :352).
 
 It is Faster R-CNN's backbone, neck, RPN and RoIAlign with `num_stages`
 heads in place of the one. Each stage pools the current rois (K2), scores
@@ -67,17 +68,22 @@ class CascadeRCNN(FasterRCNN):
         return rois, scores, deltas
 
     def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True, pool=None) -> Detections:
-        c = self.cfg
         img_shapes = img_shapes.float()
         proposals = self._proposals(feats, images, img_shapes)
-        rois, scores, deltas = self._run_stages(feats, proposals.boxes, img_shapes, pool)
-        boxes = self._decode(rois, deltas, c.cascade.stage_target_stds[-1], img_shapes)
+        boxes, scores = self._score_rois(feats, proposals.boxes, img_shapes, pool)
         if rescale:
             boxes = boxes / scale_factors.float()[:, None, None]
         return self._multiclass_nms(boxes, scores, proposals.valid)
 
-    def rescore(self, images, rois, img_shapes):
-        raise NotImplementedError("the cascade's rescore (JAX cascade.py:323) is not ported yet (ROADMAP A5)")
+    def _score_rois(self, feats, rois, img_shapes, pool=None):
+        """The stage loop on rois (B, P, 4): (class-agnostic boxes (B, P, 4)
+        decoded from the last stage's rois with its deltas and stds, clipped
+        to `img_shapes`, the stage-averaged scores (B, P, C)). Through it
+        the inherited `rescore` scores a fixed proposal set on a view (JAX
+        `cascade.py:323-345`, cascade_rcnn.py aug_test), and the inherited
+        `propose` is JAX's `cascade.py:309`."""
+        rois, scores, deltas = self._run_stages(feats, rois, img_shapes, pool)
+        return self._decode(rois, deltas, self.cfg.cascade.stage_target_stds[-1], img_shapes), scores
 
     def _stage_targets(self, i, rois, roi_valid, gt_boxes, gt_labels, gt_mask, generator):
         """Stage i's sampled RoI targets: assigned at its IoU threshold,
@@ -147,10 +153,11 @@ class CascadeRCNN(FasterRCNN):
         return losses
 
 def build_cascade(
-    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32
+    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32,
+    class_weights=None,
 ) -> CascadeRCNN:
     if cfg.cascade is None:
         raise ValueError("a cascade needs cfg.cascade")
     if cfg.bbox_head.use_gs and partition is None:
         raise ValueError("GS heads require a GSPartition")
-    return CascadeRCNN(cfg, partition=partition, dtype=dtype)
+    return CascadeRCNN(cfg, partition=partition, dtype=dtype, class_weights=class_weights)

@@ -1,6 +1,7 @@
 """Faster R-CNN with the BAGS grouped-softmax head, and Mask R-CNN (the same
 with an FCN mask head), inference and training losses (JAX
-`models/detector.py`: `FasterRCNN` :45, `loss` :138, `_loss_core` :169,
+`models/detector.py`: `FasterRCNN` :45 (its `class_weights` :49), `loss`
+:138, `_loss_core` :169 (the loss types :250-287),
 `_mask_branch` :291, `predict` :355, `propose` :415, `rescore` :432,
 `predict_masks` :468, `predict_with_masks` :483, `_masks_feats` :513,
 `build_detector` :537, `build_model` :543).
@@ -56,11 +57,15 @@ class FasterRCNN(nn.Module):
         cfg: DetectorConfig,
         partition: Optional[GSPartition] = None,
         dtype: torch.dtype = torch.float32,
+        class_weights=None,  # (C,) per-class CE weights for loss_cls_type "reweight"
     ):
         super().__init__()
         self.cfg = cfg
         self.partition = partition
         self.dtype = dtype
+        # not a parameter and not saved: the weights enter the model, as in JAX
+        cw = None if class_weights is None else torch.as_tensor(class_weights, dtype=torch.float32)
+        self.register_buffer("class_weights", cw, persistent=False)
         bb = cfg.backbone
         self.backbone = ResNet(
             bb.depth, bb.groups, bb.base_width, bb.dcn_stages, bb.dcn_modulated,
@@ -187,8 +192,8 @@ class FasterRCNN(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """The training losses (two_stage.py forward_train parity): the RPN's,
-        then the GS head's per-bin losses (or softmax CE and accuracy) and the
-        box regression, and "loss_mask" where the model has a mask head and
+        then the GS head's per-bin losses (or the `loss_cls_type` loss and
+        accuracy) and the box regression, and "loss_mask" where the model has a mask head and
         `gt_mask_crops` are given. Sampling draws from `generator`."""
         c = self.cfg
         feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
@@ -200,11 +205,14 @@ class FasterRCNN(nn.Module):
         cls_logits, bbox_deltas = self._bbox_forward(feats, t.rois)
 
         flat = lambda x: x.reshape(-1, *x.shape[2:])
-        if c.bbox_head.use_gs:
+        h = c.bbox_head
+        if h.use_gs:
+            # GS-reweight takes the class weights only under "reweight" (detector.py:250-262)
             losses.update(
                 gs_loss(
                     flat(cls_logits), flat(t.labels), flat(t.roi_valid), self.partition,
-                    c.bbox_head.gs.others_sample_ratio, generator,
+                    h.gs.others_sample_ratio, generator,
+                    class_weights=self.class_weights if h.loss_cls_type == "reweight" else None,
                 )
             )
             losses["loss_bbox"] = bbox_reg_loss(
@@ -213,7 +221,8 @@ class FasterRCNN(nn.Module):
         else:
             losses["loss_cls"], losses["loss_bbox"], losses["acc"] = bbox_head_loss(
                 flat(cls_logits), flat(bbox_deltas), flat(t.labels), flat(t.label_weights),
-                flat(t.bbox_targets), flat(t.bbox_weights),
+                flat(t.bbox_targets), flat(t.bbox_weights), loss_cls_type=h.loss_cls_type,
+                class_weights=self.class_weights, focal_gamma=h.focal_gamma, focal_alpha=h.focal_alpha,
             )
         if self.mask_head is not None and gt_mask_crops is not None:
             losses["loss_mask"] = self._mask_loss(feats, t, gt_boxes, gt_mask_crops)
@@ -363,30 +372,33 @@ class FasterRCNN(nn.Module):
 
 
 def build_detector(
-    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32
+    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32,
+    class_weights=None,
 ) -> FasterRCNN:
     if cfg.bbox_head.use_gs and partition is None:
         raise ValueError("GS head requires a GSPartition")
-    return FasterRCNN(cfg, partition=partition, dtype=dtype)
+    return FasterRCNN(cfg, partition=partition, dtype=dtype, class_weights=class_weights)
 
 
 def build_model(
-    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32
+    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32,
+    class_weights=None,
 ) -> FasterRCNN:
     """The detector family `cfg` names (JAX `detector.py:543`): HTC when
     `cfg.htc` is set, else Cascade R-CNN when `cfg.cascade` is, else Faster
     R-CNN, which is Mask R-CNN when `cfg.mask_head` is set. All have
     `predict` and `loss` (HTC's and Mask R-CNN's also take the gt mask
-    crops, and have `predict_with_masks`). The detector variants are not
-    ported."""
+    crops, and have `predict_with_masks`). `class_weights` feed the
+    "reweight" loss of Faster and Mask R-CNN; the cascade and HTC, as in
+    JAX, ignore `loss_cls_type`. The detector variants are not ported."""
     if getattr(cfg, "variant", None) is not None:
         raise NotImplementedError("variant detectors are not ported yet")
     if cfg.htc is not None:
         from .htc import build_htc
 
-        return build_htc(cfg, partition=partition, dtype=dtype)
+        return build_htc(cfg, partition=partition, dtype=dtype, class_weights=class_weights)
     if cfg.cascade is not None:
         from .cascade import build_cascade
 
-        return build_cascade(cfg, partition=partition, dtype=dtype)
-    return build_detector(cfg, partition=partition, dtype=dtype)
+        return build_cascade(cfg, partition=partition, dtype=dtype, class_weights=class_weights)
+    return build_detector(cfg, partition=partition, dtype=dtype, class_weights=class_weights)

@@ -2,7 +2,8 @@
 mask heads with information flow (JAX `models/htc.py`: `HTC` :43, `setup`
 :48, `_pool_semantic` :136, `_run_stages` :169, `predict` :405,
 `_predict_feats` :417, `predict_with_masks` :461, `_masks_feats` :488,
-`build_htc` :522, `loss` :240).
+`build_htc` :522, `loss` :240, `propose` :200 and `rescore` :214, both
+inherited).
 
 It is the port's `CascadeRCNN` (backbone, FPN, RPN with K1, three
 class-agnostic stages over K2, the multiclass NMS with K6 then K5) plus:
@@ -152,6 +153,13 @@ class HTC(CascadeRCNN):
             feats, images, img_shapes, scale_factors, rescale, self._fused_pool(sem_feat, "bbox")
         )
 
+    def _score_rois(self, feats, rois, img_shapes, pool=None):
+        """The cascade's stage loop with the semantic feature fused into the
+        bbox RoI features, computed here when no `pool` is given: the
+        inherited `rescore` (JAX `htc.py:214-237`)."""
+        pool = pool or self._fused_pool(self._semantic(feats), "bbox")
+        return super()._score_rois(feats, rois, img_shapes, pool)
+
     @torch.inference_mode()
     def predict_with_masks(
         self,
@@ -189,10 +197,11 @@ class HTC(CascadeRCNN):
 
 
 def build_htc(
-    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32
+    cfg: DetectorConfig, partition: Optional[GSPartition] = None, dtype: torch.dtype = torch.float32,
+    class_weights=None,
 ) -> HTC:
     if cfg.htc is None or cfg.cascade is None or cfg.mask_head is None:
         raise ValueError("HTC needs cfg.htc, cfg.cascade and cfg.mask_head")
     if cfg.bbox_head.use_gs and partition is None:
         raise ValueError("GS heads require a GSPartition")
-    return HTC(cfg, partition=partition, dtype=dtype)
+    return HTC(cfg, partition=partition, dtype=dtype, class_weights=class_weights)

@@ -54,8 +54,9 @@ def rpn_proposals_batched(
     img_shapes: torch.Tensor,  # (B, 2) content (h, w)
     cfg: ProposalConfig,
 ) -> Proposals:
-    """Per-level top `nms_pre`, decode, clip to the image, greedy NMS and top
-    `nms_post`; then the global top `max_num` over the levels.
+    """Per-level top `nms_pre`, decode, clip to the image, drop boxes under
+    `min_bbox_size` (rpn.py:112-115), greedy NMS and top `nms_post`; then the
+    global top `max_num` over the levels.
 
     All levels go through one NMS launch: level rows are padded with invalid
     slots to the longest (P6 has fewer than `nms_pre` anchors at 800 x 1344),
@@ -81,6 +82,10 @@ def rpn_proposals_batched(
             dim=-1,
         )
         valid = torch.ones(b, k, dtype=torch.bool, device=boxes.device)
+        if cfg.min_bbox_size > 0:
+            w = boxes[..., 2] - boxes[..., 0] + 1
+            h = boxes[..., 3] - boxes[..., 1] + 1
+            valid &= (w >= cfg.min_bbox_size) & (h >= cfg.min_bbox_size)
         rows.append((boxes, top_scores, valid))
 
     kmax = max(r[1].shape[1] for r in rows)

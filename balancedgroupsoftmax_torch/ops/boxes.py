@@ -105,3 +105,35 @@ def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor) -> torch.Tensor:
     overlap = wh[..., 0] * wh[..., 1]
     denom = box_area(bboxes1)[..., :, None] + box_area(bboxes2)[..., None, :] - overlap
     return overlap / denom.clamp(min=1e-6)
+
+
+def _per_image(x, like: torch.Tensor):
+    """A number, or a (B,) tensor of per-image values shaped to broadcast
+    against `like`'s (B, ..., 4K) boxes."""
+    if isinstance(x, torch.Tensor) and x.dim():
+        return x.to(like.dtype).reshape(-1, *([1] * (like.dim() - 1)))
+    return x
+
+
+def bbox_flip(bboxes: torch.Tensor, img_shape) -> torch.Tensor:
+    """Horizontal flip under the -1 convention (ops/boxes.py:157): (..., 4K)
+    xyxy boxes in an image of `img_shape` (h, w), or in each image of a
+    (B, 2) tensor of shapes for (B, ..., 4K) boxes."""
+    w = _per_image(img_shape[..., 1] if isinstance(img_shape, torch.Tensor) else img_shape[1], bboxes)
+    x1, x2 = bboxes[..., 0::4], bboxes[..., 2::4]
+    flipped = torch.stack([w - x2 - 1, bboxes[..., 1::4], w - x1 - 1, bboxes[..., 3::4]], dim=-1)
+    return flipped.reshape(bboxes.shape)
+
+
+def bbox_mapping(bboxes: torch.Tensor, img_shape, scale_factor, flip: bool) -> torch.Tensor:
+    """Boxes at the original scale -> a test view's (ops/boxes.py:175):
+    scaled, then flipped in the view."""
+    new = bboxes * _per_image(scale_factor, bboxes)
+    return bbox_flip(new, img_shape) if flip else new
+
+
+def bbox_mapping_back(bboxes: torch.Tensor, img_shape, scale_factor, flip: bool) -> torch.Tensor:
+    """A test view's boxes -> the original scale (ops/boxes.py:183): flipped
+    back in the view, then divided by the scale factor."""
+    new = bbox_flip(bboxes, img_shape) if flip else bboxes
+    return new / _per_image(scale_factor, new)

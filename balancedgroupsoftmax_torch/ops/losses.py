@@ -40,6 +40,24 @@ def smooth_l1(pred, target, beta: float = 1.0, weight=None, avg_factor=None) -> 
     return weight_reduce(loss, weight, avg_factor)
 
 
+def sigmoid_focal_loss(logits, targets, weight=None, gamma: float = 2.0, alpha: float = 0.25, avg_factor=None):
+    """Focal loss in the stable form of losses.py:48 (mmdet focal_loss.py:10-21):
+    `targets` one-hot floats of the logits' shape."""
+    p = torch.sigmoid(logits)
+    pt = torch.where(targets > 0, 1 - p, p)
+    focal_weight = (alpha * targets + (1 - alpha) * (1 - targets)) * pt**gamma
+    bce = logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return weight_reduce(bce * focal_weight, weight, avg_factor)
+
+
+def weighted_softmax_cross_entropy_per_class(logits, labels, class_weights, weight=None, avg_factor=None):
+    """CE with each sample's weight times its target class's weight
+    (losses.py:65; ReweightBBoxHead, reweight_bbox_head.py:27-55)."""
+    cw = class_weights[labels.long()]
+    w = cw if weight is None else weight * cw
+    return softmax_cross_entropy(logits, labels, weight=w, avg_factor=avg_factor)
+
+
 def accuracy(logits, labels, mask=None) -> torch.Tensor:
     """Top-1 accuracy over the entries where `mask` is set (losses.py:177)."""
     correct = (logits.argmax(dim=-1) == labels).float()

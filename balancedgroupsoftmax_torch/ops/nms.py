@@ -7,6 +7,11 @@
 `nms_keep_batched_coords` (:316). Each launches its CUDA kernel of `csrc/nms.cu` on a
 CUDA tensor and runs the plain PyTorch version below on a CPU tensor.
 
+On top of K1, `nms_keep` and `nms` are JAX `ops/nms.py` `nms_keep` (:33) on
+unsorted rows and `nms` (:77), the merges of test-time augmentation;
+`soft_nms` (:103) is plain PyTorch on every device, as JAX runs it as XLA
+(there is no TPU kernel to port).
+
 Semantics (JAX `ops/nms.py` `nms_keep` :33 on presorted
 rows): box i suppresses box j when i < j, both are valid and
 iou(i, j) > thr under the +1 convention; a box is kept when it is valid and no
@@ -16,9 +21,11 @@ kept box suppresses it. Invalid slots neither keep nor suppress.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .. import cuda
 from .boxes import bbox_overlaps
+from .topk import top_k
 
 
 def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
@@ -122,3 +129,80 @@ def nms_keep_gathered(
         )
     return keep, cand
 
+
+
+def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """Greedy keep mask of unsorted rows (ops/nms.py `nms_keep` :33): boxes
+    (G, N, 4) f32, scores and valid (G, N) -> (G, N) bool in input order.
+    Each row is sorted by descending score, ties by index (the stable
+    `argsort(-s)` of :51, invalid slots last), K1 takes the sorted rows
+    (N <= 46272), and the mask is scattered back."""
+    s = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
+    order = torch.argsort(-s, dim=-1, stable=True)
+    sorted_boxes = torch.gather(boxes.float(), 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    keep_sorted = nms_keep_batched(sorted_boxes, torch.gather(valid, 1, order), iou_thr)
+    return torch.zeros_like(keep_sorted).scatter_(1, order, keep_sorted)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thr: float, max_out: int):
+    """The top `max_out` kept boxes of each row by score (ops/nms.py `nms`
+    :77): boxes (G, N, 4), scores and valid (G, N) -> (boxes (G, max_out, 4),
+    scores (G, max_out), valid (G, max_out)), slots past the kept boxes
+    invalid with score 0."""
+    keep = nms_keep(boxes, scores, valid, iou_thr)
+    kept = torch.where(keep, scores, torch.full_like(scores, -torch.inf))
+    n = scores.shape[-1]
+    k = min(max_out, n)
+    top, idx = top_k(kept, k)
+    if k < max_out:
+        top = F.pad(top, (0, max_out - k), value=-torch.inf)
+        idx = F.pad(idx, (0, max_out - k))
+    out_valid = torch.isfinite(top)
+    out_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    return out_boxes, torch.where(out_valid, top, torch.zeros_like(top)), out_valid
+
+
+def soft_nms(
+    boxes: torch.Tensor,  # (G, N, 4)
+    scores: torch.Tensor,  # (G, N)
+    valid: torch.Tensor,  # (G, N) bool
+    iou_thr: float = 0.3,
+    method: str = "linear",  # "linear", "gaussian" or "naive" (hard NMS)
+    sigma: float = 0.5,
+    min_score: float = 1e-3,
+    max_out: int = 300,
+):
+    """Soft-NMS of each row (ops/nms.py `soft_nms` :103, soft_nms_cpu.pyx):
+    `max_out` times, take the live box of the highest score (the first of
+    equal ones), while that score is above `min_score`, and decay the live
+    scores by its IoU with them: 1 - IoU above `iou_thr` ("linear"),
+    exp(-IoU^2 / sigma) ("gaussian"), or 0 above `iou_thr` ("naive").
+    Returns (boxes (G, max_out, 4), scores (G, max_out), valid (G, max_out))
+    in selection order; the slots after the last taken one hold the row's
+    first box with score 0, invalid. Plain PyTorch: a few dozen small
+    kernels an iteration on the card."""
+    g = boxes.shape[0]
+    boxes = boxes.float()
+    live = torch.where(valid, scores.float(), torch.full_like(scores, -torch.inf, dtype=torch.float32))
+    out_idx = torch.zeros(g, max_out, dtype=torch.long, device=boxes.device)
+    out_score = torch.zeros(g, max_out, device=boxes.device)
+    out_n = torch.zeros(g, 1, dtype=torch.long, device=boxes.device)
+    zero = torch.zeros((), device=boxes.device)
+    for _ in range(max_out):
+        i = live.argmax(dim=-1, keepdim=True)  # (G, 1): the first maximum
+        s_i = torch.gather(live, 1, i)
+        take = s_i > min_score
+        iou = bbox_overlaps(torch.gather(boxes, 1, i[..., None].expand(-1, 1, 4)), boxes)[:, 0]  # (G, N)
+        if method == "linear":
+            decay = torch.where(iou > iou_thr, 1.0 - iou, 1.0)
+        elif method == "gaussian":
+            decay = torch.exp(-(iou * iou) / sigma)
+        else:
+            decay = torch.where(iou > iou_thr, 0.0, 1.0)
+        new_live = torch.where(live > -torch.inf, live * decay, live).scatter_(1, i, -torch.inf)
+        out_idx.scatter_(1, out_n, torch.where(take, i, 0))
+        out_score.scatter_(1, out_n, torch.where(take, s_i, zero))
+        out_n += take
+        live = torch.where(take, new_live, live)
+    out_valid = torch.arange(max_out, device=boxes.device) < out_n
+    return torch.gather(boxes, 1, out_idx[..., None].expand(-1, -1, 4)), out_score, out_valid

@@ -22,30 +22,46 @@ records, masks (paste and encode) and evaluation, then the evaluator's bbox
 table and, for a mask model, its segm table. It runs on the card unless
 `--device cpu` is given.
 
-Not ported here: test-time augmentation (`--flip-aug`, `--aug-scales`,
-`--aug-rescore`, ROADMAP A5) and `--distributed` (A6).
+Test-time augmentation (JAX :290-588; `predict_aug`): `--flip-aug` adds
+each view flipped (its content, not the padded canvas), `--aug-scales M
+...` adds views resized to `round(scale x M)`. By default each view is a
+whole `predict`, flipped views' boxes are flipped back, and each image's
+detections of all views are merged by one class-aware NMS at 0.5 (the boxes
+offset by label x 1e5), the top 300 kept. `--aug-rescore` is the
+reference's aug test: every view's RPN proposals mapped back to the
+original frame and merged by NMS at the test RPN's `nms_thr` / `max_num`,
+the merged set rescored on every view (for the cascade and HTC through
+their stage loops), the mapped-back boxes and scores averaged, and one
+multiclass NMS. A mask model runs `predict_masks` on the merged boxes. Raw
+pixels are kept only when a view needs them; `--tau-select` refuses the
+three flags.
+
+Not ported here: `--distributed` (ROADMAP A6).
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import functools
 import json
 import time
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..apis import MODELS, resolve_device, tau_norm
 from ..data.lvis import LvisDataset
-from ..data.pipeline import PipelineConfig, preprocess_image_file
+from ..data.pipeline import PipelineConfig, preprocess_image, read_rgb
+from ..eval.aug import flip_image_content, merge_aug_bboxes, merge_aug_detections, merge_aug_proposals, unflip_boxes
 from ..eval.lvis_eval import LvisEvaluator
 from ..eval.results import add_segmentations, detections_to_records, write_results_json
 from ..gs.partition import load_partition
 from ..models.detector import Detections, FasterRCNN, build_model
 from ..models.dual_head import tail_class_mask_from_counts, update_scores_with_reweight
+from ..ops.boxes import bbox_mapping
 from ..utils.checkpoint import restore_checkpoint
 
 
@@ -70,30 +86,69 @@ def parse_args(argv=None):
     p.add_argument("--limit", type=int, default=None, help="only the first N images")
     p.add_argument("--no-eval", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--aug-rescore", action="store_true",
+                   help="the reference's aug test: merge every view's RPN proposals, rescore the merged set on every "
+                        "view, average the mapped-back boxes and scores, one multiclass NMS (views from --flip-aug "
+                        "and --aug-scales)")
+    p.add_argument("--flip-aug", action="store_true",
+                   help="horizontal-flip test-time augmentation: each view also flipped")
+    p.add_argument("--aug-scales", type=float, nargs="+", default=None,
+                   help="extra scale multipliers of test-time augmentation (e.g. 0.75 1.25): a view at "
+                        "round(scale x multiplier) each")
     return p.parse_args(argv)
 
 
+@dataclasses.dataclass(frozen=True)
+class Aug:
+    """The test-time augmentation the flags ask for."""
+
+    flip: bool = False
+    scales: Tuple[float, ...] = ()
+    rescore: bool = False
+
+    def __bool__(self) -> bool:
+        return self.flip or bool(self.scales) or self.rescore
+
+
+class View(NamedTuple):
+    """One test view of a batch, on the model's device."""
+
+    images: torch.Tensor  # (B, H, W, 3)
+    shapes: torch.Tensor  # (B, 2) content (h, w) at the view's scale
+    sfs: torch.Tensor  # (B,) view / original scale
+    flip: bool
+
+
+def stack_batch(samples: List[dict]) -> Dict[str, np.ndarray]:
+    return {k: np.stack([s[k] for s in samples]) for k in ("image", "img_shape", "scale_factor")}
+
+
 def bucket_batches(
-    ds: LvisDataset, pcfg: PipelineConfig, batch_size: int, n: int, times: Dict[str, float]
+    ds: LvisDataset, pcfg: PipelineConfig, batch_size: int, n: int, times: Dict[str, float], keep_raw: bool = False
 ) -> Iterator[Tuple[List[int], Dict[str, np.ndarray]]]:
     """The first `n` images, preprocessed in order and grouped by bucket:
     yields (indices, batch) as each bucket fills a batch, then each bucket's
     rest, filled up by repeating its last sample (`indices` names only the
-    real ones). Adds the preprocessing time to times["preprocess"]."""
+    real ones). With `keep_raw`, batch["raw"] lists the decoded RGB images
+    too, the views of test-time augmentation start from them. Adds the
+    preprocessing time to times["preprocess"]."""
     pending: Dict[tuple, list] = {b: [] for b in sorted(set(pcfg.buckets()))}
 
     def flush(bucket):
-        buf = pending[bucket]
-        samples = [s for _, s in buf] + [buf[-1][1]] * (batch_size - len(buf))
-        pending[bucket] = []
-        batch = {k: np.stack([s[k] for s in samples]) for k in ("image", "img_shape", "scale_factor")}
-        return [i for i, _ in buf], batch
+        buf, pending[bucket] = pending[bucket], []
+        idxs = [i for i, _, _ in buf]
+        buf = buf + [buf[-1]] * (batch_size - len(buf))
+        batch = stack_batch([s for _, s, _ in buf])
+        if keep_raw:
+            batch["raw"] = [r for _, _, r in buf]
+        return idxs, batch
 
     for idx in range(n):
         t0 = time.perf_counter()
-        s = preprocess_image_file(ds.image_path(idx), cfg=pcfg)
+        raw = read_rgb(ds.image_path(idx))
+        s = preprocess_image(raw, cfg=pcfg)
         times["preprocess"] += time.perf_counter() - t0
-        pending[s["bucket"]].append((idx, s))
+        pending[s["bucket"]].append((idx, s, raw if keep_raw else None))
         if len(pending[s["bucket"]]) == batch_size:
             yield flush(s["bucket"])
     for bucket in list(pending):
@@ -121,30 +176,98 @@ def predict_tau_select(
     return model._multiclass_nms(boxes / scale_factors.float()[:, None, None], scores, proposals.valid)
 
 
+def make_views(batch: Dict, pcfg: PipelineConfig, aug: Aug, device) -> List[View]:
+    """The batch's test views in JAX's order (:319-350, :497-547): the base
+    view, then each of `aug.scales` -- the raw images resized to
+    round(scale x multiplier), Python's rounding, halves to even, into the
+    bucket that scale derives --, each followed by itself flipped when
+    `aug.flip`."""
+    base = {k: batch[k] for k in ("image", "img_shape", "scale_factor")}
+    batches = [base]
+    for mult in aug.scales:
+        cfg = dataclasses.replace(pcfg, scale=(round(pcfg.scale[0] * mult), round(pcfg.scale[1] * mult)))
+        batches.append(stack_batch([preprocess_image(r, cfg=cfg) for r in batch["raw"]]))
+    views = []
+    for b in batches:
+        images, shapes, sfs = (torch.from_numpy(b[k]).to(device) for k in ("image", "img_shape", "scale_factor"))
+        views.append(View(images, shapes, sfs, False))
+        if aug.flip:
+            views.append(View(flip_image_content(images, b["img_shape"]), shapes, sfs, True))
+    return views
+
+
+@torch.inference_mode()
+def predict_aug_rescore(model: FasterRCNN, views: List[View]) -> Detections:
+    """`--aug-rescore` (JAX :311-442): each view's proposals (K1 a view)
+    mapped back and merged by NMS at the test RPN's `nms_thr`, top `max_num`
+    (K1 once more); the merged set rescored on every view (K2 a view; three
+    for the cascade and HTC) and the mapped-back boxes and scores averaged;
+    one multiclass NMS (K3, or K6 then K5) at the original scale."""
+    t = model.cfg.rpn_proposal_test
+    props = [model.propose(v.images, v.shapes) for v in views]
+    geometry = ([v.shapes for v in views], [v.sfs for v in views], [v.flip for v in views])
+    rois, _, rois_valid = merge_aug_proposals(
+        [p.boxes for p in props], [p.scores for p in props], [p.valid for p in props], *geometry, t.nms_thr, t.max_num
+    )
+    scored = [model.rescore(v.images, bbox_mapping(rois, v.shapes, v.sfs, v.flip), v.shapes) for v in views]
+    boxes, scores = merge_aug_bboxes([b for b, _ in scored], [sc for _, sc in scored], *geometry)
+    return model._multiclass_nms(boxes, scores, rois_valid)
+
+
+@torch.inference_mode()
+def predict_aug_detections(model: FasterRCNN, views: List[View]) -> Detections:
+    """The detection-level views (JAX :497-575): a `predict` a view (K1, K2
+    and K3, or the cascade's kernels), flipped views' boxes flipped back,
+    then each image's detections of all views merged class by class
+    (`eval/aug.py merge_aug_detections`: one K1 launch over the batch's
+    label-offset rows). Detections of the base view's size M, by score."""
+    dets = [model.predict(v.images, v.shapes, v.sfs) for v in views]
+    host = [[t.cpu().numpy() for t in d] for d in dets]
+    for v, h in zip(views, host):
+        if v.flip:
+            sh, sf = v.shapes.cpu().numpy(), v.sfs.cpu().numpy()
+            h[0] = np.stack([unflip_boxes(h[0][bi], float(sh[bi][1]), float(sf[bi])) for bi in range(len(sh))])
+    boxes, scores, labels, valid = (np.concatenate([h[j] for h in host], axis=1) for j in range(4))
+    device = next(model.parameters()).device
+    kept = merge_aug_detections(boxes, scores, labels, valid, device)
+    out = [np.zeros_like(t) for t in host[0]]
+    for bi, k in enumerate(kept):
+        for o, src in zip(out, (boxes, scores, labels, valid)):
+            o[bi, : len(k)] = src[bi, k]
+    return Detections(*(torch.from_numpy(o).to(device) for o in out))
+
+
+def predict_aug(model: FasterRCNN, batch: Dict, pcfg: PipelineConfig, aug: Aug) -> Detections:
+    """One batch under test-time augmentation (JAX :290-588)."""
+    views = make_views(batch, pcfg, aug, next(model.parameters()).device)
+    return (predict_aug_rescore if aug.rescore else predict_aug_detections)(model, views)
+
+
 def infer_dataset(
     model, ds: LvisDataset, pcfg: PipelineConfig, batch_size: int, limit: Optional[int] = None,
     predict: Optional[Callable[..., Detections]] = None,
+    aug: Aug = Aug(),
 ) -> Tuple[List[dict], Dict[str, float]]:
     """`predict` (`model.predict` by default) over the dataset's first
     `limit` images (all by default) on the model's device -> (result
-    records, seconds spent in "preprocess", "predict" and "records"). A
-    model with a mask head serves with `predict_with_masks` (or runs
-    `predict_masks` on what `predict` found), its records carry their
-    "segmentation", and the seconds pasting and encoding them are under
-    "masks"."""
+    records, seconds spent in "preprocess", "predict" and "records"); with
+    `aug`, `predict_aug`. A model with a mask head serves with
+    `predict_with_masks` (or runs `predict_masks` on what `predict` or the
+    augmentation found), its records carry their "segmentation", and the
+    seconds pasting and encoding them are under "masks"."""
     device = next(model.parameters()).device
     with_masks = model.cfg.mask_head is not None
     n = min(len(ds), limit or len(ds))
     times = dict(preprocess=0.0, predict=0.0, records=0.0, **(dict(masks=0.0) if with_masks else {}))
     records: List[dict] = []
-    for idxs, batch in bucket_batches(ds, pcfg, batch_size, n, times):
+    for idxs, batch in bucket_batches(ds, pcfg, batch_size, n, times, keep_raw=bool(aug)):
         t0 = time.perf_counter()
         images, shapes, sfs = (torch.from_numpy(batch[k]).to(device) for k in ("image", "img_shape", "scale_factor"))
         masks = None
-        if with_masks and predict is None:
+        if with_masks and predict is None and not aug:
             dets, masks = model.predict_with_masks(images, shapes, sfs)
         else:
-            dets = (predict or model.predict)(images, shapes, sfs)
+            dets = predict_aug(model, batch, pcfg, aug) if aug else (predict or model.predict)(images, shapes, sfs)
             if with_masks:
                 masks = model.predict_masks(images, dets.boxes, dets.labels, sfs)
         boxes, scores, labels, valid = (t.cpu().numpy() for t in dets)
@@ -198,7 +321,10 @@ def main(argv=None) -> dict:
         tau_norm(model.bbox_head.fc_cls, args.tau)
     model.to(device).eval()
     predict = None
+    aug = Aug(args.flip_aug, tuple(args.aug_scales or ()), args.aug_rescore)
     if args.tau_select is not None:
+        if aug:
+            raise SystemExit("--tau-select is a single-view path: it takes no --aug-rescore, --flip-aug or --aug-scales")
         if not hasattr(model, "bbox_head"):
             raise SystemExit(f"--tau-select needs a Faster R-CNN model, not {args.model}")
         # tau_norm works in place: the copy alone is normalised
@@ -212,7 +338,7 @@ def main(argv=None) -> dict:
 
     n = min(len(ds), args.limit or len(ds))
     t0 = time.perf_counter()
-    records, times = infer_dataset(model, ds, pcfg, args.batch_size, n, predict)
+    records, times = infer_dataset(model, ds, pcfg, args.batch_size, n, predict, aug)
     wall = time.perf_counter() - t0
     masks = f", masks {times['masks']:.3f} s" if "masks" in times else ""
     print(f"inference done: {n} images in {wall:.3f} s ({n / wall:.3f} img/s): preprocess "

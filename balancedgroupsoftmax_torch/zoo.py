@@ -1,7 +1,7 @@
 """The detector configurations of the ported slices (JAX `zoo.py` :27, :38,
-:65, :83, :109 and :127): each constructor returns its `DetectorConfig`, and
-`TRAIN_CONFIGS` holds the `TrainConfig` that the JAX constructor returns
-beside it."""
+:65, :83, :92, :109, :127 and :162-190): each constructor returns its
+`DetectorConfig`, and `TRAIN_CONFIGS` holds the `TrainConfig` that the JAX
+constructor returns beside it."""
 
 from __future__ import annotations
 
@@ -49,6 +49,16 @@ def cascade_rcnn_r50_fpn_lvis(num_classes: int = 1231, use_gs: bool = False) -> 
     )
 
 
+def cascade_rcnn_x101_64x4d_fpn_lvis(num_classes: int = 1231, use_gs: bool = False) -> DetectorConfig:
+    """configs/bags/gs_cascade_rcnn_x101_64x4d_fpn_1x_lvis.py (`use_gs`) and
+    its softmax baseline: the cascade on the ResNeXt-101 64x4d backbone."""
+    return DetectorConfig(
+        backbone=BackboneConfig(depth=101, groups=64, base_width=4),
+        bbox_head=BBoxHeadConfig(num_classes=num_classes, use_gs=use_gs),
+        cascade=CascadeConfig(),
+    )
+
+
 def faster_rcnn_x101_64x4d_fpn_lvis(num_classes: int = 1231) -> DetectorConfig:
     """X101-64x4d backbone variant (configs/bags/gs_faster_rcnn_x101...)."""
     return DetectorConfig(
@@ -80,9 +90,30 @@ def htc_x101_64x4d_fpn_lvis(
     )
 
 
+def faster_rcnn_r50_fpn_rfs_lvis(num_classes: int = 1231) -> DetectorConfig:
+    """transferred/faster_rcnn_r50_fpn_1x_lvis_rfs.py: the same model, with
+    repeat-factor sampling in the data pipeline (train CLI --use-rfs)."""
+    return faster_rcnn_r50_fpn_lvis(num_classes)
+
+
+def faster_rcnn_r50_fpn_focal_lvis(num_classes: int = 1231) -> DetectorConfig:
+    """transferred/faster_rcnn_r50_fpn_1x_lvis_focalloss*.py: the sigmoid focal
+    classification loss."""
+    return DetectorConfig(bbox_head=BBoxHeadConfig(num_classes=num_classes, loss_cls_type="focal"))
+
+
+def faster_rcnn_r50_fpn_reweight_lvis(num_classes: int = 1231) -> DetectorConfig:
+    """transferred/faster_rcnn_r50_fpn_1x_lvis_reweight*.py: CE weighted by
+    class (ReweightBBoxHead); the weights enter the model as
+    `FasterRCNN(class_weights=gs.partition.class_weights_from_counts(...))`."""
+    return DetectorConfig(bbox_head=BBoxHeadConfig(num_classes=num_classes, loss_cls_type="reweight"))
+
+
 # the BAGS recipe trains phase 2 with only fc_cls (bg8.py:193,198), GS Mask
 # R-CNN's too; the GS cascade and the GS HTC train every stage's fc_cls
-# (selectp=3); HTC runs 20 epochs (the _20e configs)
+# (selectp=3); HTC runs 20 epochs (the _20e configs); the focal and
+# re-weight entries are the "*_cls" rows, which train fc_cls alone (JAX's
+# cls_only=True; their full-training rows take TrainConfig())
 TRAIN_CONFIGS = {
     "faster_rcnn_r50_fpn_lvis": TrainConfig(),
     "gs_faster_rcnn_r50_fpn_lvis": TrainConfig(selectp=1),
@@ -90,6 +121,11 @@ TRAIN_CONFIGS = {
     "gs_mask_rcnn_r50_fpn_lvis": TrainConfig(selectp=1),
     "cascade_rcnn_r50_fpn_lvis": TrainConfig(),
     "gs_cascade_rcnn_r50_fpn_lvis": TrainConfig(selectp=3),
+    "cascade_rcnn_x101_64x4d_fpn_lvis": TrainConfig(),
+    "gs_cascade_rcnn_x101_64x4d_fpn_lvis": TrainConfig(selectp=3),
+    "faster_rcnn_r50_fpn_rfs_lvis": TrainConfig(),
+    "faster_rcnn_r50_fpn_focal_lvis": TrainConfig(selectp=1),
+    "faster_rcnn_r50_fpn_reweight_lvis": TrainConfig(selectp=1),
     "faster_rcnn_x101_64x4d_fpn_lvis": TrainConfig(),
     "htc_x101_64x4d_fpn_lvis": TrainConfig(total_epochs=20),
     "gs_htc_x101_64x4d_fpn_lvis": TrainConfig(selectp=3, total_epochs=20),

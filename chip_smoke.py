@@ -119,6 +119,26 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    checkpoint (K2 once an (800, 1344) image; the per-bin counts sum to those
    images' boxes, at most 64 an image).
 
+After phase 4, "test-time augmentation" runs the test CLI's `predict_aug`
+on the same model at full width, four views a batch (the base, x1.25 in
+its 1024 x 1696 bucket, each flipped): `--aug-rescore` (K1 5, K2 4, K3 1 a
+batch) and the detection-level flow (K1 5, K2 4, K3 4), K1 held to its
+plain version, and timed, on each merge's rows (4 x 1000 proposals, 4 x
+300 label-offset detections an image) and on tie boxes at those lengths
+(the "nms_keep/tta-*" rows); both flows in f32 on small images card vs CPU;
+then "soft-NMS predict" (rcnn_test.nms_type "soft_nms": K1 and K2 once, no
+K3; timed beside the hard-NMS predict in turns, and the multiclass NMS
+alone both ways with its device kernels). After phase 6, "loss baselines":
+Faster R-CNN R50 steps with the focal head at selectp 0 and 1 and the
+re-weight and GS-reweight heads at selectp 1 (K4 and K2 once, K2b once at
+selectp 0), each also as a small f32 step card vs CPU, losses and
+gradients. After phase 10, "GS Cascade X101-64x4d": predicts (K1, K2 three
+times, K6, K5), a profiled one, K1 and K5 held and K6 bit-equal on its
+inputs, then the selectp 0 and selectp 3 steps with their peak memory. After
+phase 12, "HTC-DCN test-time augmentation": `--aug-rescore` over the base
+and its flip, then `predict_masks` on the merged boxes (K7 150, K1 3, K2 14,
+K6 and K5 once a batch).
+
 Between the Faster R-CNN and the cascade phases, "fused bottlenecks (K8,
 K9)": a seeded R50 (FrozenBN scales and variances in [0.5, 2]) runs once in
 bf16 at 800 x 1344, batch 2, and the input and output of each of its four
@@ -1179,19 +1199,25 @@ def compare_small(torch, model) -> None:
         g = [t.cpu() for t in g]
     finally:
         torch.backends.cudnn.allow_tf32 = allow
-    c = cpu_model.predict(images, shapes, sf)
+    detections_agree(torch, g, cpu_model.predict(images, shapes, sf), "small input")
+
+
+def detections_agree(torch, g, c, label: str) -> None:
+    """The card's detections `g` (on the CPU) against the CPU's `c`, image by
+    image: the score lists within 1e-4, and 95% of the card's detections
+    found on the CPU with the same label and boxes within 1e-2 pixels."""
     score_err = (g[1] - c[1]).abs().max().item()
-    gb, gl, gv = g[0][0], g[2][0], g[3][0]
-    cb, cl, cv = c[0][0], c[2][0], c[3][0]
     matched = 0
-    for i in torch.nonzero(gv).flatten().tolist():
-        same = cv & (cl == gl[i]) & ((cb - gb[i]).abs().amax(dim=-1) <= 1e-2)
-        matched += bool(same.any())
-    total = int(gv.sum())
-    log(f"  small input, card vs CPU: max score diff {score_err:.3e}, "
-        f"{matched}/{total} detections matched")
+    for b in range(len(g[3])):
+        gb, gl, gv = g[0][b], g[2][b], g[3][b]
+        cb, cl, cv = c[0][b], c[2][b], c[3][b]
+        for i in torch.nonzero(gv).flatten().tolist():
+            same = cv & (cl == gl[i]) & ((cb - gb[i]).abs().amax(dim=-1) <= 1e-2)
+            matched += bool(same.any())
+    total = int(g[3].sum())
+    log(f"  {label}, card vs CPU: max score diff {score_err:.3e}, {matched}/{total} detections matched")
     if not (score_err <= 1e-4 and total > 0 and matched >= 0.95 * total):
-        raise AssertionError("card and CPU detections disagree")
+        raise AssertionError(f"card and CPU detections disagree ({label})")
 
 
 def gt_labels(rng, partition, n: int):
@@ -1332,6 +1358,7 @@ def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
         before = {n: p.detach().clone() for n, p in named.items()}
         for k in cuda.KERNELS:
             k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         # a first step, then a timed one
         took = []
         for _ in range(2):
@@ -1346,7 +1373,8 @@ def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
             raise AssertionError(f"selectp={cfg.selectp} launched K2b {cuda.ROI_ALIGN_BACKWARD.launches} times")
         what = f"only {moved}" if cfg.selectp != 4 else f"{len(moved)} tensors, the bbox and mask heads'"
         log(f"  selectp={cfg.selectp}: first step {took[0]:.3f} ms, then {took[1]:.3f} ms; two steps moved {what}, "
-            f"K2b not launched, loss {m['loss'].item():.5f}")
+            f"K2b not launched, loss {m['loss'].item():.5f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del phase
     k2b_14 = [c for c in k2b if c[0][4] == 14]
     return dict(launches=launches, k4_inputs=k4_inputs, k2b=k2b_14[0] if k2b_14 else None, ms=ms, peak=peak)
@@ -1406,7 +1434,7 @@ def run_mask_rcnn_train(torch, bgs, ops_roi, dev) -> dict:
     return trained
 
 
-def compare_small_train(torch, model) -> None:
+def compare_small_train(torch, model, selectp: int = 0) -> None:
     """One f32 training step of the main path's model, 1231 classes, on two
     256 x 384 images, on the card (kernels, K4 included: the RPN still takes
     2000 boxes a level) and on the CPU (plain versions), from the same
@@ -1416,12 +1444,15 @@ def compare_small_train(torch, model) -> None:
     agree to 1e-3 relative: convolutions sum in other orders (TF32 off), and
     a proposal whose IoU with another lies within rounding of the NMS
     threshold may be kept on one side only, which moves an averaged loss by
-    about one part in the 216 RoIs."""
+    about one part in the 216 RoIs. The step trains at `selectp` with the
+    model's class weights; every trained parameter's gradient must agree to
+    GRAD_NORM_LIMIT in the relative norm, as `compare_small_mask_train`'s."""
     import dataclasses
 
     import numpy as np
 
     from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
     from balancedgroupsoftmax_torch.models.detector import build_model
     from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
 
@@ -1439,6 +1470,7 @@ def compare_small_train(torch, model) -> None:
         bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
     )
     weights = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    partition = model.partition or synthetic_partition(cfg.bbox_head.num_classes)  # the labels' bins
     gen = torch.Generator().manual_seed(9)
     xy = torch.rand(MAIN_BATCH, 8, 2, generator=gen) * torch.tensor([300.0, 200.0])
     wh = 16 + torch.rand(MAIN_BATCH, 8, 2, generator=gen) * 120
@@ -1446,27 +1478,38 @@ def compare_small_train(torch, model) -> None:
     batch = dict(
         images=torch.randn(MAIN_BATCH, 256, 384, 3, generator=gen),
         gt_boxes=torch.cat([xy, torch.minimum(xy + wh, torch.tensor([383.0, 255.0]))], -1).floor(),
-        gt_labels=torch.from_numpy(np.stack([gt_labels(rng, model.partition, 8) for _ in range(MAIN_BATCH)])),
+        gt_labels=torch.from_numpy(np.stack([gt_labels(rng, partition, 8) for _ in range(MAIN_BATCH)])),
         gt_mask=torch.ones(MAIN_BATCH, 8, dtype=torch.bool),
         img_shapes=torch.tensor([[256.0, 384.0]] * MAIN_BATCH),
     )
 
-    out = {}
+    class_weights = None if model.class_weights is None else model.class_weights.cpu()
+    out, grad = {}, {}
     allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            m = build_model(cfg, model.partition, torch.float32)
+            m = build_model(cfg, model.partition, torch.float32, class_weights=class_weights)
             m.load_state_dict(weights)
             m.to(device)
-            step = make_train_step(create_train_state(m, TrainConfig(selectp=0)))
+            step = make_train_step(create_train_state(m, TrainConfig(selectp=selectp)))
             out[name] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
+            grad[name] = {n: p.grad.double().cpu() for n, p in m.named_parameters() if p.grad is not None}
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
     worst = max(abs(out["card"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-6) for k in out["cpu"])
-    log(f"  small f32 train step, card vs CPU: max relative loss difference {worst:.3e} over {sorted(out['cpu'])}")
+    log(f"  small f32 train step (selectp={selectp}), card vs CPU: max relative loss difference {worst:.3e} "
+        f"over {sorted(out['cpu'])}")
     if not (sorted(out["card"]) == sorted(out["cpu"]) and worst <= 1e-3):
         raise AssertionError(f"card and CPU losses disagree: {out}")
+    if sorted(grad["card"]) != sorted(grad["cpu"]) or not grad["cpu"]:
+        raise AssertionError("the card and the CPU step trained different parameters")
+    norm, peak = grad_differences(grad["card"], grad["cpu"])
+    far = max(norm, key=norm.get)
+    log(f"  gradients, card vs CPU: relative norm worst {norm[far]:.3e} ({far}) over {len(norm)} tensors; "
+        f"largest elementwise difference {max(peak.values()):.3e} of its tensor's largest")
+    if norm[far] > GRAD_NORM_LIMIT:
+        raise AssertionError(f"card and CPU gradients disagree: {sorted(norm.items(), key=lambda kv: -kv[1])[:5]}")
 
 
 def dcn_bound(torch, x, offsets, weight, mask, out) -> tuple[float, str]:
@@ -2928,6 +2971,341 @@ def run_ablation(torch, ops_nms, ops_roi, flow_root: str, flow_checkpoint: str) 
     return rows
 
 
+TTA_RAW = (600, 800)  # (h, w): 800 x 1067 in the 800 x 1344 bucket; at x1.25, 1000 x 1333 in 1024 x 1696
+TTA_SCALE = 1.25
+
+
+def tta_batch(seed: int, size=None, pcfg=None) -> dict:
+    """MAIN_BATCH random RGB images of `size` (TTA_RAW) through the test
+    pipeline, as the test CLI batches them for test-time augmentation (with
+    "raw")."""
+    import numpy as np
+
+    from balancedgroupsoftmax_torch.data.pipeline import PipelineConfig, preprocess_image
+    from balancedgroupsoftmax_torch.tools.test_lvis import stack_batch
+
+    rng = np.random.RandomState(seed)
+    raws = [rng.randint(0, 255, (*(size or TTA_RAW), 3), np.uint8) for _ in range(MAIN_BATCH)]
+    batch = stack_batch([preprocess_image(r, cfg=pcfg or PipelineConfig()) for r in raws])
+    batch["raw"] = raws
+    return batch
+
+
+def timed_calls(torch, fn, each: dict, what: str):
+    """A first call of `fn`, then TIMED_PREDICTS timed ones with the kernels'
+    counts set to 0 just before and read just after; each kernel of `each`
+    must have launched that many times a call. Returns (the last result, ms
+    a call, first call s, launches, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, launches = counted(torch, lambda: [fn() for _ in range(TIMED_PREDICTS)][-1])
+    ms = (time.perf_counter() - t0) / TIMED_PREDICTS * 1e3
+    expect_launches(launches, each, TIMED_PREDICTS, what)
+    return out, ms, first_s, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def exact_class_merge(boxes, scores, labels, valid, iou_thr: float = 0.5, max_out: int = 300) -> list:
+    """The detection-level merge without JAX's f32 label offsets: each
+    image's valid detections by descending score (ties by index), greedy NMS
+    at `iou_thr` within each class on f64 boxes, the top `max_out` kept."""
+    import numpy as np
+
+    kept = []
+    for bi in range(len(boxes)):
+        idx = np.where(valid[bi])[0]
+        order = idx[np.argsort(-scores[bi][idx], kind="stable")]
+        b, lab = boxes[bi][order].astype(np.float64), labels[bi][order]
+        area = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+        wh = np.clip(np.minimum(b[:, None, 2:], b[None, :, 2:]) - np.maximum(b[:, None, :2], b[None, :, :2]) + 1, 0, None)
+        inter = wh[..., 0] * wh[..., 1]
+        sup = (inter / np.maximum(area[:, None] + area[None, :] - inter, 1e-6) > iou_thr) & (lab[:, None] == lab[None, :])
+        keep = np.ones(len(order), bool)
+        for i in range(len(order)):
+            if keep[i]:
+                keep[i + 1:] &= ~sup[i, i + 1:]
+        kept.append(order[keep][:max_out])
+    return kept
+
+
+def run_tta_path(torch, model):
+    """Test-time augmentation of GS Faster R-CNN through the test CLI's
+    `predict_aug` at full width, four views a batch (the base, x1.25, each
+    flipped): `--aug-rescore` (K1 once a view and once for the proposal
+    merge, K2 once a view, K3 once) and the detection-level flow (a predict
+    a view, K1 once more for the merge of all views' detections). K1 is held
+    to its plain version, and timed, on each merge's rows as the flow handed
+    them, and on tie boxes at those row lengths; the detection-level merge's
+    kept detections are counted against an exact per-class merge (JAX's f32
+    label offsets, ROADMAP C). Returns the two K1 rows."""
+    from balancedgroupsoftmax_torch.data.pipeline import PipelineConfig
+    from balancedgroupsoftmax_torch.ops import nms as ops_nms
+    from balancedgroupsoftmax_torch.tools import test_lvis
+
+    pcfg = PipelineConfig()
+    batch = tta_batch(6)
+    views = 4
+    rows = []
+    for name, aug, each, merge_k in (
+        ("aug-rescore", test_lvis.Aug(True, (TTA_SCALE,), True),
+         {"bags_nms_keep": views + 1, "bags_roi_align_forward": views, "bags_nms_keep_gathered": 1}, views * 1000),
+        ("detection-level", test_lvis.Aug(True, (TTA_SCALE,)),
+         {"bags_nms_keep": views + 1, "bags_roi_align_forward": views, "bags_nms_keep_gathered": views}, views * 300),
+    ):
+        fn = lambda aug=aug: test_lvis.predict_aug(model, batch, pcfg, aug)
+        dets, ms, first_s, launches, peak = timed_calls(torch, fn, each, f"{name} batches")
+        check_detections(torch, dets, model.cfg.bbox_head.num_classes, TTA_RAW)
+        log(f"  {name}, {views} views (base, x{TTA_SCALE}, each flipped): first batch {first_s:.2f} s, then {ms:.3f} ms "
+            f"a batch of {MAIN_BATCH}, {MAIN_BATCH / ms * 1e3:.2f} images/s, peak memory {peak:.2f} GiB "
+            f"({card_line()}); {int(dets.valid.sum())} detections; launches over {TIMED_PREDICTS} batches {launches}")
+        profile_device(torch, f"{name} batch", fn)
+        seen = capture_calls(("nms_keep_batched",), fn, module=ops_nms)
+        boxes, valid, thr = seen["nms_keep_batched"][0]
+        if boxes.shape[1] != merge_k:
+            raise AssertionError(f"the {name} merge took rows of {boxes.shape[1]} boxes, not {merge_k}")
+        row = check_k1(torch, ops_nms, boxes, valid, thr, path=f"{name} merge")
+        row.update(name=f"nms_keep/tta-{name}", launches=launches["bags_nms_keep"])
+        log(f"  K1 on the {name} merge's rows ({row['shape']}): equal to the plain version, kernel {row['ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.5f} ms, plain {row['plain_ms']:.3f} ms")
+        rows.append(row)
+        gen = torch.Generator().manual_seed(merge_k)
+        tb, tv = tie_boxes(gen, MAIN_BATCH, merge_k, thr, boxes.device)
+        if not torch.equal(ops_nms.nms_keep_batched(tb, tv, thr), ops_nms.nms_keep_reference(tb, tv, thr)):
+            raise AssertionError(f"K1 on tie boxes at K={merge_k} differs from the plain version")
+        log(f"  K1 ties G={MAIN_BATCH} K={merge_k}: keep equal to the plain version")
+        if not aug.rescore:
+            # JAX's f32 label offsets (ROADMAP C): the merge's kept detections against an exact per-class merge
+            merged = capture_calls(("merge_aug_detections",), fn, module=test_lvis)["merge_aug_detections"][0]
+            got = test_lvis.merge_aug_detections(*merged)
+            exact = exact_class_merge(*merged[:4])
+            moved = sum(len(set(g.tolist()) ^ set(e.tolist())) for g, e in zip(got, exact))
+            log(f"  the f32 label offsets move {moved} of {sum(len(g) for g in got)} merged detections against an "
+                f"exact per-class merge (labels up to {int(merged[2].max())})")
+    return rows
+
+
+def compare_small_tta(torch, model) -> None:
+    """Both flows of `run_tta_path` on f32 copies of the model, two 192 x
+    256 images at a scale of (384, 256) and x1.25, each flipped: the card
+    (kernels) against the CPU (plain versions), by `detections_agree`."""
+    from balancedgroupsoftmax_torch.data.pipeline import PipelineConfig
+    from balancedgroupsoftmax_torch.models.detector import build_model
+    from balancedgroupsoftmax_torch.tools import test_lvis
+
+    dev = next(model.parameters()).device
+    cpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    gpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(dev)
+    pcfg = PipelineConfig(scale=(384, 256))
+    batch = tta_batch(9, (192, 256), pcfg)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, aug in (("aug-rescore", test_lvis.Aug(True, (TTA_SCALE,), True)),
+                          ("detection-level", test_lvis.Aug(True, (TTA_SCALE,)))):
+            g = [t.cpu() for t in test_lvis.predict_aug(gpu_model, batch, pcfg, aug)]
+            detections_agree(torch, g, test_lvis.predict_aug(cpu_model, batch, pcfg, aug), f"small f32 {name}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+
+
+def run_soft_nms_path(torch, model) -> None:
+    """`predict` with rcnn_test.nms_type "soft_nms": K1 and K2 once a call
+    and no K3 (soft-NMS is plain PyTorch, as JAX runs it as XLA), well-formed
+    detections; its time beside the hard-NMS predict's, in turns, and the
+    multiclass NMS alone both ways on the inputs one predict gave it, with
+    the device kernels of the soft one; a profiled soft-NMS predict."""
+    import dataclasses
+
+    from balancedgroupsoftmax_torch import kernels
+    from balancedgroupsoftmax_torch.models import detector
+
+    hard = model.cfg
+    soft = dataclasses.replace(hard, rcnn_test=dataclasses.replace(hard.rcnn_test, nms_type="soft_nms"))
+    gen = torch.Generator().manual_seed(4)
+    dev = next(model.parameters()).device
+    inputs = (torch.randn(MAIN_BATCH, *MAIN_SIZE, 3, generator=gen).to(dev),
+              torch.tensor([MAIN_SIZE] * MAIN_BATCH, dtype=torch.float32, device=dev), torch.ones(MAIN_BATCH, device=dev))
+    try:
+        model.cfg = soft
+        dets, ms, first_s, launches, peak = timed_calls(
+            torch, lambda: model.predict(*inputs),
+            {"bags_nms_keep": 1, "bags_roi_align_forward": 1, "bags_nms_keep_gathered": 0}, "soft-NMS predicts")
+        check_detections(torch, dets, hard.bbox_head.num_classes, MAIN_SIZE)
+        seen = capture_calls(("batched_multiclass_nms",), lambda: model.predict(*inputs), module=detector)
+        args, kw = seen["batched_multiclass_nms"]
+        soft_nms_call = lambda: kernels.batched_multiclass_nms(*args, **kw)
+        launched = kernels_per_call(torch, soft_nms_call)
+        profile_device(torch, "soft-NMS predict", lambda: model.predict(*inputs), top=6)
+    finally:
+        model.cfg = hard
+
+    def predict_as(cfg):
+        model.cfg = cfg
+        try:
+            model.predict(*inputs)
+        finally:
+            model.cfg = hard
+
+    hard_ms, soft_ms = interleaved_ms([lambda: predict_as(hard), lambda: predict_as(soft)], 2, 3)
+    hard_nms = lambda: kernels.batched_multiclass_nms(*args, **dict(kw, nms_type="nms"))
+    nms_ms = interleaved_ms([hard_nms, soft_nms_call], 3, 3)
+    log(f"  soft-NMS predict: first {first_s:.2f} s, then {ms:.3f} ms a batch of {MAIN_BATCH}, peak memory {peak:.2f} "
+        f"GiB; {int(dets.valid.sum())} detections, top score {dets.scores[0, 0].item():.6f}; launches over "
+        f"{TIMED_PREDICTS} predicts {launches} ({card_line()})")
+    log(f"  in turns: hard-NMS predict {hard_ms:.3f} ms, soft-NMS predict {soft_ms:.3f} ms; the multiclass NMS alone: "
+        f"hard (K3) {nms_ms[0]:.3f} ms, soft {nms_ms[1]:.3f} ms, {launched} device kernels (profiler) over "
+        f"{args[1].shape[0]} x {args[5]} rows (the class cap) of {kw['candidates_per_class']} candidates")
+
+
+def run_cascade_x101_path(torch, dev, phase2) -> dict:
+    """BAGS Cascade X101-64x4d (cascade_rcnn_x101_64x4d_fpn_lvis(use_gs=True):
+    1231 classes, bf16, seeded weights) through `build_model`: predicts at
+    the main shape (K1 once, K2 once a stage, K6 and K5 once, K3 never), a
+    profiled one, K1, K5 and K6 held to their plain versions on what one
+    more predict gave them; then `run_train_path` (selectp 0, then the
+    phase-2 recipe `phase2`, selectp 3). Returns the predicts' launches."""
+    from balancedgroupsoftmax_torch import zoo
+    from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
+    from balancedgroupsoftmax_torch.models.detector import build_model
+    from balancedgroupsoftmax_torch.ops import gather as ops_gather
+    from balancedgroupsoftmax_torch.ops import nms as ops_nms
+
+    t0 = time.perf_counter()
+    cfg = zoo.cascade_rcnn_x101_64x4d_fpn_lvis(use_gs=True)
+    model = build_model(cfg, synthetic_partition(cfg.bbox_head.num_classes), torch.bfloat16).init_weights(0).to(dev).eval()
+    log(f"  Cascade X101-64x4d built on the card in {time.perf_counter() - t0:.1f} s")
+    stages = len(model.bbox_heads)
+    launches, inputs = run_predicts(
+        torch, model,
+        {"bags_nms_keep": 1, "bags_roi_align_forward": stages, "bags_gather_lanes": 1,
+         "bags_nms_keep_coords": 1, "bags_nms_keep_gathered": 0},
+    )
+    profile_device(torch, "Cascade X101 predict", lambda: model.predict(*inputs))
+    seen = capture_calls(("nms_keep_batched", "gather_lanes", "nms_keep_batched_coords"), lambda: model.predict(*inputs))
+    k1 = check_k1(torch, ops_nms, *seen["nms_keep_batched"][0], path="Cascade X101")
+    (coords, valid, thr), _ = seen["nms_keep_batched_coords"]
+    k5 = check_k5(torch, ops_nms, coords, valid, thr, path="Cascade X101")
+    (rows, idx), kw6 = seen["gather_lanes"]
+    k6_matches(torch, ops_gather, rows, idx, kw6["groups_per_plane"], "Cascade X101's candidates")
+    log(f"  Cascade X101: K1 ({k1['shape']}) and K5 ({k5['shape']}) equal to their plain versions, K6 bit-equal; "
+        f"K1 {k1['ms']:.4f} ms, K5 {k5['ms']:.4f} ms")
+    run_train_path(torch, model, phase2)
+    return launches
+
+
+LOSS_BASELINES = (  # (label, zoo constructor, GS head, selectp)
+    ("focal", "faster_rcnn_r50_fpn_focal_lvis", False, 0),
+    ("focal", "faster_rcnn_r50_fpn_focal_lvis", False, 1),
+    ("re-weight", "faster_rcnn_r50_fpn_reweight_lvis", False, 1),
+    ("GS-reweight", "gs_faster_rcnn_r50_fpn_lvis", True, 1),
+)
+
+
+def run_loss_baselines(torch, dev) -> None:
+    """The long-tail loss baselines on Faster R-CNN R50 (bf16, batch 2 at 800
+    x 1344, 20 gt boxes an image): a first and a timed step each of the
+    focal head at selectp 0 and 1, the re-weight head and GS-reweight at
+    selectp 1, the class weights `class_weights_from_counts` of seeded
+    long-tailed counts; K4 and K2 once a step, K2b once at selectp 0 and
+    never at 1, where fc_cls alone moves; then each one's small f32 step on
+    the card against the CPU, losses and gradients."""
+    import dataclasses
+
+    import numpy as np
+
+    from balancedgroupsoftmax_torch import zoo
+    from balancedgroupsoftmax_torch.config import TrainConfig
+    from balancedgroupsoftmax_torch.gs.partition import class_weights_from_counts, synthetic_partition
+    from balancedgroupsoftmax_torch.models.detector import build_model
+    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
+
+    counts = (10 ** np.random.RandomState(3).uniform(0, 4, 1231)).astype(np.int64)
+    weights = class_weights_from_counts(counts)
+    partition = synthetic_partition(1231)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(8, partition).items()}
+    for label, name, use_gs, selectp in LOSS_BASELINES:
+        cfg = getattr(zoo, name)()
+        if use_gs:
+            cfg = dataclasses.replace(cfg, bbox_head=dataclasses.replace(cfg.bbox_head, loss_cls_type="reweight"))
+        model = build_model(cfg, partition if use_gs else None, torch.bfloat16, class_weights=weights)
+        model = model.init_weights(0).to(dev)
+        named = dict(model.named_parameters())
+        before = {n: p.detach().clone() for n, p in named.items()}
+        step = make_train_step(create_train_state(model, TrainConfig(selectp=selectp)))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        took = []
+
+        def two_steps():  # a first step, then a timed one
+            for _ in range(2):
+                t0 = time.perf_counter()
+                out = step(batch, gen)
+                torch.cuda.synchronize()
+                took.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        metrics, launches = counted(torch, two_steps)
+        expect_launches(launches, {"bags_nms_keep_tiled": 1, "bags_roi_align_forward": 1,
+                                   "bags_roi_align_backward": int(selectp == 0)}, 2, f"{label} steps")
+        moved = sorted(n for n, p in named.items() if not torch.equal(p.detach(), before[n]))
+        if not all(torch.isfinite(v).item() for v in metrics.values()):
+            raise AssertionError(f"{label}: a loss is not finite: {metrics}")
+        if selectp == 1 and moved != ["bbox_head.fc_cls.bias", "bbox_head.fc_cls.weight"]:
+            raise AssertionError(f"{label} selectp=1 moved {moved}")
+        if selectp == 0 and not any(n.startswith("backbone.") for n in moved):
+            raise AssertionError(f"{label} selectp=0 did not move the backbone")
+        cls = {k: round(v.item(), 5) for k, v in metrics.items() if k.startswith("loss_cls")}
+        log(f"  {label} selectp={selectp}: first step {took[0]:.3f} ms, then {took[1]:.3f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card_line()}); {len(moved)} tensors moved; {cls}")
+        compare_small_train(torch, model, selectp=selectp)
+        del step, model
+
+
+def run_htc_tta(torch, model) -> None:
+    """`--aug-rescore` over the base view and its flip on the serving
+    HTC-DCN, then `predict_masks` on the merged boxes (JAX
+    tools/test_lvis.py:579-585): each view's backbone twice (its proposals,
+    then its rescore) and once more for the masks, so K7 30 x 5 times a
+    batch, K1 3 times (two views and the merge), K2 6 a view (three stages
+    over the FPN and the semantic feature) and 2 for the masks, K6 and K5
+    once, K3 never; finite detections and masks in [0, 1]."""
+    from balancedgroupsoftmax_torch.data.pipeline import PipelineConfig
+    from balancedgroupsoftmax_torch.tools import test_lvis
+
+    pcfg = PipelineConfig()
+    batch = tta_batch(7)
+    dev = next(model.parameters()).device
+    images, sfs = (torch.from_numpy(batch[k]).to(dev) for k in ("image", "scale_factor"))
+    aug = test_lvis.Aug(flip=True, rescore=True)
+
+    def call():
+        dets = test_lvis.predict_aug(model, batch, pcfg, aug)
+        return dets, model.predict_masks(images, dets.boxes, dets.labels, sfs)
+
+    views = 2
+    (dets, masks), ms, first_s, launches, peak = timed_calls(
+        torch, call,
+        {"bags_deform_conv_forward": 30 * (2 * views + 1), "bags_nms_keep": views + 1,
+         "bags_roi_align_forward": 6 * views + 2, "bags_gather_lanes": 1, "bags_nms_keep_coords": 1,
+         "bags_nms_keep_gathered": 0},
+        "HTC-DCN aug-rescore batches",
+    )
+    check_detections(torch, dets, model.cfg.bbox_head.num_classes, TTA_RAW)
+    m = masks[dets.valid].float()
+    if masks.shape[:2] != dets.scores.shape or not (torch.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()):
+        raise AssertionError("HTC-DCN TTA masks are not finite probabilities of each detection")
+    log(f"  HTC-DCN aug-rescore, base and flip, masks on the merged boxes: first batch {first_s:.2f} s, then "
+        f"{ms:.3f} ms a batch of {MAIN_BATCH}, peak memory {peak:.2f} GiB ({card_line()}); "
+        f"{int(dets.valid.sum())} detections; launches over {TIMED_PREDICTS} batches {launches}")
+
+
+
 def log_row(r: dict) -> None:
     lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
     log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
@@ -2985,6 +3363,19 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_small(torch, model)
     log(f"phase small-input card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    tta_rows = run_tta_path(torch, model)
+    rows += tta_rows
+    log(f"phase test-time augmentation (GS Faster R-CNN): wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_small_tta(torch, model)
+    log(f"phase small test-time augmentation card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_soft_nms_path(torch, model)
+    log(f"phase soft-NMS predict: wall {time.perf_counter() - t0:.1f} s")
     del model
 
     t0 = time.perf_counter()
@@ -3000,6 +3391,10 @@ def main() -> int:
     compare_small_train(torch, train_model)
     log(f"phase small training step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
     del train_model
+
+    t0 = time.perf_counter()
+    run_loss_baselines(torch, dev)
+    log(f"phase loss baselines (focal, re-weight, GS-reweight): wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     fused_launches, fused_rows = run_fused_path(torch, dev)
@@ -3029,6 +3424,10 @@ def main() -> int:
     del cascade
 
     t0 = time.perf_counter()
+    run_cascade_x101_path(torch, dev, TRAIN_CONFIGS["gs_cascade_rcnn_x101_64x4d_fpn_lvis"])
+    log(f"phase GS Cascade X101-64x4d serving and training: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     htc_launches, htc, htc_row = run_htc_path(torch, dev)
     log_row(htc_row)
     rows.append(htc_row)
@@ -3037,6 +3436,10 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_small_htc(torch, htc)
     log(f"phase small HTC-DCN predict_with_masks card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_htc_tta(torch, htc)
+    log(f"phase HTC-DCN test-time augmentation with masks: wall {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     htc_train_launches, k7b_row, _, _ = run_htc_train_path(torch, htc)
@@ -3090,7 +3493,8 @@ def main() -> int:
     # training steps for K7b, one pass of the
     # R50's stride-1 runs for K8 and K9; the "/mask-rcnn" rows carry Mask
     # R-CNN's predicts' and selectp=0 steps' counts, the "/ablation-train"
-    # and "/tnorm-select" rows their ablation rows' counts
+    # and "/tnorm-select" rows their ablation rows' counts, the "/tta-*"
+    # rows the K1 launches of their flows' timed batches
     symbols = {
         "nms_keep": (launches, "bags_nms_keep"),
         "roi_align_forward": (launches, "bags_roi_align_forward"),
@@ -3105,7 +3509,7 @@ def main() -> int:
         "fused_layer": (fused_launches, "bags_fused_layer"),
     }
     for r in rows:
-        if "launches" not in r:  # the Mask R-CNN and ablation rows carry their own counts
+        if "launches" not in r:  # the Mask R-CNN, ablation and TTA rows carry their own counts
             counts, sym = symbols[r["name"]]
             r["launches"] = counts[sym]
         del r["shape"]

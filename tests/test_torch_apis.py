@@ -42,3 +42,25 @@ def test_inference_detector_on_cpu_matches_predict():
     assert all(d["category_id"] == d["label"] + 1 for d in dets)
     boxes = np.array([d["bbox"] for d in dets])
     assert (boxes >= 0).all() and (boxes[:, 0::2] <= 90).all() and (boxes[:, 1::2] <= 60).all()
+
+
+@pytest.mark.parametrize("names", [False, True])
+def test_show_result_draws_as_jax(names, tmp_path):
+    """`apis.show_result` pixel for pixel against JAX `apis.py show_result`
+    (cv2 boxes and labels), the score threshold included, and the file it
+    writes (BGR) read back as the returned image."""
+    import cv2
+
+    from balancedgroupsoftmax_tpu.apis import show_result as jax_show_result
+
+    rng = np.random.RandomState(names)
+    img = rng.randint(0, 255, (120, 160, 3), np.uint8)
+    dets = [dict(bbox=[float(x) for x in rng.uniform(0, 100, 2)] + [float(x) for x in rng.uniform(100, 150, 2)],
+                 score=float(s), label=int(rng.randint(0, 4)), category_id=int(rng.randint(1, 9)))
+            for s in (0.9, 0.5, 0.31, 0.2)]
+    class_names = ("a", "bb", "ccc", "dddd") if names else None
+    want = jax_show_result(img, dets, class_names, score_thr=0.3)
+    got = apis.show_result(img, dets, class_names, score_thr=0.3, out_file=str(tmp_path / "out.png"))
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, img) and np.array_equal(img, rng.__class__(names).randint(0, 255, img.shape, np.uint8))
+    np.testing.assert_array_equal(cv2.cvtColor(cv2.imread(str(tmp_path / "out.png")), cv2.COLOR_BGR2RGB), got)

@@ -1070,3 +1070,72 @@ def test_mask_rcnn_training_step_on_the_card_equals_the_cpu(dev, exact_f32, monk
     ref = ops_roi.multilevel_roi_align_backward_reference(grad, rois, shapes, strides, size, dtype=kw["dtype"])
     for o, r in zip(out, ref):
         assert (o - r).abs().max().item() <= 1e-5 * max(r.abs().max().item() for r in ref)
+
+
+def crowded_rows(seed, g, n, spread=120):
+    """(G, N, 4) boxes crowded into a few clusters, scores, ~10% invalid."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.uniform(40, 40 + spread, (g, n, 2))
+    wh = rng.uniform(20, 60, (g, n, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    return boxes, rng.rand(g, n).astype(np.float32), rng.rand(g, n) > 0.1
+
+
+@pytest.mark.parametrize("method", ["linear", "gaussian", "naive"])
+def test_soft_nms_on_the_card_equals_the_cpu(dev, method):
+    """Soft-NMS is plain PyTorch on the card too (JAX runs it as XLA): the
+    same selections and validity, scores within 1e-6; it launches no kernel
+    of the port."""
+    boxes, scores, valid = (torch.from_numpy(x) for x in crowded_rows(1, 40, 300))
+    before = {k.symbol: k.launches for k in cuda.KERNELS}
+    g = [t.cpu() for t in ops_nms.soft_nms(boxes.to(dev), scores.to(dev), valid.to(dev), 0.5, method, max_out=300)]
+    assert {k.symbol: k.launches for k in cuda.KERNELS} == before
+    c = ops_nms.soft_nms(boxes, scores, valid, 0.5, method, max_out=300)
+    assert torch.equal(g[2], c[2]) and torch.equal(g[0], c[0])
+    assert (g[1] - c[1]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_soft_multiclass_nms_on_the_card_equals_the_cpu(dev, agnostic):
+    from balancedgroupsoftmax_torch import kernels
+
+    rng = np.random.RandomState(2)
+    b, n, c = 2, 200, 41
+    boxes = crowded_rows(3, b, n * c)[0].reshape(b, n, c * 4)
+    boxes = boxes[..., :4].copy() if agnostic else boxes
+    logits = rng.randn(b, n, c).astype(np.float32) * 2
+    scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    args = (torch.from_numpy(boxes), torch.from_numpy(scores.astype(np.float32)), torch.from_numpy(rng.rand(b, n) > 0.1))
+    kw = dict(candidates_per_class=100, nms_type="soft_nms")
+    g = [t.cpu() for t in kernels.batched_multiclass_nms(*(t.to(dev) for t in args), 0.0, 0.5, 30, **kw)]
+    cc = kernels.batched_multiclass_nms(*args, 0.0, 0.5, 30, **kw)
+    assert torch.equal(g[3], cc[3]) and torch.equal(g[2], cc[2]) and torch.equal(g[0], cc[0]) and g[3].any()
+    assert (g[1] - cc[1]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("views", [2, 4])
+def test_tta_merges_on_the_card_equal_the_cpu(dev, views):
+    """The proposal merge (`ops/nms.py nms`, K1 once on V x 1000-box rows)
+    and the detection-level merge (`eval/aug.py merge_aug_detections`, K1
+    once on the batch's (1 + V) x 300 label-offset rows at labels near 1230)
+    equal their CPU results."""
+    from balancedgroupsoftmax_torch.eval.aug import merge_aug_detections
+
+    boxes, valid = tie_rows(views, 2, views * 1000, 0.7)
+    scores = np.random.RandomState(views).choice(np.linspace(0.1, 0.9, 50), (2, views * 1000)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (boxes, scores, valid)]
+    before = cuda.NMS_KEEP.launches
+    g = [t.cpu() for t in ops_nms.nms(*(t.to(dev) for t in args), 0.7, 1000)]
+    assert cuda.NMS_KEEP.launches == before + 1
+    for gt, ct in zip(g, ops_nms.nms(*args, 0.7, 1000)):
+        assert torch.equal(gt, ct)
+
+    n = (1 + views) * 300
+    boxes, valid = tie_rows(views + 10, 2, n, 0.5)
+    labels = np.random.RandomState(views).randint(1220, 1230, (2, n)).astype(np.int32)
+    scores = np.random.RandomState(views + 1).rand(2, n).astype(np.float32)
+    before = cuda.NMS_KEEP.launches
+    g = merge_aug_detections(boxes, scores, labels, valid, dev)
+    assert cuda.NMS_KEEP.launches == before + 1
+    for gk, ck in zip(g, merge_aug_detections(boxes, scores, labels, valid, torch.device("cpu"))):
+        np.testing.assert_array_equal(gk, ck)

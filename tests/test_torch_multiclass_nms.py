@@ -7,6 +7,7 @@ Every output is a selection of input values plus the keep decision, so all
 are compared for equality.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,9 +79,77 @@ def test_multiclass_nms_matches_jax(c, max_per_img, score_thr):
     assert tout[3].all()
 
 
-def test_unported_branches_raise():
-    boxes, scores, valid = (torch.from_numpy(x) for x in detection_case(0, c=5))
-    with pytest.raises(NotImplementedError):
-        tkernels.batched_multiclass_nms(boxes, scores, valid, 0.0, 0.5, 10, nms_type="soft_nms")
-    with pytest.raises(NotImplementedError):  # class-agnostic boxes too
-        tkernels.batched_multiclass_nms(boxes[..., :4], scores, valid, 0.0, 0.5, 10, nms_type="soft_nms")
+def soft_case(seed, g=6, n=50):
+    """Rows of overlapping boxes (a few clusters) with random scores, some
+    slots invalid."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.uniform(40, 80, (g, n, 2)) + rng.randint(0, 3, (g, n, 1)) * 60
+    wh = rng.uniform(20, 50, (g, n, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    return boxes, rng.rand(g, n).astype(np.float32), rng.rand(g, n) > 0.15
+
+
+@pytest.mark.parametrize("method", ["linear", "gaussian", "naive"])
+@pytest.mark.parametrize("seed,max_out", [(0, 50), (1, 20), (2, 60)])
+def test_soft_nms_matches_jax(method, seed, max_out):
+    """`ops/nms.py soft_nms` against JAX `ops/nms.py soft_nms` row by row:
+    the selections (indices through the boxes, validity) equal, scores to
+    1e-6. max_out 60 runs past the 50 candidates: the tail stays invalid."""
+    from balancedgroupsoftmax_tpu.ops.nms import soft_nms as jax_soft_nms
+    from balancedgroupsoftmax_torch.ops.nms import soft_nms
+
+    boxes, scores, valid = soft_case(seed)
+    kw = dict(iou_thr=0.3, method=method, sigma=0.5, min_score=0.05, max_out=max_out)
+    tb, ts, tv = soft_nms(torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(valid), **kw)
+    jb, js, jv = jax.vmap(lambda b, sc, v: jax_soft_nms(b, sc, v, **kw))(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+    # no row takes more boxes than it has valid ones
+    assert tv.any() and not tv[:, valid.sum(1).max():].any()
+    if method != "naive":  # decayed scores: some taken box scores below its raw score
+        assert (ts[tv] < torch.from_numpy(scores).max()).any()
+
+
+@pytest.mark.parametrize(
+    "c,max_per_img,agnostic",
+    [
+        (41, 10, False),  # 40 foreground classes > 10: the class cap is active
+        (41, 10, True),
+        (9, 30, False),
+        (9, 30, True),
+    ],
+)
+def test_soft_multiclass_nms_matches_jax(c, max_per_img, agnostic):
+    """`batched_multiclass_nms(nms_type="soft_nms")` on class-specific and
+    class-agnostic boxes against JAX's XLA branch (kernels.py:214-228): the
+    boxes and labels of the selections and their validity equal, scores to
+    1e-6."""
+    boxes, scores, valid = detection_case(c * 3 + max_per_img, c=c)
+    # crowded: centres within 60 px, so overlaps above 0.3 decay many scores
+    rng = np.random.RandomState(c + max_per_img)
+    ctr = rng.uniform(60, 120, boxes.shape[:2] + (c, 2))
+    wh = rng.uniform(30, 60, ctr.shape)
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).reshape(boxes.shape).astype(np.float32)
+    if agnostic:
+        boxes = np.ascontiguousarray(boxes[..., :4])
+    args = (0.0, 0.3, max_per_img)
+    kw = dict(candidates_per_class=20, nms_type="soft_nms", soft_min_score=0.01)
+    jout = jkernels.batched_multiclass_nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), *args, **kw)
+    tout = tkernels.batched_multiclass_nms(
+        torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(valid), *args, **kw
+    )
+    for name, j, t in zip(("boxes", "scores", "labels", "valid"), jout, tout):
+        if name == "scores":
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    assert tout[3].any()
+    if c - 1 > max_per_img:  # under the cap the top detections are each class's best, never decayed
+        return
+    # soft-NMS decays the scores of overlapping boxes a hard NMS removes or keeps whole
+    hard = tkernels.batched_multiclass_nms(
+        torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(valid), *args, candidates_per_class=20
+    )
+    assert not torch.equal(hard[1], tout[1])

@@ -241,11 +241,12 @@ def test_lr_schedule_matches_jax():
 
 
 def test_zoo_train_configs_match_jax():
-    # the JAX zoo returns the GS Mask R-CNN's, GS cascade's and GS HTC's recipes from their use_gs argument
+    # the JAX zoo returns the GS Mask R-CNN's, GS cascades' and GS HTC's recipes from their use_gs argument
     jax_configs = {
         "gs_mask_rcnn_r50_fpn_lvis": lambda: jzoo.mask_rcnn_r50_fpn_lvis(use_gs=True),
         "gs_cascade_rcnn_r50_fpn_lvis": lambda: jzoo.cascade_rcnn_r50_fpn_lvis(use_gs=True),
         "gs_htc_x101_64x4d_fpn_lvis": lambda: jzoo.htc_x101_64x4d_fpn_lvis(use_gs=True),
+        "gs_cascade_rcnn_x101_64x4d_fpn_lvis": lambda: jzoo.cascade_rcnn_x101_64x4d_fpn_lvis(use_gs=True),
     }
     assert {"cascade_rcnn_r50_fpn_lvis", "gs_cascade_rcnn_r50_fpn_lvis"} <= set(tzoo.TRAIN_CONFIGS)
     for name, cfg in tzoo.TRAIN_CONFIGS.items():
