@@ -44,6 +44,11 @@ MODELS = {
         functools.partial(zoo.htc_x101_64x4d_fpn_lvis, use_gs=True, dcn=True),
         "gs_htc_x101_64x4d_fpn_lvis",
     ),
+    # the detector variants; Fast R-CNN takes its proposals as input and is
+    # API-only (`zoo.fast_rcnn_r50_fpn`, `models/variants.py`), as in JAX
+    "grid_rcnn_r50": (zoo.grid_rcnn_r50_fpn, "grid_rcnn_r50_fpn"),
+    "mask_scoring_rcnn_r50": (zoo.mask_scoring_rcnn_r50_fpn, "mask_scoring_rcnn_r50_fpn"),
+    "double_head_rcnn_r50": (zoo.double_head_rcnn_r50_fpn, "double_head_rcnn_r50_fpn"),
 }
 
 

@@ -1,8 +1,8 @@
 """Configuration dataclasses of the ported slices.
 
-Copies of the fields that Faster R-CNN and Cascade R-CNN inference and
-training and HTC inference read from JAX `config.py`, with the same names and
-defaults (the canonical BAGS config
+Copies of the fields that the ported detectors (Faster, Mask and Cascade
+R-CNN, HTC and the variants of `VariantConfig`) read from JAX `config.py`,
+with the same names and defaults (the canonical BAGS config
 `configs/bags/gs_faster_rcnn_r50_fpn_1x_lvis_with0_bg8.py`).
 The input-size field is not copied: the port's anchors follow each batch's
 shape.
@@ -177,6 +177,19 @@ class HTCConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VariantConfig:
+    """A detector variant (mmdet detectors/{fast_rcnn,grid_rcnn,
+    mask_scoring_rcnn,double_head_rcnn}.py), wired in `models/variants.py`."""
+
+    kind: str  # "fast" | "grid" | "mask_scoring" | "double_head"
+    # Double-Head: the regression branch pools rois inflated by this factor
+    reg_roi_scale_factor: float = 1.3
+    # Grid R-CNN: the point heatmaps' size, and the positives' jitter
+    grid_heatmap_size: int = 56
+    grid_jitter: float = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     backbone: BackboneConfig = BackboneConfig()
     fpn: FPNConfig = FPNConfig()
@@ -186,6 +199,7 @@ class DetectorConfig:
     mask_head: Optional[MaskHeadConfig] = None
     cascade: Optional[CascadeConfig] = None
     htc: Optional[HTCConfig] = None
+    variant: Optional[VariantConfig] = None
     rpn_train: RPNTrainConfig = RPNTrainConfig()
     rpn_proposal_train: ProposalConfig = ProposalConfig(nms_pre=2000, nms_post=2000, max_num=2000)
     rpn_proposal_test: ProposalConfig = ProposalConfig(

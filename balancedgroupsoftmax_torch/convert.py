@@ -4,8 +4,10 @@
 `FasterRCNN` (Mask R-CNN's with its `mask_head`), `models/cascade.py`
 `CascadeRCNN` (whose stage heads `bbox_head_{i}` become `bbox_heads.{i}`) or
 `models/htc.py` `HTC` (with `semantic_head` and `mask_head_{i}`, which become
-`mask_heads.{i}`) as a tree of dicts of arrays ({"params": ..., "batch_stats":
-...}; anything `np.asarray` reads) and returns the tensors of the port's model
+`mask_heads.{i}`) or a variant of `models/variants.py` (Fast R-CNN's, with no
+`rpn_head`; Grid R-CNN's `grid_head` and its GroupNorm `scale`s; Mask-Scoring
+R-CNN's `mask_iou_head`; the Double-Head's `bbox_head` convs and FCs) as a
+tree of dicts of arrays ({"params": ..., "batch_stats": ...}; anything `np.asarray` reads) and returns the tensors of the port's model
 under their names, refusing a top-level node it has no mapping for: conv
 kernels HWIO -> OIHW (a grouped kernel (kh, kw, C / g, C) becomes the
 (C, C / g, kh, kw) that `Conv2d(groups=g)` holds; a deformable conv's
@@ -106,8 +108,22 @@ def _mask_head(sd, dst, head) -> None:
             _conv(sd, f"{dst}.convs.{m[1]}" if m else f"{dst}.{name}", node)
 
 
+def _layer(sd, dst, node, transposed: bool = False) -> None:
+    """A layer that keeps its flax name: a GroupNorm (`scale`, `bias`), a
+    dense layer (2-D kernel), a transposed conv (flipped) or a conv."""
+    if "scale" in node:
+        sd[f"{dst}.weight"] = np.asarray(node["scale"])
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+    elif np.ndim(node["kernel"]) == 2:
+        _dense(sd, dst, node)
+    elif transposed:
+        _conv_transpose(sd, dst, node)
+    else:
+        _conv(sd, dst, node)
+
+
 # the top-level nodes of the JAX detectors' params that the port maps
-MAPPED = r"backbone|neck|rpn_head|bbox_head(_\d+)?|semantic_head|mask_head(_\d+)?"
+MAPPED = r"backbone|neck|rpn_head|bbox_head(_\d+)?|semantic_head|mask_head(_\d+)?|grid_head|mask_iou_head"
 
 
 def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -130,7 +146,8 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for name, node in params["neck"].items():
         kind, i = re.fullmatch(r"(lateral|fpn)(\d+)", name).groups()
         _conv(sd, f"neck.{kind}.{i}", node)
-    for name, node in params["rpn_head"].items():
+    # Fast R-CNN has no RPN
+    for name, node in params.get("rpn_head", {}).items():
         _conv(sd, f"rpn_head.{name}", node)
     for key, head in params.items():
         stage = re.fullmatch(r"bbox_head(?:_(\d+))?", key)
@@ -138,8 +155,9 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             continue
         dst = "bbox_head" if stage[1] is None else f"bbox_heads.{stage[1]}"
         for name, node in head.items():
+            # the shared FCs, or the Double-Head's convs and FCs under their own names
             m = re.fullmatch(r"shared_fc(\d+)", name)
-            _dense(sd, f"{dst}.shared_fcs.{m[1]}" if m else f"{dst}.{name}", node)
+            _layer(sd, f"{dst}.shared_fcs.{m[1]}" if m else f"{dst}.{name}", node)
 
     for name, node in params.get("semantic_head", {}).items():
         m = re.fullmatch(r"(lateral|conv)(\d+)", name)
@@ -149,6 +167,10 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         stage = re.fullmatch(r"mask_head(?:_(\d+))?", key)
         if stage is not None:
             _mask_head(sd, "mask_head" if stage[1] is None else f"mask_heads.{stage[1]}", head)
+    # Grid R-CNN's and Mask-Scoring R-CNN's heads keep the flax names
+    for key in ("grid_head", "mask_iou_head"):
+        for name, node in params.get(key, {}).items():
+            _layer(sd, f"{key}.{name}", node, transposed=name.startswith("up"))
 
     return _tensors(sd)
 

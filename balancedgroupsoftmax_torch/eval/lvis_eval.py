@@ -21,9 +21,10 @@ numpy branch), which follows the reference's lvis-api
   precedence for records that carry a "bbox", results.py:42-62).
 
 Detections are the records {image_id, category_id, bbox [x, y, w, h], score}
-that `eval.results` writes, with a "segmentation" RLE for segm. Records
-without a box, and Mask-Scoring R-CNN's "segm_score", are not ported
-(ROADMAP A8).
+that `eval.results` writes, with a "segmentation" RLE for segm; in segm mode a
+record's "segm_score" (Mask-Scoring R-CNN's detection score x predicted mask
+IoU) stands for its score (JAX :105-110), and bbox mode ignores it. Records
+without a box are not ported (ROADMAP A8, its leftover).
 """
 
 from __future__ import annotations
@@ -105,6 +106,8 @@ class LvisEvaluator:
         # LVISResults: the max_dets best of each image, by score
         by_img: Dict[int, List[dict]] = defaultdict(list)
         for d in detections:
+            if iou_type == "segm" and "segm_score" in d:
+                d = dict(d, score=d["segm_score"])
             by_img[d["image_id"]].append(d)
         self.dts_by_img_cat: Dict[tuple, List[dict]] = defaultdict(list)
         next_id = 1

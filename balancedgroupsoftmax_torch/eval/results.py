@@ -1,13 +1,14 @@
 """Detections -> LVIS result records and their JSON (JAX `eval/results.py`
 :17-46; the reference's mmdet/core/evaluation/lvis_utils.py `det2json` and
 its xyxy -> xywh with the +1 convention), and their masks pasted into the
-image and RLE-encoded (JAX tools/test_lvis.py:590-603). Labels are 0-based
+image and RLE-encoded, with Mask-Scoring R-CNN's mask scores (JAX
+tools/test_lvis.py:590-607). Labels are 0-based
 foreground indices; category_id = cat_ids[label]."""
 
 from __future__ import annotations
 
 import json
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -46,12 +47,16 @@ def add_segmentations(
     valid: np.ndarray,  # (M,) bool
     img_h: int,
     img_w: int,
+    mask_scores: Optional[np.ndarray] = None,  # (M,) Mask-Scoring R-CNN's
 ) -> None:
     """Give each record the "segmentation" of its detection: the mask pasted
-    at the original size (`paste_mask`) and RLE-encoded. The records are
-    those of the valid slots, in order."""
+    at the original size (`paste_mask`) and RLE-encoded, and with
+    `mask_scores` its "segm_score", which the segm evaluator ranks by. The
+    records are those of the valid slots, in order."""
     for rec, i in zip(records, np.flatnonzero(valid)):
         rec["segmentation"] = encode_mask(paste_mask(masks[i], boxes[i], img_h, img_w))
+        if mask_scores is not None:
+            rec["segm_score"] = float(mask_scores[i])
 
 
 def write_results_json(records: List[dict], path: str) -> None:

@@ -39,6 +39,11 @@ class SharedFCBBoxHead(nn.Module):
         self.fc_cls = Linear(in_dim, num_logits)
         self.fc_reg = Linear(in_dim, 4 if cfg.reg_class_agnostic else 4 * cfg.num_classes)
 
+    def init_special(self) -> dict:
+        """normal(0.01) fc_cls, normal(0.001) fc_reg; the shared FCs keep
+        `FasterRCNN.init_weights`' xavier-uniform."""
+        return {self.fc_cls: ("normal", 0.01), self.fc_reg: ("normal", 0.001)}
+
     def forward(self, roi_feats: torch.Tensor, return_feature: bool = False):
         """(..., S, S, C) -> (cls_logits (..., L), bbox_deltas (..., 4K or 4));
         with `return_feature` also the last shared FC's ReLU output, the

@@ -52,6 +52,9 @@ class Detections(NamedTuple):
 
 
 class FasterRCNN(nn.Module):
+    # Fast R-CNN (`models/variants.py`) has no RPN: its proposals are an input
+    HAS_RPN = True
+
     def __init__(
         self,
         cfg: DetectorConfig,
@@ -72,30 +75,27 @@ class FasterRCNN(nn.Module):
             bb.dcn_groups or 0, bb.dcn_shift_window,
         )
         self.neck = FPN(cfg.fpn.in_channels, cfg.fpn.out_channels, cfg.fpn.num_outs)
-        self.rpn_head = RPNHead(cfg.fpn.out_channels, cfg.anchors.num_base_anchors)
+        self.rpn_head = RPNHead(cfg.fpn.out_channels, cfg.anchors.num_base_anchors) if self.HAS_RPN else None
         self.mask_head: Optional[FCNMaskHead] = None
         self._init_roi_heads()
         self._anchor_cache: dict = {}
 
     def _init_roi_heads(self) -> None:
+        """The RoI heads; the families and the variants build theirs here
+        (JAX's `_make_bbox_head` and `_setup_extra`)."""
         self.bbox_head = SharedFCBBoxHead(self.cfg.bbox_head)
         if self.cfg.mask_head is not None:
             self.mask_head = FCNMaskHead(self.cfg.mask_head)
 
     def _init_special(self) -> dict:
-        """Layers whose JAX initialiser is not the default: layer -> ("normal",
-        std), ("he", None) for he-normal (variance 2 / fan_in), or ("zeros",
-        None)."""
-        special = {m: ("normal", 0.01) for m in (self.rpn_head.rpn_conv, self.rpn_head.rpn_cls, self.rpn_head.rpn_reg)}
-        for head in (m for m in self.modules() if isinstance(m, SharedFCBBoxHead)):
-            special.update({head.fc_cls: ("normal", 0.01), head.fc_reg: ("normal", 0.001)})
-        for dcn in (m for m in self.modules() if isinstance(m, DeformConv)):
-            special.update({dcn: ("he", None), dcn.conv_offset: ("zeros", None)})
-        # the mask heads' convs and upsampling are he-normal, their 1x1
-        # logits normal(0.001) (JAX mask_head.py :29, :90, :102)
-        for head in (m for m in self.modules() if isinstance(m, FCNMaskHead)):
-            special.update({conv: ("he", None) for conv in head.convs})
-            special.update({head.upsample: ("he", None), head.conv_logits: ("normal", 0.001)})
+        """Layers whose JAX initialiser is not the default, as each module
+        with an `init_special()` names its own: layer -> ("normal", std),
+        ("he", None) for he-normal (variance 2 / fan_in), ("lecun", None) for
+        a Linear (flax's default Dense), or ("zeros", None)."""
+        special = {}
+        for m in self.modules():
+            if hasattr(m, "init_special"):
+                special.update(m.init_special())
         return special
 
     @torch.no_grad()
@@ -195,8 +195,21 @@ class FasterRCNN(nn.Module):
         then the GS head's per-bin losses (or the `loss_cls_type` loss and
         accuracy) and the box regression, and "loss_mask" where the model has a mask head and
         `gt_mask_crops` are given. Sampling draws from `generator`."""
+        losses, feats, t = self._loss_core(images, gt_boxes, gt_labels, gt_mask, img_shapes, generator=generator)
+        if self.mask_head is not None and gt_mask_crops is not None:
+            losses["loss_mask"] = self._mask_loss(feats, t, gt_boxes, gt_mask_crops)
+        return losses
+
+    def _loss_core(self, images, gt_boxes, gt_labels, gt_mask, img_shapes, proposals=None, generator=None):
+        """The RPN's and the bbox head's losses: (losses, FPN levels, RoI
+        targets), which the variants' branches go on from (JAX
+        `detector.py:169`). Given `proposals` (boxes (B, P, 4), valid (B,
+        P)), no RPN runs (Fast R-CNN)."""
         c = self.cfg
-        feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
+        if proposals is None:
+            feats, losses, proposals = self._rpn_train(images, gt_boxes, gt_mask, img_shapes, generator)
+        else:
+            feats, losses = self.extract_feats(images), {}
         with torch.no_grad():
             t = roi_targets(
                 proposals.boxes, proposals.valid, gt_boxes, gt_labels, gt_mask, c.rcnn_train,
@@ -224,17 +237,23 @@ class FasterRCNN(nn.Module):
                 flat(t.bbox_targets), flat(t.bbox_weights), loss_cls_type=h.loss_cls_type,
                 class_weights=self.class_weights, focal_gamma=h.focal_gamma, focal_alpha=h.focal_alpha,
             )
-        if self.mask_head is not None and gt_mask_crops is not None:
-            losses["loss_mask"] = self._mask_loss(feats, t, gt_boxes, gt_mask_crops)
-        return losses
+        return losses, feats, t
 
     def _mask_loss(self, feats, t, gt_boxes, gt_mask_crops, pool=None, head=None) -> torch.Tensor:
+        """"loss_mask" of `_mask_branch`."""
+        return self._mask_branch(feats, t, gt_boxes, gt_mask_crops, pool, head)["loss_mask"]
+
+    def _mask_branch(self, feats, t, gt_boxes, gt_mask_crops, pool=None, head=None) -> dict:
         """The mask branch (two_stage.py:238-262) on the RoI targets `t`: the
         sampler puts the positives first, so only the first `mask_cap` =
         sampler.num x pos_fraction slots are pooled, at mask_size / 2 (K2,
         and K2b for its gradient), through the class-selected head, against
         the gt crops resampled into each positive's box. HTC passes its
-        stage's `pool(feats, rois)` and `head(x, labels) -> logits`."""
+        stage's `pool(feats, rois)` and `head(x, labels) -> logits`. Returns
+        "loss_mask" and what JAX's `_mask_branch` returns for the variants
+        (Mask-Scoring R-CNN): `m_rois` (B, cap, 4), `m_pooled` (B * cap, C,
+        S, S), `mask_logits` (B * cap, 2S, 2S), `m_targets` (B, cap, 2S, 2S),
+        `m_labels` and `m_pos` (B, cap), `mask_cap`."""
         c = self.cfg
         pool = pool or (lambda f, r: self._pool(f, r, c.mask_head.mask_size // 2))
         head = head or (lambda x, labels: self.mask_head(x, labels=labels)[0])
@@ -248,10 +267,12 @@ class FasterRCNN(nn.Module):
             m_targets = mask_targets(
                 m_rois, gt_boxes, t.pos_gt_inds[:, :mask_cap], gt_mask_crops, m_pos, c.mask_head.mask_size
             )
-        return mask_head_loss(
+        loss = mask_head_loss(
             logits, m_targets.flatten(0, 1), m_labels.flatten(), m_pos.flatten(),
             class_agnostic=c.mask_head.class_agnostic, preselected=not c.mask_head.class_agnostic,
         )
+        return dict(loss_mask=loss, m_rois=m_rois, m_pooled=x, mask_logits=logits, m_targets=m_targets,
+                    m_labels=m_labels, m_pos=m_pos, mask_cap=mask_cap)
 
     @torch.inference_mode()
     def predict(
@@ -264,9 +285,12 @@ class FasterRCNN(nn.Module):
         """simple_test parity (two_stage.py:267-290)."""
         return self._predict_feats(self.extract_feats(images), images, img_shapes, scale_factors, rescale)
 
-    def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True) -> Detections:
+    def _predict_feats(self, feats, images, img_shapes, scale_factors, rescale=True, proposals=None) -> Detections:
+        """The detections from the FPN levels: the test RPN's proposals (K1),
+        or the given `proposals` (boxes, valid) of Fast R-CNN."""
         img_shapes = img_shapes.float()
-        proposals = self._proposals(feats, images, img_shapes)
+        if proposals is None:
+            proposals = self._proposals(feats, images, img_shapes)
         boxes, scores = self._score_rois(feats, proposals.boxes, img_shapes)
         if rescale:
             boxes = boxes / scale_factors.float()[:, None, None]
@@ -388,11 +412,10 @@ def build_model(
     `cfg.htc` is set, else Cascade R-CNN when `cfg.cascade` is, else Faster
     R-CNN, which is Mask R-CNN when `cfg.mask_head` is set. All have
     `predict` and `loss` (HTC's and Mask R-CNN's also take the gt mask
-    crops, and have `predict_with_masks`). `class_weights` feed the
-    "reweight" loss of Faster and Mask R-CNN; the cascade and HTC, as in
-    JAX, ignore `loss_cls_type`. The detector variants are not ported."""
-    if getattr(cfg, "variant", None) is not None:
-        raise NotImplementedError("variant detectors are not ported yet")
+    crops, and have `predict_with_masks`). With `cfg.variant`, the variant
+    of `models/variants.py` (Fast, Grid, Mask-Scoring or Double-Head R-CNN).
+    `class_weights` feed the "reweight" loss of Faster and Mask R-CNN; the
+    cascade and HTC, as in JAX, ignore `loss_cls_type`."""
     if cfg.htc is not None:
         from .htc import build_htc
 
@@ -401,4 +424,8 @@ def build_model(
         from .cascade import build_cascade
 
         return build_cascade(cfg, partition=partition, dtype=dtype, class_weights=class_weights)
+    if cfg.variant is not None:
+        from .variants import build_variant
+
+        return build_variant(cfg, partition=partition, dtype=dtype, class_weights=class_weights)
     return build_detector(cfg, partition=partition, dtype=dtype, class_weights=class_weights)

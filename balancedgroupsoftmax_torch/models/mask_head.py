@@ -35,6 +35,12 @@ class FCNMaskHead(nn.Module):
         self.upsample = ConvTranspose2d(c.conv_out_channels, c.conv_out_channels, 2, stride=2)
         self.conv_logits = Conv2d(c.conv_out_channels, 1 if c.class_agnostic else c.num_classes - 1, 1)
 
+    def init_special(self) -> dict:
+        """he-normal convs and upsampling, normal(0.001) logits (JAX
+        mask_head.py :29, :90, :102); `conv_res` keeps the lecun default."""
+        special = {conv: ("he", None) for conv in self.convs}
+        return {**special, self.upsample: ("he", None), self.conv_logits: ("normal", 0.001)}
+
     def forward(
         self,
         x: torch.Tensor,  # (N, C, S, S) RoI features

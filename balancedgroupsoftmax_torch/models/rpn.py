@@ -30,6 +30,10 @@ class RPNHead(nn.Module):
         self.rpn_cls = Conv2d(feat_channels, num_anchors, 1)
         self.rpn_reg = Conv2d(feat_channels, num_anchors * 4, 1)
 
+    def init_special(self) -> dict:
+        """normal(0.01) convs (JAX `rpn.py`), for `FasterRCNN.init_weights`."""
+        return {m: ("normal", 0.01) for m in (self.rpn_conv, self.rpn_cls, self.rpn_reg)}
+
     def forward(self, feats: Sequence[torch.Tensor]):
         """Per level (cls_logits (B, H * W * A), deltas (B, H * W * A, 4))."""
         outs = []

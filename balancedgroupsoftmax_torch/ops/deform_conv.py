@@ -658,6 +658,10 @@ class DeformConv(nn.Module):
         nn.init.zeros_(self.conv_offset.bias)
         nn.init.kaiming_normal_(self.weight, nonlinearity="relu")
 
+    def init_special(self) -> dict:
+        """he-normal weight, zero offset conv, for `FasterRCNN.init_weights`."""
+        return {self: ("he", None), self.conv_offset: ("zeros", None)}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, C, H, W) -> (B, C_out, Ho, Wo), in x's dtype."""
         taps = self.kernel_size**2

@@ -13,10 +13,12 @@ dropped. `--tau` tau-normalises the classifier first (`apis.tau_norm`).
 classifier, tau-normalised with TAU but for its background row, rescores the
 same proposals, and takes a RoI's score row where its class has fewer than
 `--tail-threshold` training instances (`models/dual_head.py`). A model with
-a mask head (Mask R-CNN, HTC) serves with `predict_with_masks`, one backbone
-pass, or, behind `--tau-select`, runs `predict_masks` on the final boxes
-(JAX :576-607); each valid detection's mask is pasted at the original size
-and RLE-encoded into its record's "segmentation". It prints the time split
+a mask head (Mask R-CNN, HTC, Mask-Scoring R-CNN) serves with
+`predict_with_masks`, one backbone pass, or, behind `--tau-select`, runs
+`predict_masks` on the final boxes (JAX :576-607); each valid detection's
+mask is pasted at the original size and RLE-encoded into its record's
+"segmentation", and Mask-Scoring R-CNN's records carry its mask score as
+"segm_score", which the segm evaluator ranks them by. It prints the time split
 into preprocessing, prediction (with the copies to and from the card),
 records, masks (paste and encode) and evaluation, then the evaluator's bbox
 table and, for a mask model, its segm table. It runs on the card unless
@@ -253,8 +255,9 @@ def infer_dataset(
     records, seconds spent in "preprocess", "predict" and "records"); with
     `aug`, `predict_aug`. A model with a mask head serves with
     `predict_with_masks` (or runs `predict_masks` on what `predict` or the
-    augmentation found), its records carry their "segmentation", and the
-    seconds pasting and encoding them are under "masks"."""
+    augmentation found), its records carry their "segmentation" (and
+    Mask-Scoring R-CNN's their "segm_score"), and the seconds pasting and
+    encoding them are under "masks"."""
     device = next(model.parameters()).device
     with_masks = model.cfg.mask_head is not None
     n = min(len(ds), limit or len(ds))
@@ -263,9 +266,11 @@ def infer_dataset(
     for idxs, batch in bucket_batches(ds, pcfg, batch_size, n, times, keep_raw=bool(aug)):
         t0 = time.perf_counter()
         images, shapes, sfs = (torch.from_numpy(batch[k]).to(device) for k in ("image", "img_shape", "scale_factor"))
-        masks = None
+        masks = mask_scores = None
         if with_masks and predict is None and not aug:
-            dets, masks = model.predict_with_masks(images, shapes, sfs)
+            # Mask-Scoring R-CNN also returns its mask scores
+            dets, masks, *mask_scores = model.predict_with_masks(images, shapes, sfs)
+            mask_scores = mask_scores[0].float().cpu().numpy() if mask_scores else None
         else:
             dets = predict_aug(model, batch, pcfg, aug) if aug else (predict or model.predict)(images, shapes, sfs)
             if with_masks:
@@ -281,7 +286,8 @@ def infer_dataset(
             t2 = time.perf_counter()
             times["records"] += t2 - t1
             if masks is not None:
-                add_segmentations(recs, masks[bi], boxes[bi], valid[bi], info["height"], info["width"])
+                add_segmentations(recs, masks[bi], boxes[bi], valid[bi], info["height"], info["width"],
+                                  None if mask_scores is None else mask_scores[bi])
                 times["masks"] += time.perf_counter() - t2
             records += recs
     return records, times

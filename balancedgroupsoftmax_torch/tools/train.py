@@ -22,12 +22,18 @@ i) % 2^31, as in the JAX CLI, and a resumed run goes on from the batch where
 the checkpoint stood, so a resumed run takes the steps an uninterrupted one
 would have taken.
 
-For a model with a mask head (the HTC models) each sample also carries its
-gt masks, rasterised from the annotation's segmentations at the original size
-into box-normalised crops (`ops/mask.py`), flipped with the image.
+`--model` also takes the detector variants `grid_rcnn_r50`,
+`mask_scoring_rcnn_r50` and `double_head_rcnn_r50` (Fast R-CNN takes its
+proposals as input and trains through `model.loss` alone, as in JAX). The
+model is resized to the dataset's classes, every head of it.
+
+For a model with a mask head (Mask R-CNN, Mask-Scoring R-CNN, HTC) each
+sample also carries its gt masks, rasterised from the annotation's
+segmentations at the original size into box-normalised crops (`ops/mask.py`),
+flipped with the image.
 
 Not ported here: `--dataset cityscapes`, `--remat`, `--autosave-steps`,
-`--val-ann`, `--distributed` and Mask R-CNN (ROADMAP A2-A6).
+`--val-ann` and `--distributed` (ROADMAP A6, A10 and the leftovers).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """The detector configurations of the ported slices (JAX `zoo.py` :27, :38,
-:65, :83, :92, :109, :127 and :162-190): each constructor returns its
+:65, :83, :92, :109, :127, :162-190 and the variants :191-250): each constructor returns its
 `DetectorConfig`, and `TRAIN_CONFIGS` holds the `TrainConfig` that the JAX
 constructor returns beside it."""
 
@@ -14,6 +14,7 @@ from .config import (
     HTCConfig,
     MaskHeadConfig,
     TrainConfig,
+    VariantConfig,
 )
 
 
@@ -109,6 +110,40 @@ def faster_rcnn_r50_fpn_reweight_lvis(num_classes: int = 1231) -> DetectorConfig
     return DetectorConfig(bbox_head=BBoxHeadConfig(num_classes=num_classes, loss_cls_type="reweight"))
 
 
+# The detector variants (`models/variants.py`): mmdet detectors that no LVIS
+# config uses; 81 classes as in their COCO configs, `num_classes` overridable
+# (the CLIs set the dataset's).
+
+
+def fast_rcnn_r50_fpn(num_classes: int = 81) -> DetectorConfig:
+    """mmdet fast_rcnn_r50_fpn: no RPN, the proposals are an input."""
+    return DetectorConfig(bbox_head=BBoxHeadConfig(num_classes=num_classes), variant=VariantConfig(kind="fast"))
+
+
+def grid_rcnn_r50_fpn(num_classes: int = 81) -> DetectorConfig:
+    """mmdet grid_rcnn_gn_head_r50_fpn: boxes located by grid-point heatmaps."""
+    return DetectorConfig(bbox_head=BBoxHeadConfig(num_classes=num_classes), variant=VariantConfig(kind="grid"))
+
+
+def mask_scoring_rcnn_r50_fpn(num_classes: int = 81) -> DetectorConfig:
+    """mmdet ms_rcnn_r50_fpn: Mask R-CNN whose mask scores are rescored by a
+    MaskIoU head."""
+    return DetectorConfig(
+        bbox_head=BBoxHeadConfig(num_classes=num_classes),
+        mask_head=MaskHeadConfig(num_classes=num_classes),
+        variant=VariantConfig(kind="mask_scoring"),
+    )
+
+
+def double_head_rcnn_r50_fpn(num_classes: int = 81, reg_roi_scale_factor: float = 1.3) -> DetectorConfig:
+    """mmdet dh_faster_rcnn_r50_fpn: a conv branch regresses from rois
+    inflated by `reg_roi_scale_factor`, an fc branch classifies."""
+    return DetectorConfig(
+        bbox_head=BBoxHeadConfig(num_classes=num_classes),
+        variant=VariantConfig(kind="double_head", reg_roi_scale_factor=reg_roi_scale_factor),
+    )
+
+
 # the BAGS recipe trains phase 2 with only fc_cls (bg8.py:193,198), GS Mask
 # R-CNN's too; the GS cascade and the GS HTC train every stage's fc_cls
 # (selectp=3); HTC runs 20 epochs (the _20e configs); the focal and
@@ -129,4 +164,8 @@ TRAIN_CONFIGS = {
     "faster_rcnn_x101_64x4d_fpn_lvis": TrainConfig(),
     "htc_x101_64x4d_fpn_lvis": TrainConfig(total_epochs=20),
     "gs_htc_x101_64x4d_fpn_lvis": TrainConfig(selectp=3, total_epochs=20),
+    "fast_rcnn_r50_fpn": TrainConfig(),
+    "grid_rcnn_r50_fpn": TrainConfig(),
+    "mask_scoring_rcnn_r50_fpn": TrainConfig(),
+    "double_head_rcnn_r50_fpn": TrainConfig(),
 }

@@ -90,6 +90,21 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    version, and time it, on the mask branch's gradient and rois; then one
    small f32 Mask R-CNN step on the card and on the CPU, the loss dicts and
    gradients compared;
+12d. the detector variants (`run_variant_path`), each the zoo's config at
+   1231 classes, bf16, 800 x 1344, batch 2, seeded weights, through
+   `build_model`: Grid R-CNN `predict` (K1, K3 once; K2 twice, S = 7 and
+   S = 14 on the 300 detections an image; `grid_to_boxes` card vs CPU on
+   its heatmaps and on tied ones), Double-Head R-CNN `predict` (K2 twice at
+   S = 7, the second on the rois inflated 1.3x), Mask-Scoring R-CNN
+   `predict_with_masks` (K2 at 7 and 14; finite mask scores) and Fast R-CNN
+   `predict` on 1000 seeded proposals an image (no K1, K2 once, K3 once),
+   each profiled; selectp=0 steps (K4 once, none for Fast R-CNN, which
+   trains through `loss` on 2000 seeded proposals; K2 and K2b as K2
+   serves; "loss_grid" and "loss_mask_iou" positive), Mask-Scoring's
+   selectp=4 steps (its MaskIoU head frozen); K2 and K2b held to their plain
+   versions and timed on the grid's S = 14 and the Double-Head's inflated
+   rois (the "/grid" and "/double-head" rows); each variant's small f32
+   predict and step card vs CPU;
 13. drive the BAGS two-phase recipe through the CLIs' `main(argv)` at full
    width (`run_flow`): an LVIS-shaped fixture of 8 JPEGs in both buckets
    with 1230 classes, the partition, phase 1 (K4, K2 and K2b once a step),
@@ -99,7 +114,9 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    finite and inside their images) and the eval CLI (the same table); then
    a mask_rcnn_r50 train-CLI step with the gt crops and the test CLI on its
    checkpoint (segm records, each a mask of its image, and a finite segm
-   table; K1 and K3 once and K2 twice a batch); K1-K4
+   table; K1 and K3 once and K2 twice a batch), and the same for
+   mask_scoring_rcnn_r50 (two steps; records with a finite "segm_score",
+   the segm table ranked by it); K1-K4
    and K2 are held to their plain versions on the CLIs' inputs, and the
    train CLI's images/s from JPEG files and the test CLIs' time splits (the
    masks' paste and encode among them) are printed;
@@ -531,12 +548,13 @@ def pyramid(torch, dtype, dev, gen):
     ]
 
 
-def main_rois(torch, dev, gen, r=1000):
-    """Proposal-like rois over all four levels (side 8 to 800 pixels)."""
-    h, w = MAIN_SIZE
-    side = torch.exp(torch.empty(MAIN_BATCH, r, 2).uniform_(2.0, 6.7, generator=gen))
-    x1 = torch.rand(MAIN_BATCH, r, generator=gen) * (w - 1)
-    y1 = torch.rand(MAIN_BATCH, r, generator=gen) * (h - 1)
+def main_rois(torch, dev, gen, r=1000, size=MAIN_SIZE, batch=MAIN_BATCH):
+    """Proposal-like rois over all four levels (side 8 to 800 pixels) in
+    images of `size`."""
+    h, w = size
+    side = torch.exp(torch.empty(batch, r, 2).uniform_(2.0, 6.7, generator=gen))
+    x1 = torch.rand(batch, r, generator=gen) * (w - 1)
+    y1 = torch.rand(batch, r, generator=gen) * (h - 1)
     rois = torch.stack(
         [x1, y1, (x1 + side[..., 0]).clamp(max=w - 1), (y1 + side[..., 1]).clamp(max=h - 1)], -1
     )
@@ -985,7 +1003,8 @@ def run_predicts(torch, model, per_predict: dict, call=None):
         ok = launches[sym] > 0 if each is None else launches[sym] == each * (TIMED_PREDICTS + 1)
         if not ok:
             raise AssertionError(f"{sym} launched {launches[sym]} times, not {each} a predict")
-    det, masks = out if isinstance(out, tuple) and len(out) == 2 else (out, None)
+    # (dets, masks), Mask-Scoring R-CNN's (dets, masks, mask scores), or dets
+    det, masks, *mask_scores = out if isinstance(out, tuple) and len(out) in (2, 3) else (out, None)
     check_detections(torch, det, model.cfg.bbox_head.num_classes, MAIN_SIZE)
     log(f"  detections: {int(det.valid.sum())} valid, top score {det.scores[0, 0].item():.6f}")
     if masks is not None:
@@ -997,6 +1016,11 @@ def run_predicts(torch, model, per_predict: dict, call=None):
             raise AssertionError("masks are not finite probabilities")
         log(f"  masks {tuple(masks.shape)} {masks.dtype}: in [{m.min().item():.4f}, {m.max().item():.4f}], "
             f"mean {m.mean().item():.4f}")
+    if mask_scores:
+        ms = mask_scores[0][det.valid]
+        if mask_scores[0].shape != det.scores.shape or not torch.isfinite(ms).all() or torch.equal(ms, det.scores[det.valid]):
+            raise AssertionError("mask scores not finite, of another shape, or the detection scores unchanged")
+        log(f"  mask scores (score x predicted mask IoU): in [{ms.min().item():.6f}, {ms.max().item():.6f}]")
     return launches, (images, img_shapes, scale_factors)
 
 
@@ -1174,12 +1198,13 @@ def profile_device(torch, label: str, fn, top: int = 12) -> dict:
     return {e.key: (self_us(e) / 1e3, e.count) for e in rows}
 
 
-def compare_small(torch, model) -> None:
+def compare_small(torch, model, proposals=None) -> None:
     """The main path's model in f32 on a 256 x 384 image: the card (kernels)
     against the CPU (plain versions). Convolutions sum in other orders on the
     two, so near-tied scores may swap places; the check asks that the score
     lists agree to 1e-4 and that 95% of the card's detections are found on
-    the CPU with the same label and boxes within 1e-2 pixels."""
+    the CPU with the same label and boxes within 1e-2 pixels. Fast R-CNN
+    takes `proposals` (1, P, 4)."""
     from balancedgroupsoftmax_torch.models.detector import build_model
 
     dev = next(model.parameters()).device
@@ -1192,14 +1217,15 @@ def compare_small(torch, model) -> None:
     images = torch.randn(1, 256, 384, 3, generator=gen)
     shapes = torch.tensor([[256.0, 384.0]])
     sf = torch.ones(1)
+    given = lambda d: {} if proposals is None else dict(proposals=proposals.to(d))
     allow = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        g = gpu_model.predict(images.to(dev), shapes.to(dev), sf.to(dev))
+        g = gpu_model.predict(images.to(dev), shapes.to(dev), sf.to(dev), **given(dev))
         g = [t.cpu() for t in g]
     finally:
         torch.backends.cudnn.allow_tf32 = allow
-    detections_agree(torch, g, cpu_model.predict(images, shapes, sf), "small input")
+    detections_agree(torch, g, cpu_model.predict(images, shapes, sf, **given("cpu")), "small input")
 
 
 def detections_agree(torch, g, c, label: str) -> None:
@@ -1272,35 +1298,63 @@ def train_batch(seed: int, partition, size=(427, 640), masks: bool = False):
     return batch
 
 
-def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
+def train_step_for(torch, model, cfg, proposals=None):
+    """`make_train_step`'s step for `model` at the TrainConfig `cfg`; with
+    `proposals` (B, P, 4), Fast R-CNN's: the same step on `model.loss` with
+    them, as the JAX package trains Fast R-CNN (its train step passes no
+    proposals)."""
+    from balancedgroupsoftmax_torch.parallel.train import BATCH_KEYS, create_train_state, make_train_step
+
+    state = create_train_state(model, cfg)
+    if proposals is None:
+        return make_train_step(state)
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    dev = next(model.parameters()).device
+
+    def step(batch, gen):
+        state.optimizer.zero_grad(set_to_none=True)
+        losses = model.loss(*(torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS),
+                            proposals=proposals.to(dev), generator=gen)
+        total = sum(v for k, v in losses.items() if "loss" in k)
+        total.backward()
+        torch.nn.utils.clip_grad_norm_(params, state.grad_clip_norm)
+        state.optimizer.step()
+        state.scheduler.step()
+        return {**{k: v.detach() for k, v in losses.items()}, "loss": total.detach()}
+
+    return step
+
+
+def run_train_path(torch, model, phase2, phase2_model=None, pools=None, heads=(), losses=(), proposals=None) -> dict:
     """Full training steps of `model` (bf16, on the card) at 800 x 1344,
     batch 2, then BAGS phase-2 steps with the TrainConfig `phase2` of
     `phase2_model` (`model` by default), a first and a timed one, which must
-    move the fc_cls tensors alone. Each step launches K4 once, and K2 and
-    K2b once a stage and once more for a mask head. With a mask head the batch holds gt mask crops
+    move the fc_cls tensors alone (none with `phase2` None). Each step
+    launches K4 once (none with Fast R-CNN's `proposals`), and K2 and K2b
+    `pools` times (by default once a stage and once more for a mask head). With a mask head the batch holds gt mask crops
     (`train_batch(masks=True)`), "loss_mask" must be finite, the mask head
     must move, and two selectp=4 steps of `phase2_model` must move the bbox
-    and mask heads alone and launch no K2b. Returns the launches of the
+    and mask heads alone and launch no K2b. The modules `heads` must move
+    too, and the `losses` be positive. Returns the launches of the
     selectp=0 steps, what the first of them handed K4 (boxes, valid,
-    iou_thr) and, with a mask head, K2b at S = 14 ((args, kwargs)), the
-    mean ms of the timed steps and the peak GiB."""
+    iou_thr; None without an RPN) and K2b at S = 14 ((args, kwargs), or
+    None), every K2b call of that step, the mean ms of the timed steps and
+    the peak GiB."""
     from balancedgroupsoftmax_torch import cuda
     from balancedgroupsoftmax_torch.config import TrainConfig
     from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
     from balancedgroupsoftmax_torch.ops import roi_align as ops_roi
-    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
 
     dev = next(model.parameters()).device
     stages = model.cfg.cascade.num_stages if model.cfg.cascade else 1
     masks = model.mask_head is not None
-    pools = stages + masks
+    pools = stages + masks if pools is None else pools
     batch = train_batch(8, model.partition or synthetic_partition(model.cfg.bbox_head.num_classes), masks=masks)
     if tuple(batch["images"].shape[1:3]) != MAIN_SIZE or int(batch["gt_mask"].sum()) != MAIN_BATCH * TRAIN_GTS:
         raise AssertionError(f"training batch {batch['images'].shape}, {int(batch['gt_mask'].sum())} gts")
     # loading the batch is set-up: the timed steps start from the card
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    state = create_train_state(model, TrainConfig(selectp=0))
-    step = make_train_step(state)
+    step = train_step_for(torch, model, TrainConfig(selectp=0), proposals)
     gen = torch.Generator(device=dev).manual_seed(0)
     named = dict(model.named_parameters())
     before = {n: p.detach().clone() for n, p in named.items()}
@@ -1309,12 +1363,11 @@ def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    # the first step also records what the RPN's NMS hands K4, and K2b with a mask head
+    # the first step also records what the RPN's NMS hands K4, and what K2b is handed
     out, k2b = [], []
     first = lambda: out.append(step(batch, gen))
-    with_k2b = (lambda: k2b.extend(record_calls(ops_roi, "roi_align_backward", first))) if masks else first
-    seen = capture_calls(("nms_keep_tiled",), with_k2b)
-    metrics, k4_inputs = out[0], seen["nms_keep_tiled"][0]
+    seen = capture_calls(("nms_keep_tiled",), lambda: k2b.extend(record_calls(ops_roi, "roi_align_backward", first)))
+    metrics, k4_inputs = out[0], seen["nms_keep_tiled"][0] if "nms_keep_tiled" in seen else None
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     step_ms = []
@@ -1333,28 +1386,31 @@ def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
     log(f"  launches over {TIMED_STEPS + 1} steps: {launches}")
     log("  losses: " + ", ".join(f"{k} {v.item():.5f}" for k, v in metrics.items()))
     steps = TIMED_STEPS + 1
-    for sym, each in (("bags_nms_keep_tiled", 1), ("bags_roi_align_forward", pools), ("bags_roi_align_backward", pools)):
+    k4 = 0 if proposals is not None else 1
+    for sym, each in (("bags_nms_keep_tiled", k4), ("bags_roi_align_forward", pools), ("bags_roi_align_backward", pools)):
         if launches[sym] != each * steps:
             raise AssertionError(f"{sym} launched {launches[sym]} times in {steps} steps, not {each} a step")
     if not all(torch.isfinite(v).item() for v in metrics.values()) or masks != ("loss_mask" in metrics):
         raise AssertionError(f"a loss is not finite, or loss_mask is amiss: {metrics}")
+    if not all(k in metrics and metrics[k].item() > 0 for k in losses):
+        raise AssertionError(f"the losses {losses} are not all there and positive: {metrics}")
     moved = {n for n, p in named.items() if not torch.equal(p.detach(), before[n])}
     trainable = {n for n, p in named.items() if p.requires_grad}
-    heads = ("backbone", "neck", "rpn_head", "bbox_head") + (("mask_head.",) if masks else ())
+    heads = ("backbone", "neck", "bbox_head") + (("rpn_head",) if k4 else ()) + (("mask_head.",) if masks else ()) + heads
     if moved - trainable or not all(any(n.startswith(m) for n in moved) for m in heads):
         raise AssertionError(f"selectp=0 moved {len(moved)} tensors of {len(trainable)} trainable")
     log(f"  selectp=0 moved {len(moved)} of {len(trainable)} trainable tensors, no frozen one"
         + (", the mask head's among them" if masks else ""))
     profile_device(torch, "train step", lambda: step(batch, gen))
-    del step, state
+    del step
 
     phase_model = phase2_model or model
     named = dict(phase_model.named_parameters())
-    phases = [(phase2, sorted(n for n in named if "fc_cls" in n))]
+    phases = [] if phase2 is None else [(phase2, sorted(n for n in named if "fc_cls" in n))]
     if masks:
         phases.append((TrainConfig(selectp=4), sorted(n for n in named if n.startswith(("bbox_head.", "mask_head.")))))
     for cfg, expect in phases:
-        phase = make_train_step(create_train_state(phase_model, cfg))
+        phase = train_step_for(torch, phase_model, cfg, proposals)
         before = {n: p.detach().clone() for n, p in named.items()}
         for k in cuda.KERNELS:
             k.launches = 0
@@ -1377,7 +1433,8 @@ def run_train_path(torch, model, phase2, phase2_model=None) -> dict:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del phase
     k2b_14 = [c for c in k2b if c[0][4] == 14]
-    return dict(launches=launches, k4_inputs=k4_inputs, k2b=k2b_14[0] if k2b_14 else None, ms=ms, peak=peak)
+    return dict(launches=launches, k4_inputs=k4_inputs, k2b=k2b_14[0] if k2b_14 else None, k2b_calls=k2b, ms=ms,
+                peak=peak)
 
 
 def run_mask_rcnn_path(torch, bgs, ops_roi, dev):
@@ -1434,19 +1491,21 @@ def run_mask_rcnn_train(torch, bgs, ops_roi, dev) -> dict:
     return trained
 
 
-def compare_small_train(torch, model, selectp: int = 0) -> None:
+def compare_small_train(torch, model, selectp: int = 0, proposals=None) -> None:
     """One f32 training step of the main path's model, 1231 classes, on two
     256 x 384 images, on the card (kernels, K4 included: the RPN still takes
     2000 boxes a level) and on the CPU (plain versions), from the same
     weights. Sampling is made deterministic by the configuration, as in
     tests/test_torch_train_step.py: every anchor and every RoI candidate is
-    sampled and the GS others' budget covers them all. The loss dicts must
-    agree to 1e-3 relative: convolutions sum in other orders (TF32 off), and
+    sampled, the GS others' budget covers them all and Grid R-CNN's
+    positives are not jittered. The loss dicts must agree to 1e-3 relative:
+    convolutions sum in other orders (TF32 off), and
     a proposal whose IoU with another lies within rounding of the NMS
     threshold may be kept on one side only, which moves an averaged loss by
     about one part in the 216 RoIs. The step trains at `selectp` with the
     model's class weights; every trained parameter's gradient must agree to
-    GRAD_NORM_LIMIT in the relative norm, as `compare_small_mask_train`'s."""
+    GRAD_NORM_LIMIT in the relative norm, as `compare_small_mask_train`'s.
+    Fast R-CNN takes `proposals` (2, 100, 4), the count the sampler takes."""
     import dataclasses
 
     import numpy as np
@@ -1454,7 +1513,6 @@ def compare_small_train(torch, model, selectp: int = 0) -> None:
     from balancedgroupsoftmax_torch.config import TrainConfig
     from balancedgroupsoftmax_torch.gs.partition import synthetic_partition
     from balancedgroupsoftmax_torch.models.detector import build_model
-    from balancedgroupsoftmax_torch.parallel.train import create_train_state, make_train_step
 
     dev = next(model.parameters()).device
     cfg = model.cfg
@@ -1468,6 +1526,8 @@ def compare_small_train(torch, model, selectp: int = 0) -> None:
         # the 100 proposals and the 8 gt boxes, which each later stage adds again
         rcnn_train=take_all(cfg.rcnn_train, 100 + 8 * stages),
         bbox_head=dataclasses.replace(cfg.bbox_head, gs=dataclasses.replace(cfg.bbox_head.gs, others_sample_ratio=1e4)),
+        # the grid's jitter too: the card's generator draws other numbers than the CPU's
+        variant=cfg.variant and dataclasses.replace(cfg.variant, grid_jitter=0.0),
     )
     weights = {k: v.float().cpu() for k, v in model.state_dict().items()}
     partition = model.partition or synthetic_partition(cfg.bbox_head.num_classes)  # the labels' bins
@@ -1492,7 +1552,7 @@ def compare_small_train(torch, model, selectp: int = 0) -> None:
             m = build_model(cfg, model.partition, torch.float32, class_weights=class_weights)
             m.load_state_dict(weights)
             m.to(device)
-            step = make_train_step(create_train_state(m, TrainConfig(selectp=selectp)))
+            step = train_step_for(torch, m, TrainConfig(selectp=selectp), proposals)
             out[name] = {k: v.item() for k, v in step(batch, torch.Generator(device=device).manual_seed(0)).items()}
             grad[name] = {n: p.grad.double().cpu() for n, p in m.named_parameters() if p.grad is not None}
     finally:
@@ -2115,32 +2175,35 @@ def compare_masks_card_cpu(torch, cpu_model, gpu_model, label: str) -> None:
     """`predict_with_masks` of two f32 copies of a model on `small_image`:
     the card's (kernels) against the CPU's (plain versions), as
     `compare_small` does for the detections; for the detections found
-    alike, the masks must agree within 1e-3."""
+    alike, the masks (and Mask-Scoring R-CNN's mask scores) must agree
+    within 1e-3."""
     dev = next(gpu_model.parameters()).device
     images, shapes, sf = small_image(torch)
     allow = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        g, gm = gpu_model.predict_with_masks(images.to(dev), shapes.to(dev), sf.to(dev))
-        g, gm = [t.cpu() for t in g], gm.cpu()
+        g, gm, *gs = gpu_model.predict_with_masks(images.to(dev), shapes.to(dev), sf.to(dev))
+        g, gm, gs = [t.cpu() for t in g], gm.cpu(), [t.cpu() for t in gs]
     finally:
         torch.backends.cudnn.allow_tf32 = allow
-    c, cm = cpu_model.predict_with_masks(images, shapes, sf)
+    c, cm, *cs = cpu_model.predict_with_masks(images, shapes, sf)
     score_err = (g[1] - c[1]).abs().max().item()
     gb, gl, gv = g[0][0], g[2][0], g[3][0]
     cb, cl, cv = c[0][0], c[2][0], c[3][0]
-    matched, mask_err = 0, 0.0
+    matched, mask_err, ms_err = 0, 0.0, 0.0
     for i in torch.nonzero(gv).flatten().tolist():
         same = cv & (cl == gl[i]) & ((cb - gb[i]).abs().amax(dim=-1) <= 1e-2)
         if bool(same.any()):
             matched += 1
             j = int(torch.nonzero(same)[0])
             mask_err = max(mask_err, (gm[0, i] - cm[0, j]).abs().max().item())
+            if gs:
+                ms_err = max(ms_err, abs(gs[0][0, i].item() - cs[0][0, j].item()))
     total = int(gv.sum())
     log(f"  small {label} input, card vs CPU: max score diff {score_err:.3e}, {matched}/{total} detections "
-        f"matched, max mask diff over them {mask_err:.3e}")
-    if not (score_err <= 1e-4 and total > 0 and matched >= 0.95 * total and mask_err <= 1e-3):
-        raise AssertionError("card and CPU detections or masks disagree")
+        f"matched, max mask diff over them {mask_err:.3e}" + (f", max mask-score diff {ms_err:.3e}" if gs else ""))
+    if not (score_err <= 1e-4 and total > 0 and matched >= 0.95 * total and mask_err <= 1e-3 and ms_err <= 1e-3):
+        raise AssertionError("card and CPU detections, masks or mask scores disagree")
 
 
 def compare_small_htc(torch, model) -> None:
@@ -2171,6 +2234,137 @@ def compare_small_mask_rcnn(torch, model) -> None:
     gpu_model = build_model(model.cfg, model.partition, torch.float32).eval()
     gpu_model.load_state_dict(cpu_model.state_dict())
     compare_masks_card_cpu(torch, cpu_model, gpu_model.to(dev), "Mask R-CNN")
+
+
+VARIANT_LABELS = {"grid": "Grid R-CNN", "double_head": "Double-Head R-CNN", "mask_scoring": "Mask-Scoring R-CNN",
+                  "fast": "Fast R-CNN"}
+VARIANT_PROPOSALS = (1000, 2000)  # Fast R-CNN's seeded proposals an image: serving, training (the RPN's counts)
+
+
+def variant_model(torch, dev, kind: str):
+    """The zoo's `{kind}_rcnn_r50_fpn` at LVIS's 1231 classes (as the CLIs
+    build it for LVIS), in bf16 on the card, through `build_model`, with
+    seeded weights."""
+    from balancedgroupsoftmax_torch import zoo
+    from balancedgroupsoftmax_torch.models.detector import build_model
+
+    cfg = getattr(zoo, f"{kind}_rcnn_r50_fpn")(num_classes=1231)
+    return build_model(cfg, dtype=torch.bfloat16).init_weights(0).to(dev).eval()
+
+
+def check_grid_decode(torch, dev, heat, rois) -> None:
+    """`grid_to_boxes` on the card against the CPU: on the bf16 heatmaps
+    (N, 9, 56, 56) and boxes a Grid R-CNN predict decoded, and on seeded bf16
+    heatmaps of three values, whose maxima tie. The argmax cells must be the
+    same (both take the first maximum, as jnp.argmax) and the boxes within
+    1e-3 px: the card fuses the cell-to-image multiply-add, a few f32 ulps
+    at 1344 px, while a cell apart they would differ by a 56th of the box."""
+    from balancedgroupsoftmax_torch.models.grid_head import grid_to_boxes
+
+    gen = torch.Generator().manual_seed(12)
+    ties = torch.randint(0, 3, heat.shape, generator=gen).to(torch.bfloat16)
+    cells = lambda h: h.reshape(*h.shape[:2], -1).argmax(-1).cpu()
+    for name, h in (("the predict's heatmaps", heat), ("tied heatmaps", ties)):
+        got = grid_to_boxes(h.to(dev), rois.to(dev)).cpu()
+        want = grid_to_boxes(h.cpu(), rois.cpu())
+        err = (got - want).abs().max().item()
+        same = torch.equal(cells(h.to(dev)), cells(h.cpu()))
+        log(f"  grid_to_boxes card vs CPU on {name} {tuple(h.shape)} {h.dtype}: the same argmax cells {same}, "
+            f"max box difference {err:.3e} px")
+        if not (same and err <= 1e-3):
+            raise AssertionError(f"grid_to_boxes differs on the card ({name})")
+
+
+def run_variant_path(torch, ops_roi, dev, kind: str):
+    """One detector variant at full width on the card: its serving call
+    (`predict`, Mask-Scoring's `predict_with_masks`, Fast R-CNN's `predict`
+    on 1000 seeded proposals an image) through `run_predicts` (K1 once, K2
+    twice: S = 7, then S = 14 on the detections for the grid and Mask-Scoring
+    or on the 1.3x inflated rois for the Double-Head; K3 once; Fast R-CNN no
+    K1 and K2 once) and a profiled call; K2 held to its plain version on
+    what the last pooling of one more call was handed (timed as a kernels-line
+    row for the grid's S = 14 and the Double-Head's inflated rois); then
+    selectp=0 training steps through `run_train_path` (K4 once, none for
+    Fast R-CNN, which trains through `loss` on 2000 seeded proposals an
+    image; K2 and K2b as many times as K2 serves, the grid's S = 14 on the
+    jittered positives among them; "loss_grid" and "loss_mask_iou" positive;
+    the grid and MaskIoU heads moved; Mask-Scoring's selectp=4 steps leave
+    the MaskIoU head frozen), K2b held to its plain version on the grid's S =
+    14 and the Double-Head's inflated rois (rows too). Then the small f32
+    predict and training step card vs CPU. Returns the rows."""
+    from balancedgroupsoftmax_torch.models import detector, variants
+    from balancedgroupsoftmax_torch.models.variants import _scale_rois
+
+    label = VARIANT_LABELS[kind]
+    t0 = time.perf_counter()
+    model = variant_model(torch, dev, kind)
+    log(f"  {label} (1231 classes, bf16) built on the card in {time.perf_counter() - t0:.1f} s")
+    fast = kind == "fast"
+    serve_props, train_props = (main_rois(torch, dev, torch.Generator().manual_seed(6 + i), r)
+                                for i, r in enumerate(VARIANT_PROPOSALS))
+    call = {"fast": lambda im, sh, sf: model.predict(im, sh, sf, proposals=serve_props),
+            "mask_scoring": model.predict_with_masks}.get(kind, model.predict)
+    pools = 1 if fast else 2
+    launches, inputs = run_predicts(
+        torch, model, {"bags_nms_keep": 0 if fast else 1, "bags_roi_align_forward": pools, "bags_nms_keep_gathered": 1},
+        call=call,
+    )
+    profile_device(torch, f"{label} serving", lambda: call(*inputs))
+    calls = record_calls(detector, "batched_multilevel_roi_align", lambda: call(*inputs))
+    sizes = [c[0][3] for c in calls]
+    want = {"grid": [7, 14], "mask_scoring": [7, 14], "double_head": [7, 7], "fast": [7]}[kind]
+    (feats, rois, strides, out_size) = calls[-1][0][:4]
+    if sizes != want or (kind != "double_head" and not fast and tuple(rois.shape) != (MAIN_BATCH, MAX_PER_IMG, 4)):
+        raise AssertionError(f"{label}'s K2 calls: sizes {sizes}, last rois {tuple(rois.shape)}")
+    if kind == "double_head" and not torch.equal(rois, _scale_rois(calls[0][0][1], 1.3)):
+        raise AssertionError("the Double-Head's second pooling is not of the inflated rois")
+    rows = []
+    if kind == "grid":
+        check_grid_decode(torch, dev, *record_calls(variants, "grid_to_boxes", lambda: call(*inputs))[0][0])
+    if kind in ("grid", "double_head"):
+        what = (f"on Grid R-CNN's {MAX_PER_IMG} detections an image, S = 14" if kind == "grid"
+                else f"on the Double-Head's {rois.shape[1]} proposals an image inflated 1.3x, S = 7")
+        row = k2_row(torch, ops_roi, feats, rois, strides, out_size, f"roi_align_forward/{kind.replace('_', '-')}", what)
+        row["launches"] = launches["bags_roi_align_forward"]
+        rows.append(row)
+    else:
+        k2_matches(torch, ops_roi, feats, rois, strides, out_size, f"on {label}'s last pooling")
+
+    extra = {"grid": (("grid_head.",), ("loss_grid",)), "mask_scoring": (("mask_iou_head.",), ("loss_mask_iou",)),
+             "double_head": (("bbox_head.res0_",), ()), "fast": ((), ())}[kind]
+    trained = run_train_path(torch, model, None, pools=pools, heads=extra[0], losses=extra[1],
+                             proposals=train_props if fast else None)
+    k2b = trained["k2b_calls"]
+    pick = None
+    if kind == "grid":
+        pick = trained["k2b"]
+    elif kind == "double_head":
+        (a, b) = k2b
+        pick = b if torch.equal(b[0][1], _scale_rois(a[0][1], 1.3)) else a
+        if not torch.equal(pick[0][1], _scale_rois((a if pick is b else b)[0][1], 1.3)):
+            raise AssertionError("no K2b call of the Double-Head's step was on the inflated rois")
+    if pick is not None:
+        args, kw = pick
+        grad, r, shapes, strides, size = args[:5]
+        what = (f"on the grid branch's {tuple(r.shape[:2])} jittered positives, S = 14" if kind == "grid"
+                else f"on the Double-Head's {tuple(r.shape[:2])} inflated rois, S = 7")
+        row = k2b_row(torch, ops_roi, grad, r, shapes, strides, size, kw["dtype"], kw["levels"],
+                      f"roi_align_backward/{kind.replace('_', '-')}", what)
+        row["launches"] = trained["launches"]["bags_roi_align_backward"]
+        rows.append(row)
+    del trained, k2b, pick, calls, feats, rois
+
+    t0 = time.perf_counter()
+    if kind == "mask_scoring":
+        compare_small_mask_rcnn(torch, model)
+        compare_small_mask_train(torch, model, label)
+    else:
+        gen = torch.Generator().manual_seed(8)
+        small = lambda b, r: main_rois(torch, torch.device("cpu"), gen, r, (256, 384), b) if fast else None
+        compare_small(torch, model, proposals=small(1, 300))
+        compare_small_train(torch, model, proposals=small(MAIN_BATCH, 100))
+    log(f"  small f32 {label} predict and train step, card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 # f32 operations K7b does a sample and channel beyond the contractions: the
@@ -2620,6 +2814,48 @@ def check_segmentations(records, ann: str) -> None:
         raise AssertionError("every pasted mask is empty")
 
 
+def run_mask_scoring_flow(torch, root: str, ann: str, common: list, train_args: list, n_batches: int) -> dict:
+    """Two mask_scoring_rcnn_r50 train-CLI steps (K4 once, K2 and K2b twice
+    a step; "loss_mask" and "loss_mask_iou" positive), then the test CLI on its
+    checkpoint (K1 and K3 once, K2 twice a batch): its records' masks and
+    finite "segm_score", and the segm table the evaluator's of the records
+    ranked by their mask scores. Returns the test CLI's times."""
+    import math
+    import os
+
+    from balancedgroupsoftmax_torch.eval.lvis_eval import LvisEvaluator
+    from balancedgroupsoftmax_torch.tools import test_lvis, train
+
+    (rs, _), launches = counted(torch, lambda: run_cli(train.main, [
+        "--model", "mask_scoring_rcnn_r50", *train_args, "--selectp", "0", "--work-dir", os.path.join(root, "ws"),
+        "--max-steps", "2"]))
+    expect_launches(launches, {"bags_nms_keep_tiled": 1, "bags_roi_align_forward": 2, "bags_roi_align_backward": 2},
+                    2, "Mask-Scoring R-CNN steps")
+    if not all(math.isfinite(rs["log"][-1][k]) and rs["log"][-1][k] > 0 for k in ("loss_mask", "loss_mask_iou")):
+        raise AssertionError(f"the Mask-Scoring R-CNN step's mask losses: {rs['log'][-1]}")
+    (sout, stext), launches = counted(torch, lambda: run_cli(test_lvis.main, [
+        "--model", "mask_scoring_rcnn_r50", *common, "--checkpoint", rs["checkpoint"]]))
+    del rs
+    expect_launches(launches, {"bags_nms_keep": 1, "bags_roi_align_forward": 2, "bags_nms_keep_gathered": 1},
+                    n_batches, "Mask-Scoring R-CNN test batches")
+    records = sout["records"]
+    check_records(records, ann)
+    check_segmentations(records, ann)
+    if not all(math.isfinite(r["segm_score"]) for r in records) or all(r["segm_score"] == r["score"] for r in records):
+        raise AssertionError("the Mask-Scoring records' segm_score is missing, not finite or the score")
+    with open(ann) as f:
+        ranked = LvisEvaluator(json.load(f), [dict({k: v for k, v in r.items() if k != "segm_score"},
+                                                   score=r["segm_score"]) for r in records], iou_type="segm").run()
+    segm = sout["segm_evaluator"]
+    if "segm results:" not in stext or segm.results != ranked:
+        raise AssertionError("the test CLI's segm table is not ranked by the mask scores")
+    t = dict(sout["times"], images=len({r["image_id"] for r in records}))
+    log(f"  Mask-Scoring R-CNN test CLI: {len(records)} records with masks and segm_score, launches {launches}; "
+        f"predict {t['predict']:.3f} s, masks {t['masks']:.3f} s over {t['images']} images; the segm table ranked by "
+        f"the mask scores, segm AP {segm.results['AP']:.6f} ({card_line()})")
+    return t
+
+
 def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
     """The BAGS two-phase recipe through the CLIs' `main(argv)` on the card,
     gs_faster_rcnn_r50_fpn_lvis at full width (1230 classes, bf16,
@@ -2636,8 +2872,9 @@ def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
     segmentation a mask of its image, the segm table finite, the masks'
     paste-and-encode seconds printed). K1-K4 and K2 are held to their
     plain versions again on what the CLIs handed them (the portrait bucket
-    too). The fixture, partition and checkpoints stay in `root`. Returns the
-    flow's numbers."""
+    too). Then the same two for mask_scoring_rcnn_r50
+    (`run_mask_scoring_flow`). The fixture, partition and checkpoints stay in
+    `root`. Returns the flow's numbers."""
     import math
     import os
 
@@ -2787,6 +3024,9 @@ def run_flow(torch, ops_nms, ops_roi, preloaded_ms: float, root: str) -> dict:
         f"{t['preprocess']:.3f} s, predict {t['predict']:.3f} s, records {t['records']:.3f} s, masks {t['masks']:.3f} s "
         f"({t['masks'] / 8 * 1e3:.1f} ms an image), evaluate {t['evaluate']:.3f} s over 8 images; segm AP "
         f"{segm.results['AP']:.6f} ({card_line()})")
+    del mout
+
+    numbers["test_mask_scoring"] = run_mask_scoring_flow(torch, root, ann, common, train_args, n_batches)
     return numbers
 
 
@@ -3473,6 +3713,14 @@ def main() -> int:
     log(f"phase small Mask R-CNN train step card vs CPU: wall {time.perf_counter() - t0:.1f} s")
     del mask_rcnn
 
+    for kind in ("grid", "double_head", "mask_scoring", "fast"):
+        t0 = time.perf_counter()
+        variant_rows = run_variant_path(torch, ops_roi, dev, kind)
+        for r in variant_rows:
+            log_row(r)
+        rows += variant_rows
+        log(f"phase {VARIANT_LABELS[kind]} serving and training: wall {time.perf_counter() - t0:.1f} s")
+
     with tempfile.TemporaryDirectory() as flow_root:
         t0 = time.perf_counter()
         flow = run_flow(torch, ops_nms, ops_roi, train_ms, flow_root)
@@ -3491,8 +3739,9 @@ def main() -> int:
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
     # cascade's predicts for K5 and K6, the HTC's for K7, its selectp=0
     # training steps for K7b, one pass of the
-    # R50's stride-1 runs for K8 and K9; the "/mask-rcnn" rows carry Mask
-    # R-CNN's predicts' and selectp=0 steps' counts, the "/ablation-train"
+    # R50's stride-1 runs for K8 and K9; the "/mask-rcnn", "/grid" and
+    # "/double-head" rows carry their models' predicts' and selectp=0
+    # steps' counts, the "/ablation-train"
     # and "/tnorm-select" rows their ablation rows' counts, the "/tta-*"
     # rows the K1 launches of their flows' timed batches
     symbols = {

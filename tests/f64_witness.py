@@ -7,6 +7,7 @@ measures.
     python tests/f64_witness.py tiny    # about 5 min on 4 CPU threads
     python tests/f64_witness.py small   # about 2 min on 8 CPU threads
     python tests/f64_witness.py mask    # about 3 min on 4 CPU threads
+    python tests/f64_witness.py variants  # about 2 min on 4 CPU threads
 
 `tiny`: the HTC of test_torch_htc_train.py (GS heads, D = 4) with its offset
 convs at a scale of 1.0, through JAX in f32 and in f64 (`jax.enable_x64`;
@@ -31,6 +32,12 @@ differ with their sampled crop values in f64, and each mask-head gradient's
 largest difference over its largest value; then the ReLU inputs after the
 mask head's upsampling that the port's f32 run puts on the other side of 0
 from its f64 run.
+
+`variants`: Grid and Mask-Scoring R-CNN at tests/torch_variant_suite.py's
+tiny configuration, the port in f32 and in f64 against JAX in f32, on the
+same weights and inputs: the gradients of the heads that the suite holds in
+f64 (`F64_HELD`), each tensor's largest difference over its largest value,
+the five worst of each pair.
 """
 
 import copy
@@ -255,5 +262,30 @@ def mask() -> None:
           f"{[float(f'{v:.3e}') for v in hi[flip].tolist()]} (largest |input| {hi.abs().max().item():.3e})")
 
 
+def variants() -> None:
+    import torch_variant_suite as S
+
+    torch.set_num_threads(4)
+    for kind in ("grid", "mask_scoring"):
+        setup = S.setup_of(kind)
+        jax_grads = {k: t.double().numpy() for k, t in S.to_torch_tree(
+            {"params": setup["grads"], "batch_stats": setup["variables"]["batch_stats"]}).items()}
+        port = {}
+        for dtype in (torch.float32, torch.float64):
+            model = S.build_model(S.to_port(S.tconfig.DetectorConfig, setup["jcfg"]), dtype=dtype)
+            model.load_state_dict(S.to_torch_tree(setup["variables"]))
+            model.to(dtype)
+            inputs = [x.to(dtype) if x.is_floating_point() else x for x in setup["batch"]]
+            S.total_loss(model.loss(*inputs, generator=torch.Generator().manual_seed(0))).backward()
+            port[dtype] = {n: p.grad.double().numpy() for n, p in model.named_parameters()
+                           if n.startswith(S.F64_HELD[kind])}
+        print(f"{kind}: the held heads' gradients, largest difference over the tensor's largest value")
+        for label, got, want in (("port f32 vs JAX f32", port[torch.float32], jax_grads),
+                                 ("port f32 vs port f64", port[torch.float32], port[torch.float64])):
+            rel = {n: np.abs(got[n] - want[n]).max() / np.abs(want[n]).max() for n in got}
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+            print(f"  {label}: " + ", ".join(f"{n} {r:.3e}" for n, r in worst))
+
+
 if __name__ == "__main__":
-    {"tiny": tiny, "small": small, "mask": mask}[sys.argv[1]]()
+    {"tiny": tiny, "small": small, "mask": mask, "variants": variants}[sys.argv[1]]()

@@ -150,7 +150,7 @@ def test_build_model_builds_the_mask_head_and_takes_every_converted_tensor(serve
 
 def test_params_from_flax_refuses_a_node_it_cannot_map(served):
     variables = served["variables"]
-    for extra in ({"params": {**variables["params"], "grid_head": {"conv0": {"kernel": np.zeros((1, 1, 2, 2))}}}},
+    for extra in ({"params": {**variables["params"], "bfp": {"refine": {"kernel": np.zeros((1, 1, 2, 2))}}}},
                   {"batch_stats": {**variables["batch_stats"], "neck": {}}}):
         with pytest.raises(ValueError, match="no mapping"):
             params_from_flax({**variables, **extra})
