@@ -6,7 +6,11 @@
 `models/htc.py` `HTC` (with `semantic_head` and `mask_head_{i}`, which become
 `mask_heads.{i}`) or a variant of `models/variants.py` (Fast R-CNN's, with no
 `rpn_head`; Grid R-CNN's `grid_head` and its GroupNorm `scale`s; Mask-Scoring
-R-CNN's `mask_iou_head`; the Double-Head's `bbox_head` convs and FCs) as a
+R-CNN's `mask_iou_head`; the Double-Head's `bbox_head` convs and FCs) or a
+single-stage detector of `models/{retinanet,fcos,fovea,reppoints,
+guided_anchor,ssd}.py` (whose heads, GA-RPN's `rpn_head` and SSD's VGG keep
+their flax names; the RepPoints and GA-RPN deformable kernels are raw
+(3, 3, C_in, C_out) parameters) as a
 tree of dicts of arrays ({"params": ..., "batch_stats": ...}; anything `np.asarray` reads) and returns the tensors of the port's model
 under their names, refusing a top-level node it has no mapping for: conv
 kernels HWIO -> OIHW (a grouped kernel (kh, kw, C / g, C) becomes the
@@ -73,7 +77,8 @@ def _bottleneck(sd, dst, node, stats) -> None:
 
 
 def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+    # np.array, not np.ascontiguousarray, keeps a 0-d scalar 0-d (FCOS's `scale{lvl}`)
+    return {k: torch.tensor(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
 
 
 def conv_from_flax(node: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -109,9 +114,17 @@ def _mask_head(sd, dst, head) -> None:
 
 
 def _layer(sd, dst, node, transposed: bool = False) -> None:
-    """A layer that keeps its flax name: a GroupNorm (`scale`, `bias`), a
-    dense layer (2-D kernel), a transposed conv (flipped) or a conv."""
-    if "scale" in node:
+    """A layer or parameter that keeps its flax name: a raw parameter (a
+    deformable kernel (kh, kw, C_in, C_out) -> (C_out, C_in, kh, kw), FCOS's
+    scalar `scale{lvl}`), a GroupNorm (`scale`, `bias`), SSD's L2Norm
+    (`scale`), a dense layer (2-D kernel), a transposed conv (flipped) or a
+    conv."""
+    if not isinstance(node, Mapping):
+        a = np.asarray(node)
+        sd[dst] = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a
+    elif "scale" in node and "bias" not in node:
+        sd[f"{dst}.scale"] = np.asarray(node["scale"])
+    elif "scale" in node:
         sd[f"{dst}.weight"] = np.asarray(node["scale"])
         sd[f"{dst}.bias"] = np.asarray(node["bias"])
     elif np.ndim(node["kernel"]) == 2:
@@ -135,27 +148,35 @@ def params_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         raise ValueError(f"no mapping to the port's model for the flax nodes {unmapped}")
     sd: Dict[str, np.ndarray] = {}
 
-    bb, bs = params["backbone"], stats["backbone"]
-    _conv(sd, "backbone.conv1", bb["conv1"])
-    _bn(sd, "backbone.bn1", bb["bn1"], bs["bn1"])
-    for name, node in bb.items():
-        m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
-        if m is not None:
-            _bottleneck(sd, f"backbone.layer{m[1]}.{m[2]}", node, bs[name])
+    bb = params["backbone"]
+    if "bn1" not in bb:  # SSD's VGG: no BatchNorm, and its layers keep their flax names
+        for name, node in bb.items():
+            _layer(sd, f"backbone.{name}", node)
+    else:
+        bs = stats["backbone"]
+        _conv(sd, "backbone.conv1", bb["conv1"])
+        _bn(sd, "backbone.bn1", bb["bn1"], bs["bn1"])
+        for name, node in bb.items():
+            m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
+            if m is not None:
+                _bottleneck(sd, f"backbone.layer{m[1]}.{m[2]}", node, bs[name])
 
-    for name, node in params["neck"].items():
+    # SSD has no FPN
+    for name, node in params.get("neck", {}).items():
         kind, i = re.fullmatch(r"(lateral|fpn)(\d+)", name).groups()
         _conv(sd, f"neck.{kind}.{i}", node)
-    # Fast R-CNN has no RPN
+    # Fast R-CNN and the single-stage detectors have no RPN; GA-RPN's keeps its
+    # flax names, its deformable kernel among them
     for name, node in params.get("rpn_head", {}).items():
-        _conv(sd, f"rpn_head.{name}", node)
+        _layer(sd, f"rpn_head.{name}", node)
     for key, head in params.items():
         stage = re.fullmatch(r"bbox_head(?:_(\d+))?", key)
         if stage is None:
             continue
         dst = "bbox_head" if stage[1] is None else f"bbox_heads.{stage[1]}"
         for name, node in head.items():
-            # the shared FCs, or the Double-Head's convs and FCs under their own names
+            # the shared FCs, or the Double-Head's convs and FCs, or a dense
+            # head's towers, convs and raw parameters, under their own names
             m = re.fullmatch(r"shared_fc(\d+)", name)
             _layer(sd, f"{dst}.shared_fcs.{m[1]}" if m else f"{dst}.{name}", node)
 

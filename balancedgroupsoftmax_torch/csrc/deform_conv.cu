@@ -1779,6 +1779,346 @@ int launch_grad_bf16(GradPlan a, void* dx_out, void* dweight, cudaStream_t strea
   return int(cudaSuccess);
 }
 
+// ---------------------------------------------------------------------------
+// The dense route: a layer of one group too wide for the grouped routes' plans
+// (the single-stage heads' 256 -> 256 convolutions: one group's weights are
+// 256 x 2304, its weight gradient 256 x 2304 sums). A block takes a tile of
+// kDenseTile output positions of one image and walks the input channels
+// kDenseCC at a time, the partial sums staying in registers: the forward
+// holds kDenseOC outputs of the tile (blocks over the outputs sample the
+// tile again), K7b's data pass a chunk's grad_col (the outputs walked
+// kDenseOC at a time) and its weight pass kDenseOC x kDenseCC x taps
+// weight-gradient sums over a range of tiles, written as a partial that
+// `deform_grad_weight_sum_kernel` adds up in order. Samples blend as the
+// other routes' (__fmul_rn / __fadd_rn, the plain version's order) and round
+// to x's dtype; products on the CUDA cores in f32. v1 layers (no mask).
+
+constexpr int kDenseTile = 32;  // output positions a block
+constexpr int kDenseCC = 16;    // input channels a step
+constexpr int kDenseOC = 64;    // output channels a block (forward, weight pass) or a step (data pass)
+constexpr int kDenseRows = kDenseTile * kDenseOC / kThreads;  // outputs a thread sums in the forward
+
+struct DenseArgs {
+  const void* x;         // (B, H, W, C)
+  const float* offsets;  // (B, Ho, Wo, 2 * taps)
+  const void* weight;    // (C_out, C, kh, kw)
+  const void* grad;      // (B, Ho, Wo, C_out): the forward's output or K7b's grad_out
+  void* out;             // the forward's output
+  float* dx;             // (B, H, W, C) f32, zeroed; null: none
+  float* doff;           // (B, Ho, Wo, 2 * taps) f32, zeroed; null: none
+  float* part;           // (splits, C_out, C, kh, kw) f32; null: no weight gradient
+  int h, w, c, ho, wo, c_out, kh, kw, taps, stride, pad, window, tiles, splits, per_split;
+};
+
+// Corner indices (-1 outside the image) and bilinear weights of the
+// (position, tap) pairs of a tile of one image, into shared memory.
+__device__ __forceinline__ void dense_corners(const DenseArgs& a, int b, int p0, int4* corner, float4* cweight) {
+  const int hw_out = a.ho * a.wo;
+  for (int e = threadIdx.x; e < kDenseTile * a.taps; e += blockDim.x) {
+    const int p = e / a.taps;
+    const int t = e - p * a.taps;
+    const int pos = p0 + p;
+    int4 q = make_int4(-1, -1, -1, -1);
+    float4 wq = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (pos < hw_out) {
+      const int i = pos / a.wo;
+      const int j = pos - i * a.wo;
+      const Corner cq = corner_of(a.offsets, b * hw_out + pos, t, a.taps, a.kw, i * a.stride - a.pad,
+                                  j * a.stride - a.pad, a.h, a.w, a.window);
+      if (cq.valid) {
+        wq = cq.w;
+        const int y0 = cq.y0, x0 = cq.x0;
+        const bool y0in = y0 >= 0 && y0 < a.h, y1in = y0 + 1 >= 0 && y0 + 1 < a.h;
+        const bool x0in = x0 >= 0 && x0 < a.w, x1in = x0 + 1 >= 0 && x0 + 1 < a.w;
+        q.x = y0in && x0in ? y0 * a.w + x0 : -1;
+        q.y = y0in && x1in ? y0 * a.w + x0 + 1 : -1;
+        q.z = y1in && x0in ? (y0 + 1) * a.w + x0 : -1;
+        q.w = y1in && x1in ? (y0 + 1) * a.w + x0 + 1 : -1;
+      }
+    }
+    corner[e] = q;
+    cweight[e] = wq;
+  }
+}
+
+// The samples of input channels c0 .. c0 + kDenseCC of the tile, rounded to
+// T, as cols[p][t][cc] (0 past C).
+template <typename T>
+__device__ __forceinline__ void dense_samples(const DenseArgs& a, const T* x, int c0, const int4* corner,
+                                              const float4* cweight, float* cols) {
+  const int n = kDenseTile * a.taps * kDenseCC;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int k = e / kDenseCC;
+    const int c = c0 + (e - k * kDenseCC);
+    float s = 0.0f;
+    if (c < a.c) {
+      const int4 q = corner[k];
+      const float4 wq = cweight[k];
+      const float v0 = q.x >= 0 ? to_float(x[size_t(q.x) * a.c + c]) : 0.0f;
+      const float v1 = q.y >= 0 ? to_float(x[size_t(q.y) * a.c + c]) : 0.0f;
+      const float v2 = q.z >= 0 ? to_float(x[size_t(q.z) * a.c + c]) : 0.0f;
+      const float v3 = q.w >= 0 ? to_float(x[size_t(q.w) * a.c + c]) : 0.0f;
+      s = __fmul_rn(wq.x, v0);
+      s = __fadd_rn(s, __fmul_rn(wq.y, v1));
+      s = __fadd_rn(s, __fmul_rn(wq.z, v2));
+      s = __fadd_rn(s, __fmul_rn(wq.w, v3));
+      s = round_to<T>(s);
+    }
+    cols[e] = s;
+  }
+}
+
+inline size_t dense_forward_bytes(int taps) {
+  return size_t(kDenseTile) * taps * (16 + 16 + 4 * kDenseCC) + size_t(taps) * kDenseCC * kDenseOC * 4;
+}
+
+// K7, dense: grid (B x tiles, output blocks of kDenseOC).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) deform_dense_kernel(DenseArgs a) {
+  extern __shared__ float4 smem4[];
+  const int pt = kDenseTile * a.taps;
+  int4* corner = reinterpret_cast<int4*>(smem4);
+  float4* cweight = smem4 + pt;
+  float* cols = reinterpret_cast<float*>(smem4 + 2 * pt);  // [p][t][cc]
+  float* wts = cols + pt * kDenseCC;                         // [t][cc][o]
+  const int b = blockIdx.x / a.tiles;
+  const int p0 = (blockIdx.x - b * a.tiles) * kDenseTile;
+  const int o0 = blockIdx.y * kDenseOC;
+  const int hw_out = a.ho * a.wo;
+  const T* x = static_cast<const T*>(a.x) + size_t(b) * a.h * a.w * a.c;
+  const T* weight = static_cast<const T*>(a.weight);
+  dense_corners(a, b, p0, corner, cweight);
+
+  // this thread's output o, at positions pr, pr + kStep, ...
+  constexpr int kStep = kThreads / kDenseOC;
+  const int o = threadIdx.x % kDenseOC;
+  const int pr = threadIdx.x / kDenseOC;
+  float acc[kDenseRows];
+#pragma unroll
+  for (int r = 0; r < kDenseRows; ++r) acc[r] = 0.0f;
+  const int nw = a.taps * kDenseCC * kDenseOC;
+  for (int c0 = 0; c0 < a.c; c0 += kDenseCC) {
+    __syncthreads();  // the corners are in; the last step's products are done with cols and wts
+    dense_samples<T>(a, x, c0, corner, cweight, cols);
+    for (int e = threadIdx.x; e < nw; e += blockDim.x) {
+      const int oo = e % kDenseOC;
+      const int tc = e / kDenseOC;
+      const int cc = tc % kDenseCC;
+      const int t = tc / kDenseCC;
+      const int c = c0 + cc;
+      wts[e] = c < a.c && o0 + oo < a.c_out ? to_float(weight[(size_t(o0 + oo) * a.c + c) * a.taps + t]) : 0.0f;
+    }
+    __syncthreads();
+    for (int tc = 0; tc < a.taps * kDenseCC; ++tc) {
+      const float wv = wts[tc * kDenseOC + o];
+#pragma unroll
+      for (int r = 0; r < kDenseRows; ++r) acc[r] = acc[r] + cols[(pr + r * kStep) * a.taps * kDenseCC + tc] * wv;
+    }
+  }
+  T* out = static_cast<T*>(a.out);
+  if (o0 + o >= a.c_out) return;
+#pragma unroll
+  for (int r = 0; r < kDenseRows; ++r) {
+    const int pos = p0 + pr + r * kStep;
+    if (pos < hw_out) out[(size_t(b) * hw_out + pos) * a.c_out + o0 + o] = from_float<T>(acc[r]);
+  }
+}
+
+constexpr int kDenseCols = kDenseTile * 9 * kDenseCC / kThreads;  // grad_col sums a thread holds (3 x 3 taps)
+
+inline size_t dense_data_bytes(int taps) {
+  return (size_t(kDenseTile) * kDenseOC + size_t(kDenseOC) * taps * kDenseCC + size_t(kDenseTile) * taps * kDenseCC) * 4;
+}
+
+// K7b's data pass, dense: grid (B x tiles, input chunks of kDenseCC). grad_col
+// of the chunk's channels (the outputs walked kDenseOC at a time), then a
+// thread a (position, tap): the offsets' gradient summed over the chunk's
+// channels (one atomic a chunk) and dx's four shares a channel (atomics).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) deform_dense_data_kernel(DenseArgs a) {
+  extern __shared__ float4 smem4[];
+  float* gt = reinterpret_cast<float*>(smem4);  // [p][o]: the tile's grad_out rows, kDenseOC of them
+  float* wt = gt + kDenseTile * kDenseOC;        // [o][t][cc]
+  float* gcol = wt + kDenseOC * a.taps * kDenseCC;  // [p][t][cc]
+  const int b = blockIdx.x / a.tiles;
+  const int p0 = (blockIdx.x - b * a.tiles) * kDenseTile;
+  const int c0 = blockIdx.y * kDenseCC;
+  const int hw_out = a.ho * a.wo;
+  const int tcn = a.taps * kDenseCC;
+  const T* grad = static_cast<const T*>(a.grad);
+  const T* weight = static_cast<const T*>(a.weight);
+  float acc[kDenseCols];
+#pragma unroll
+  for (int k = 0; k < kDenseCols; ++k) acc[k] = 0.0f;
+  for (int o0 = 0; o0 < a.c_out; o0 += kDenseOC) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < kDenseTile * kDenseOC; e += blockDim.x) {
+      const int p = e / kDenseOC, o = o0 + e % kDenseOC, pos = p0 + p;
+      gt[e] = pos < hw_out && o < a.c_out ? to_float(grad[(size_t(b) * hw_out + pos) * a.c_out + o]) : 0.0f;
+    }
+    for (int e = threadIdx.x; e < kDenseOC * tcn; e += blockDim.x) {
+      const int oo = e / tcn, tc = e - oo * tcn, t = tc / kDenseCC, c = c0 + tc % kDenseCC, o = o0 + oo;
+      wt[e] = o < a.c_out && c < a.c ? to_float(weight[(size_t(o) * a.c + c) * a.taps + t]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kDenseCols; ++k) {
+      const int e = threadIdx.x + k * kThreads;
+      const int p = e / tcn, tc = e - p * tcn;
+      float s = acc[k];
+      for (int oo = 0; oo < kDenseOC; ++oo) s = s + gt[p * kDenseOC + oo] * wt[oo * tcn + tc];
+      acc[k] = s;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kDenseCols; ++k) gcol[threadIdx.x + k * kThreads] = acc[k];
+  __syncthreads();
+
+  const T* x = static_cast<const T*>(a.x) + size_t(b) * a.h * a.w * a.c;
+  float* dx = a.dx == nullptr ? nullptr : a.dx + size_t(b) * a.h * a.w * a.c;
+  for (int e = threadIdx.x; e < kDenseTile * a.taps; e += blockDim.x) {
+    const int p = e / a.taps, t = e - p * a.taps, pos = p0 + p;
+    if (pos >= hw_out) continue;
+    const int i = pos / a.wo, j = pos - i * a.wo, at = b * hw_out + pos;
+    const Corner q = corner_of(a.offsets, at, t, a.taps, a.kw, i * a.stride - a.pad, j * a.stride - a.pad, a.h,
+                               a.w, a.window);
+    if (!q.valid) continue;
+    const bool y0in = q.y0 >= 0 && q.y0 < a.h, y1in = q.y0 + 1 >= 0 && q.y0 + 1 < a.h;
+    const bool x0in = q.x0 >= 0 && q.x0 < a.w, x1in = q.x0 + 1 >= 0 && q.x0 + 1 < a.w;
+    const int i00 = y0in && x0in ? q.y0 * a.w + q.x0 : -1;
+    const int i01 = y0in && x1in ? q.y0 * a.w + q.x0 + 1 : -1;
+    const int i10 = y1in && x0in ? (q.y0 + 1) * a.w + q.x0 : -1;
+    const int i11 = y1in && x1in ? (q.y0 + 1) * a.w + q.x0 + 1 : -1;
+    const float hy = 1.0f - q.ly, hx = 1.0f - q.lx;
+    float d_ly = 0.0f, d_lx = 0.0f;
+    for (int cc = 0; cc < kDenseCC; ++cc) {
+      const int c = c0 + cc;
+      if (c >= a.c) break;
+      const float g = gcol[(p * a.taps + t) * kDenseCC + cc];
+      const float v00 = i00 >= 0 ? to_float(x[size_t(i00) * a.c + c]) : 0.0f;
+      const float v01 = i01 >= 0 ? to_float(x[size_t(i01) * a.c + c]) : 0.0f;
+      const float v10 = i10 >= 0 ? to_float(x[size_t(i10) * a.c + c]) : 0.0f;
+      const float v11 = i11 >= 0 ? to_float(x[size_t(i11) * a.c + c]) : 0.0f;
+      d_ly += g * (hx * (q.hy * v10 - v00) + q.lx * (q.hy * v11 - v01));
+      d_lx += g * (hy * (q.hx * v01 - v00) + q.ly * (q.hx * v11 - v10));
+      if (dx != nullptr) {
+        if (i00 >= 0) atomicAdd(dx + size_t(i00) * a.c + c, q.w.x * g);
+        if (i01 >= 0) atomicAdd(dx + size_t(i01) * a.c + c, q.w.y * g);
+        if (i10 >= 0) atomicAdd(dx + size_t(i10) * a.c + c, q.w.z * g);
+        if (i11 >= 0) atomicAdd(dx + size_t(i11) * a.c + c, q.w.w * g);
+      }
+    }
+    if (a.doff != nullptr) {
+      atomicAdd(a.doff + size_t(at) * 2 * a.taps + 2 * t, d_ly * q.gy);
+      atomicAdd(a.doff + size_t(at) * 2 * a.taps + 2 * t + 1, d_lx * q.gx);
+    }
+  }
+}
+
+constexpr int kDenseSums = kDenseOC * 9 * kDenseCC / kThreads;  // weight-gradient sums a thread holds (3 x 3)
+
+inline size_t dense_weight_bytes(int taps) {
+  return size_t(kDenseTile) * taps * (16 + 16 + 4 * kDenseCC) + size_t(kDenseTile) * kDenseOC * 4;
+}
+
+// K7b's weight pass, dense: grid (output blocks of kDenseOC, input chunks of
+// kDenseCC, splits). Each block sums grad_out^T . cols over its range of
+// tiles (a tile: kDenseTile positions of one image) and writes a partial.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) deform_dense_weight_kernel(DenseArgs a) {
+  extern __shared__ float4 smem4[];
+  const int pt = kDenseTile * a.taps;
+  int4* corner = reinterpret_cast<int4*>(smem4);
+  float4* cweight = smem4 + pt;
+  float* cols = reinterpret_cast<float*>(smem4 + 2 * pt);  // [p][t][cc]
+  float* gt = cols + pt * kDenseCC;                          // [p][o]
+  const int o0 = blockIdx.x * kDenseOC;
+  const int c0 = blockIdx.y * kDenseCC;
+  const int hw_out = a.ho * a.wo;
+  const int tcn = a.taps * kDenseCC;
+  const T* grad = static_cast<const T*>(a.grad);
+  float acc[kDenseSums];
+#pragma unroll
+  for (int k = 0; k < kDenseSums; ++k) acc[k] = 0.0f;
+  // a.tiles: the tiles of all images, kDenseTile positions of one image each
+  const int per_image = (hw_out + kDenseTile - 1) / kDenseTile;
+  const int first = blockIdx.z * a.per_split;
+  const int last = min(first + a.per_split, a.tiles);
+  for (int tile = first; tile < last; ++tile) {
+    const int b = tile / per_image;
+    const int p0 = (tile - b * per_image) * kDenseTile;
+    __syncthreads();  // the last tile's products are done with cols and gt
+    dense_corners(a, b, p0, corner, cweight);
+    for (int e = threadIdx.x; e < kDenseTile * kDenseOC; e += blockDim.x) {
+      const int p = e / kDenseOC, o = o0 + e % kDenseOC, pos = p0 + p;
+      gt[e] = pos < hw_out && o < a.c_out ? to_float(grad[(size_t(b) * hw_out + pos) * a.c_out + o]) : 0.0f;
+    }
+    __syncthreads();
+    dense_samples<T>(a, static_cast<const T*>(a.x) + size_t(b) * a.h * a.w * a.c, c0, corner, cweight, cols);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kDenseSums; ++k) {
+      const int e = threadIdx.x + k * kThreads;
+      const int oo = e / tcn, tc = e - oo * tcn;
+      float s = acc[k];
+      for (int p = 0; p < kDenseTile; ++p) s = s + gt[p * kDenseOC + oo] * cols[p * tcn + tc];
+      acc[k] = s;
+    }
+  }
+  float* out = a.part + size_t(blockIdx.z) * a.c_out * a.c * a.taps;
+#pragma unroll
+  for (int k = 0; k < kDenseSums; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    const int oo = e / tcn, tc = e - oo * tcn, t = tc / kDenseCC, c = c0 + tc % kDenseCC;
+    if (o0 + oo < a.c_out && c < a.c) out[(size_t(o0 + oo) * a.c + c) * a.taps + t] = acc[k];
+  }
+}
+
+template <typename T>
+int launch_dense_forward(DenseArgs a, int b, cudaStream_t stream) {
+  const size_t smem = dense_forward_bytes(a.taps);
+  cudaError_t err = cudaFuncSetAttribute(deform_dense_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(unsigned(b * a.tiles), unsigned((a.c_out + kDenseOC - 1) / kDenseOC));
+  deform_dense_kernel<T><<<grid, kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dense_backward(DenseArgs a, int b, void* dx_out, void* dweight, cudaStream_t stream) {
+  cudaError_t err;
+  if (a.dx != nullptr || a.doff != nullptr) {
+    const size_t smem = dense_data_bytes(a.taps);
+    err = cudaFuncSetAttribute(deform_dense_data_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    const dim3 grid(unsigned(b * a.tiles), unsigned((a.c + kDenseCC - 1) / kDenseCC));
+    deform_dense_data_kernel<T><<<grid, kThreads, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  if (a.part != nullptr) {
+    const size_t smem = dense_weight_bytes(a.taps);
+    err = cudaFuncSetAttribute(deform_dense_weight_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    DenseArgs wa = a;
+    wa.tiles = b * a.tiles;  // the weight pass walks the tiles of all images
+    wa.per_split = (wa.tiles + a.splits - 1) / a.splits;
+    const dim3 grid(unsigned((a.c_out + kDenseOC - 1) / kDenseOC), unsigned((a.c + kDenseCC - 1) / kDenseCC),
+                    unsigned(a.splits));
+    deform_dense_weight_kernel<T><<<grid, kThreads, smem, stream>>>(wa);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    if ((err = cudaError_t(launch_weight_sum<T>(a.part, dweight, a.splits, a.c_out * a.c * a.taps, stream))))
+      return int(err);
+  }
+  if (dx_out != nullptr) {
+    const long long size = 1LL * b * a.h * a.w * a.c;
+    const long long blocks = (size + 255) / 256;
+    deform_grad_cast_kernel<<<unsigned(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+        a.dx, static_cast<bf16*>(dx_out), size);
+    return int(cudaGetLastError());
+  }
+  return int(cudaSuccess);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1787,12 +2127,24 @@ extern "C" {
 // kw) for f32 and (C_out, kh, kw, c_g) for bf16. offsets and mask f32; mask
 // may be null (v1). window: D (0: no clamp). th, tw, cc, nch, smem: the bf16
 // route's launch plan (ops/deform_conv.py `launch_plan`; the f32 route
-// ignores them).
+// ignores them). dense 1 takes the dense route (one group, 3 x 3, no mask),
+// in either dtype, with the weight (C_out, C, kh, kw). The f32 route plans
+// for itself: it takes the dense route too where the layer may take it and
+// its own block's layout (`shared_layout`) does not fit.
 int bags_deform_conv_forward(int dtype, const void* x, const float* offsets, const float* mask,
                              const void* weight, void* out, int b, int h, int w, int c, int ho,
                              int wo, int c_out, int kh, int kw, int stride, int pad, int groups,
-                             int window, int th, int tw, int cc, int nch, int smem, cudaStream_t stream) {
+                             int window, int dense, int th, int tw, int cc, int nch, int smem,
+                             cudaStream_t stream) {
   if (groups <= 0 || c % groups || c_out % groups) return int(cudaErrorInvalidValue);
+  const bool dense_ok = groups == 1 && kh * kw == 9 && mask == nullptr;
+  if (dtype == 0 && dense_ok && shared_layout(kh * kw, c, c_out, 1, sizeof(float)) > kMaxShared) dense = 1;
+  if (dense) {
+    if (!dense_ok || (dtype != 0 && dtype != 1)) return int(cudaErrorInvalidValue);
+    DenseArgs a{x, offsets, weight, nullptr, out, nullptr, nullptr, nullptr, h, w, c, ho, wo, c_out, kh, kw, kh * kw,
+                stride, pad, window, (ho * wo + kDenseTile - 1) / kDenseTile, 0, 0};
+    return dtype == 0 ? launch_dense_forward<float>(a, b, stream) : launch_dense_forward<bf16>(a, b, stream);
+  }
   if (dtype == 0) {
     Args a{x, offsets, mask, weight, out, h, w, c, ho, wo, c_out, kh, kw, stride, pad,
            c / groups, c_out / groups, 1, window, (ho * wo + kTile - 1) / kTile};
@@ -1822,12 +2174,13 @@ int bags_deform_conv_forward(int dtype, const void* x, const float* offsets, con
 // p0..p5, the plan, checked here: bf16, th, tw, groups a chunk, tiles a
 // block, splits, shared memory bytes (ops/deform_conv.py `backward_plan`);
 // f32, tp, gpc, oc, splits, and the two passes' shared memory bytes
-// (`backward_plan_f32`).
+// (`backward_plan_f32`). dense 1 takes the dense route (one group, 3 x 3,
+// no mask) in either dtype, with p0 the weight pass's splits.
 int bags_deform_conv_backward(int dtype, const void* x, const float* offsets, const float* mask,
                               const void* weight, const void* grad, float* dx_acc, void* dx_out, float* doff,
                               float* dmask, float* part, void* dweight, int b, int h, int w, int c, int ho,
                               int wo, int c_out, int kh, int kw, int stride, int pad, int groups, int window,
-                              int p0, int p1, int p2, int p3, int p4, int p5, cudaStream_t stream) {
+                              int dense, int p0, int p1, int p2, int p3, int p4, int p5, cudaStream_t stream) {
   if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
   if (groups <= 0 || c % groups || c_out % groups || b <= 0 || ho <= 0 || wo <= 0) return int(cudaErrorInvalidValue);
   const long long n = 1LL * b * ho * wo;
@@ -1838,7 +2191,12 @@ int bags_deform_conv_backward(int dtype, const void* x, const float* offsets, co
   const int taps = kh * kw;
   GradArgs f{};
   GradPlan a{};
-  if (dtype == 0) {
+  DenseArgs d{};
+  if (dense) {
+    if (groups != 1 || taps != 9 || mask != nullptr || p0 <= 0) return int(cudaErrorInvalidValue);
+    d = DenseArgs{x, offsets, weight, grad, nullptr, dx_acc, doff, part, h, w, c, ho, wo, c_out, kh, kw, taps,
+                  stride, pad, window, (ho * wo + kDenseTile - 1) / kDenseTile, p0, 0};
+  } else if (dtype == 0) {
     // the plan must be one these kernels run, and the wrapper's shared memory theirs
     f.x = static_cast<const float*>(x), f.offsets = offsets, f.mask = mask;
     f.weight = static_cast<const float*>(weight), f.grad = static_cast<const float*>(grad);
@@ -1887,6 +2245,9 @@ int bags_deform_conv_backward(int dtype, const void* x, const float* offsets, co
     return int(err);
   if (dmask != nullptr && (err = cudaMemsetAsync(dmask, 0, size_t(n) * taps * sizeof(float), stream)) != cudaSuccess)
     return int(err);
+  if (dense)
+    return dtype == 0 ? launch_dense_backward<float>(d, b, nullptr, dweight, stream)
+                      : launch_dense_backward<bf16>(d, b, dx_out, dweight, stream);
   return dtype == 0 ? launch_grad_f32(f, dweight, stream) : launch_grad_bf16(a, dx_out, dweight, stream);
 }
 

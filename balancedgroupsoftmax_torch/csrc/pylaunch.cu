@@ -18,7 +18,7 @@
 
 namespace {
 
-constexpr Py_ssize_t kMaxSlots = 32;
+constexpr Py_ssize_t kMaxSlots = 40;
 
 typedef int (*Packed)(const int64_t*);
 

@@ -67,12 +67,12 @@ SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
     "bags_deform_conv_forward": (
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,
     ),
     "bags_deform_conv_backward": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "bags_fused_bottleneck": (
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,

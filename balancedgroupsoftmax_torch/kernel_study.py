@@ -355,7 +355,7 @@ def launcher(address, x, off, weight, out, stride, plan):
     b, h, w, c = x.shape
     launch = cuda.launch_module().launch
     args = (1, x.data_ptr(), off.data_ptr(), 0, weight.data_ptr(), out.data_ptr(), b, h, w, c, out.shape[1],
-            out.shape[2], c, 3, 3, stride, 1, 64, 4, *plan[:5])
+            out.shape[2], c, 3, 3, stride, 1, 64, 4, 0, *plan[:5])
 
     def call():
         if launch(address, cuda.DEFORM_CONV.kinds, *args, cuda.current_stream()):

@@ -95,10 +95,17 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0] + 1.0) * (boxes[..., 3] - boxes[..., 1] + 1.0)
 
 
-def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor) -> torch.Tensor:
+def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor, is_aligned: bool = False) -> torch.Tensor:
     """Pairwise IoU (..., M, N) of (..., M, 4) and (..., N, 4) boxes
-    (ops/boxes.py:118, mode "iou"). A union below 1e-6 is floored there, so
-    degenerate boxes give no NaN."""
+    (ops/boxes.py:118, mode "iou"); with `is_aligned`, the IoU (..., M) of
+    each box with its counterpart in a set of the same shape. A union below
+    1e-6 is floored there, so degenerate boxes give no NaN."""
+    if is_aligned:
+        lt = torch.maximum(bboxes1[..., :2], bboxes2[..., :2])
+        rb = torch.minimum(bboxes1[..., 2:], bboxes2[..., 2:])
+        wh = (rb - lt + 1).clamp(min=0)
+        overlap = wh[..., 0] * wh[..., 1]
+        return overlap / (box_area(bboxes1) + box_area(bboxes2) - overlap).clamp(min=1e-6)
     lt = torch.maximum(bboxes1[..., :, None, :2], bboxes2[..., None, :, :2])
     rb = torch.minimum(bboxes1[..., :, None, 2:], bboxes2[..., None, :, 2:])
     wh = (rb - lt + 1).clamp(min=0)

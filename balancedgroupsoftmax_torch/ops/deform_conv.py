@@ -56,6 +56,28 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+DENSE_TILE, DENSE_CC, DENSE_OC = 32, 16, 64  # csrc/deform_conv.cu kDenseTile, kDenseCC, kDenseOC
+
+
+def takes_dense(groups: int, kh: int, kw: int, mask) -> bool:
+    """Whether a layer may take the dense route of K7 and K7b (csrc/deform_conv.cu
+    `deform_dense_kernel`): one group, 3 x 3, v1. The wrappers send it there
+    when the grouped routes have no plan for it (the single-stage heads' 256 ->
+    256 layers: one group's weights do not fit a block's shared memory, nor
+    its weight gradient a block's registers); K7's f32 entry point, which
+    plans for itself, makes the same choice."""
+    return groups == 1 and kh * kw == 9 and mask is None
+
+
+def dense_splits(b: int, ho: int, wo: int, c: int, c_out: int) -> int:
+    """Ranges of the tiles K7b's dense weight pass splits the positions into:
+    enough that its grid (outputs x input chunks x ranges) holds two blocks an
+    SM."""
+    blocks = -(-c_out // DENSE_OC) * -(-c // DENSE_CC)
+    tiles = b * -(-(ho * wo) // DENSE_TILE)
+    return max(1, min(tiles, -(-2 * SMS // blocks)))
+
+
 class LaunchPlan(NamedTuple):
     """How K7's bf16 route cuts one layer: tiles of `th` x `tw` output
     positions, each block walking `nch` chunks of `cc` channels."""
@@ -145,14 +167,15 @@ def geometry(h: int, w: int, offsets: torch.Tensor, kh: int, kw: int, stride: in
     the gradient is JAX's."""
     _, ho, wo, _ = offsets.shape
     dev = offsets.device
-    tap_y = torch.arange(kh, dtype=torch.float32, device=dev).repeat_interleave(kw)
-    tap_x = torch.arange(kw, dtype=torch.float32, device=dev).repeat(kh)
+    ct = _compute_dtype(offsets)
+    tap_y = torch.arange(kh, dtype=ct, device=dev).repeat_interleave(kw)
+    tap_x = torch.arange(kw, dtype=ct, device=dev).repeat(kh)
     base_yi = torch.arange(ho, device=dev) * stride - padding
     base_xi = torch.arange(wo, device=dev) * stride - padding
-    base_y = base_yi.float()[:, None, None]
-    base_x = base_xi.float()[None, :, None]
-    dy = offsets[..., 0::2].float()
-    dx = offsets[..., 1::2].float()
+    base_y = base_yi.to(ct)[:, None, None]
+    base_x = base_xi.to(ct)[None, :, None]
+    dy = offsets[..., 0::2].to(ct)
+    dx = offsets[..., 1::2].to(ct)
     if window > 0:
         d = float(window)
         # max then min, as jnp.clip: the gradient at exactly +-D is halved
@@ -185,6 +208,13 @@ def geometry(h: int, w: int, offsets: torch.Tensor, kh: int, kw: int, stride: in
     return Geometry(y0, x0, ly, lx, valid, gy, gx, hy, hx)
 
 
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 for f32 and bf16 tensors; f64 for f64 ones (the CPU's f64 runs of
+    the plain versions, which hold the port to JAX in f64; the kernels refuse
+    f64)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def corners(x: torch.Tensor, g: Geometry) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """The four corners of every sample, in the blend's order (low-low,
     low-high, high-low, high-high): (index into x's (B * H * W) pixels,
@@ -197,7 +227,7 @@ def corners(x: torch.Tensor, g: Geometry) -> list[tuple[torch.Tensor, torch.Tens
     for yy, xx in ((g.y0, g.x0), (g.y0, g.x0 + 1), (g.y0 + 1, g.x0), (g.y0 + 1, g.x0 + 1)):
         inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         idx = image + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
-        v = flat.index_select(0, idx.reshape(-1)).reshape(*idx.shape, c).float()
+        v = flat.index_select(0, idx.reshape(-1)).reshape(*idx.shape, c).to(_compute_dtype(x))
         out.append((idx, inside, torch.where(inside[..., None], v, torch.zeros((), device=x.device))))
     return out
 
@@ -248,8 +278,9 @@ def deform_conv2d_reference(
     cols = sample_cols(x, offsets, kh, kw, stride, padding, shift_window)
     if mask is not None:
         cols = cols * mask[..., None].to(cols.dtype)
-    cols = cols.float().reshape(b * ho * wo, taps, groups, c_g)
-    w = weight.float().reshape(groups, c_out // groups, c_g, taps)
+    ct = _compute_dtype(x)
+    cols = cols.to(ct).reshape(b * ho * wo, taps, groups, c_g)
+    w = weight.to(ct).reshape(groups, c_out // groups, c_g, taps)
     out = torch.einsum("ntgc,goct->ngo", cols, w)
     return out.reshape(b, ho, wo, c_out).to(x.dtype)
 
@@ -284,20 +315,27 @@ def deform_conv2d(
     shift_window: int = 0,
 ) -> torch.Tensor:
     """K7: (B, Ho, Wo, C_out) in x's dtype. In bf16 the kernel takes C a
-    multiple of 8 and C / groups a multiple of 4, and refuses others."""
+    multiple of 8 and C / groups a multiple of 4, and refuses others. A layer
+    the grouped routes have no plan for takes the dense route where it can
+    (`takes_dense`)."""
     if x.device.type == "cpu":
         return deform_conv2d_reference(x, offsets, weight, mask, stride, padding, groups, shift_window)
     b, h, w, c, ho, wo, c_out, c_g, kh, kw = _check_args(x, offsets, weight, mask, stride, padding, groups)
-    plan = LaunchPlan(0, 0, 0, 0, 0, 0)  # the f32 route plans for itself
+    plan = LaunchPlan(0, 0, 0, 0, 0, 0)  # the f32 route plans for itself, the dense route included
+    dense = False
     if x.dtype == torch.bfloat16:
         plan = launch_plan(b, ho, wo, c, groups, c_out, kh, kw, stride, shift_window)
-        if c % 8 or c_g % 4 or x.data_ptr() % 16 or plan is None:
+        dense = plan is None and takes_dense(groups, kh, kw, mask)
+        if dense:
+            plan = LaunchPlan(0, 0, 0, 0, 0, 0)
+        elif c % 8 or c_g % 4 or x.data_ptr() % 16 or plan is None:
             raise ValueError(
                 f"the bf16 deform_conv kernel takes channels in 16-byte pieces (C % 8 == 0, C / groups % 4 == 0, "
                 f"x aligned to 16 bytes) and a plan that fits {SHARED_BYTES} bytes of shared memory; got C {c}, "
                 f"groups {groups}, weight {tuple(weight.shape)}"
             )
-        weight = weight.permute(0, 2, 3, 1).contiguous()  # (C_out, kh, kw, c_g): a row of the kernel's B is one run
+        else:
+            weight = weight.permute(0, 2, 3, 1).contiguous()  # (C_out, kh, kw, c_g): a row of the kernel's B is one run
     out = torch.empty(b, ho, wo, c_out, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -305,7 +343,7 @@ def deform_conv2d(
         _DTYPE_CODES[x.dtype],
         x.data_ptr(), offsets.data_ptr(), 0 if mask is None else mask.data_ptr(),
         weight.data_ptr(), out.data_ptr(),
-        b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window,
+        b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window, int(dense),
         plan.th, plan.tw, plan.cc, plan.nch, plan.smem,
     )
     return out
@@ -328,8 +366,8 @@ def deform_conv2d_backward_reference(
     x, offsets, weight and mask; an entry is None where `needs` (x, offsets,
     weight, mask) says no, or for a v1 layer's mask.
 
-    Everything is computed in f32 from the inputs' values, and each result is
-    rounded once to its dtype. The forward's roundings to x's dtype (a sample,
+    Everything is computed in f32 (in f64 for f64 inputs) from the inputs'
+    values, and each result is rounded once to its dtype. The forward's roundings to x's dtype (a sample,
     the mask, a masked sample) are kept where their values are used (the
     weight's and the mask's gradients) and pass the gradient through
     unchanged. In f32 this is JAX's autodiff of `ops/deform_conv.py`
@@ -350,19 +388,20 @@ def deform_conv2d_backward_reference(
     g = geometry(h, w, offsets, kh, kw, stride, padding, shift_window)
     cs = corners(x, g)
     v00, v01, v10, v11 = (v for _, _, v in cs)
-    sample = _blend(g, [v00, v01, v10, v11]).to(x.dtype).float()
+    ct = _compute_dtype(x)
+    sample = _blend(g, [v00, v01, v10, v11]).to(x.dtype).to(ct)
     col = sample
     if mask is not None:
-        m = mask.to(x.dtype).float()[..., None]
-        col = (sample * m).to(x.dtype).float()
-    gout = grad_out.float().reshape(n, groups, o_g)
+        m = mask.to(x.dtype).to(ct)[..., None]
+        col = (sample * m).to(x.dtype).to(ct)
+    gout = grad_out.to(ct).reshape(n, groups, o_g)
     dw = None
     if needs[2]:
         dw = torch.einsum("ngo,ntgc->goct", gout, col.reshape(n, taps, groups, c_g))
         dw = dw.reshape(c_out, c_g, kh, kw).to(weight.dtype)
     if not (needs[0] or needs[1] or (needs[3] and mask is not None)):
         return None, None, dw, None
-    wt = weight.float().reshape(groups, o_g, c_g, taps)
+    wt = weight.to(ct).reshape(groups, o_g, c_g, taps)
     grad_col = torch.einsum("ngo,goct->ntgc", gout, wt).reshape(b, ho, wo, taps, c)
     d_mask = (grad_col * sample).sum(-1) if mask is not None and needs[3] else None
     grad_s = grad_col * m if mask is not None else grad_col
@@ -377,7 +416,7 @@ def deform_conv2d_backward_reference(
     dx = None
     if needs[0]:
         hy, hx = 1.0 - g.ly, 1.0 - g.lx
-        acc = torch.zeros(b * h * w, c, dtype=torch.float32, device=x.device)
+        acc = torch.zeros(b * h * w, c, dtype=ct, device=x.device)
         for (idx, inside, _), wk in zip(cs, (hy * hx, hy * g.lx, g.ly * hx, g.ly * g.lx)):
             share = torch.where(inside[..., None], wk[..., None] * grad_s, torch.zeros((), device=x.device))
             acc.index_add_(0, idx.reshape(-1), share.reshape(-1, c))
@@ -563,7 +602,8 @@ def deform_conv2d_backward(
     C / groups multiples of 4, x aligned to 16 bytes and a plan that fits
     (`backward_plan` in bf16, where a chunk of whole groups must also be a
     power-of-two count of 8 channels; `backward_plan_f32`), and refuses
-    others."""
+    others; a layer with no such plan takes the dense route where it can
+    (`takes_dense`)."""
     if x.device.type == "cpu":
         return deform_conv2d_backward_reference(
             grad_out, x, offsets, weight, mask, stride, padding, groups, shift_window, needs
@@ -574,12 +614,18 @@ def deform_conv2d_backward(
         plan = backward_plan(b, ho, wo, c, groups, c_out, kh, kw, stride, shift_window)
     else:
         plan = backward_plan_f32(b * ho * wo, c, groups, c_out, kh, kw)
-    if c % 4 or c_g % 4 or x.data_ptr() % 16 or plan is None:
+    dense = plan is None and takes_dense(groups, kh, kw, mask)
+    if dense:
+        splits = dense_splits(b, ho, wo, c, c_out)
+        fields = (splits, 0, 0, 0, 0, 0)
+    elif c % 4 or c_g % 4 or x.data_ptr() % 16 or plan is None:
         raise ValueError(
             f"the deform_conv backward kernel takes channels in groups of 4 (C % 4 == 0, C / groups % 4 == 0, "
             f"x aligned to 16 bytes) and a plan that fits {SHARED_BYTES} bytes of shared memory; got C {c}, "
             f"groups {groups}, weight {tuple(weight.shape)}"
         )
+    else:
+        splits, fields = plan.splits, plan[:6]
     want_dx, want_off, want_w = needs[0], needs[1], needs[2]
     want_mask = needs[3] and mask is not None
     empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=x.device)
@@ -588,7 +634,7 @@ def deform_conv2d_backward(
     d_off = empty(offsets.shape, torch.float32) if want_off else None
     d_mask = empty(mask.shape, torch.float32) if want_mask else None
     dw = empty(weight.shape, weight.dtype) if want_w else None
-    part = empty((plan.splits, *weight.shape), torch.float32) if want_w else None
+    part = empty((splits, *weight.shape), torch.float32) if want_w else None
     if not (want_dx or want_off or want_w or want_mask):
         return None, None, None, None
     if b * ho * wo == 0 or x.numel() == 0:
@@ -598,8 +644,8 @@ def deform_conv2d_backward(
         _DTYPE_CODES[x.dtype],
         x.data_ptr(), offsets.data_ptr(), ptr(mask), weight.data_ptr(), grad_out.data_ptr(),
         ptr(acc), 0 if dx is None or dx is acc else dx.data_ptr(), ptr(d_off), ptr(d_mask), ptr(part), ptr(dw),
-        b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window,
-        *plan[:6],
+        b, h, w, c, ho, wo, c_out, kh, kw, stride, padding, groups, shift_window, int(dense),
+        *fields,
     )
     return dx, d_off, dw, d_mask
 

@@ -105,6 +105,22 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    versions and timed on the grid's S = 14 and the Double-Head's inflated
    rois (the "/grid" and "/double-head" rows); each variant's small f32
    predict and step card vs CPU;
+12e. the single-stage family (`run_single_stage_path`), each at its repo
+   default in bf16 with seeded weights: RetinaNet, FCOS, FoveaBox and
+   RepPoints (1231 classes, 800 x 1344, batch 2) `predict` (K6 and K5 once
+   a call; RepPoints K7 ten times, on the dense route), GA-RPN `propose`
+   (nms_pre 1000: K1 once, K7 five times) and SSD300 `predict` (21
+   classes, batch 8: K6 and K5 once), each profiled; two `_overfit` SGD
+   steps (K7 and K7b 10 and 5 a step for RepPoints and GA-RPN), finite
+   losses, every trainable tensor with a finite non-zero gradient and moved
+   where its update exceeds its f32 resolution, the peak memory; K6 and K5
+   on RetinaNet's candidates, K1 on GA-RPN's boxes, K7 and K7b at
+   RepPoints' stride-8 and GA-RPN's stride-4 layers held to their plain
+   versions and timed (the "/retinanet", "/ga-rpn" and "/reppoints" rows);
+   a small f32 predict and step of each card vs CPU at the CPU tests'
+   configuration, and for the 1231-class detectors the candidates their
+   level top-k and decode hand the NMS at that width, card vs CPU, near
+   ties at a level's cut allowed (`compare_wide_candidates`);
 13. drive the BAGS two-phase recipe through the CLIs' `main(argv)` at full
    width (`run_flow`): an LVIS-shaped fixture of 8 JPEGs in both buckets
    with 1230 classes, the partition, phase 1 (K4, K2 and K2b once a step),
@@ -192,6 +208,7 @@ package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -3546,10 +3563,420 @@ def run_htc_tta(torch, model) -> None:
 
 
 
+SINGLE_STAGE = ("retinanet", "fcos", "fovea", "reppoints", "ga_rpn", "ssd")
+SINGLE_STAGE_LABELS = {"retinanet": "RetinaNet", "fcos": "FCOS", "fovea": "FoveaBox", "reppoints": "RepPoints",
+                       "ga_rpn": "GA-RPN", "ssd": "SSD300"}
+SSD_BATCH = 8
+SSD_SIZE = (300, 300)
+SMALL_SINGLE_STAGE = (128, 128)  # the CPU parity tests' image (SSD's: 300 x 300)
+GA_PROPOSALS = dict(nms_pre=1000, nms_post=1000, max_num=1000)  # rpn_proposal_test
+SINGLE_STAGE_STEP_LR = 0.01  # JAX tests/test_single_stage_convergence.py `_overfit`: SGD, momentum 0.9, clip 10
+
+
+def single_stage_model(torch, dev, kind: str, dtype, small: bool = False, **changes):
+    """The single-stage detector `kind` at its repo default (R50-FPN, 1231
+    classes, 800 x 1344; GA-RPN at 800 x 1344; SSD300 at 21 classes), or with
+    `small` at the CPU parity tests' configuration (9 classes at 128 x 128,
+    nms_pre 64 and 10 detections an image; SSD300 at 9 classes and 10; GA-RPN
+    at 128 x 128), then with the config fields `changes`, seeded weights
+    (`init_weights(0)`), in `dtype` on `dev`,
+    with what makes its
+    path do work, as the CPU parity tests give it: class biases of -1 (scores
+    near 0.27, above `score_thr`, where the focal prior's 0.01 would leave no
+    detection), the RepPoints point convs and the GA-RPN offset conv scaled so
+    the deformable offsets spread over a few cells, GA-RPN's location logits
+    spread around its filter."""
+    import dataclasses
+
+    from balancedgroupsoftmax_torch.models import fcos, fovea, guided_anchor, reppoints, retinanet, ssd
+
+    builders = {
+        "retinanet": (retinanet.RetinaNet, retinanet.RetinaNetConfig, "retina_cls"),
+        "fcos": (fcos.FCOS, fcos.FCOSConfig, "fcos_cls"),
+        "fovea": (fovea.FoveaBox, fovea.FoveaConfig, "fovea_cls"),
+        "reppoints": (reppoints.RepPoints, reppoints.RepPointsConfig, "cls_out"),
+        "ga_rpn": (guided_anchor.GARPN, guided_anchor.GAConfig, None),
+        "ssd": (ssd.SSD, ssd.SSDConfig, None),
+    }
+    cls, config, bias = builders[kind]
+    cfg = config()
+    if small:
+        tiny = {"ga_rpn": dict(image_size=SMALL_SINGLE_STAGE), "ssd": dict(num_classes=9, max_per_img=10)}
+        cfg = dataclasses.replace(cfg, **tiny.get(kind, dict(num_classes=9, image_size=SMALL_SINGLE_STAGE, nms_pre=64,
+                                                               max_per_img=10)))
+    cfg = dataclasses.replace(cfg, **changes)
+    model = cls(cfg, dtype=dtype).init_weights(0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        head = model.head
+        if bias is not None:
+            getattr(head, bias).bias.fill_(-1.0)
+        if kind == "reppoints":
+            for conv in (head.pts_init_out, head.pts_refine_out):
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 2.5 / conv.weight[0].numel() ** 0.5)
+        if kind == "ga_rpn":
+            head.feature_adaption_offset.weight.copy_(torch.randn(head.feature_adaption_offset.weight.shape, generator=gen))
+            head.conv_loc.weight.mul_(60.0)
+            head.ga_rpn_cls.bias.fill_(0.05)
+    return model.to(dev)
+
+
+def single_stage_inputs(torch, dev, kind: str, size=None, batch=None):
+    """Seeded images (B, H, W, 3), their content shapes and scale factors of 1
+    at `kind`'s serving size (SSD: 8 x 300 x 300; the others 2 x 800 x 1344)."""
+    size = size or (SSD_SIZE if kind == "ssd" else MAIN_SIZE)
+    batch = batch or (SSD_BATCH if kind == "ssd" else MAIN_BATCH)
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randn(batch, *size, 3, generator=gen).to(dev)
+    shapes = torch.tensor([size] * batch, dtype=torch.float32, device=dev)
+    return images, shapes, torch.ones(batch, device=dev)
+
+
+def single_stage_batch(torch, dev, kind: str, size=None, batch=None, gts: int = TRAIN_GTS, num_classes=None):
+    """A seeded training batch: images, `gts` gt boxes an image of sides
+    log-uniform from 12 px to the image's short side, inside the image (so that every level of every
+    head has positives: FCOS's last regression range starts at 512, SSD's
+    coarsest anchors at 261), labels in 1..C-1 (GA-RPN: 1), all valid."""
+    size = size or (SSD_SIZE if kind == "ssd" else MAIN_SIZE)
+    batch = batch or (SSD_BATCH if kind == "ssd" else MAIN_BATCH)
+    num_classes = num_classes or (21 if kind == "ssd" else 1231)
+    gen = torch.Generator().manual_seed(9)
+    images, shapes, _ = single_stage_inputs(torch, torch.device("cpu"), kind, size, batch)
+    wh = torch.exp(math.log(12) + torch.rand(batch, gts, 2, generator=gen) * math.log((min(size) - 1) / 12))
+    xy = torch.rand(batch, gts, 2, generator=gen) * (torch.tensor([size[1], size[0]]) - wh)
+    boxes = torch.cat([xy, xy + wh], -1).floor()
+    labels = torch.randint(1, num_classes, (batch, gts), generator=gen, dtype=torch.int32)
+    args = [images, boxes, labels, torch.ones(batch, gts, dtype=torch.bool), shapes]
+    return [a.to(dev) for a in (args[:4] if kind == "ssd" else args)]
+
+
+def check_proposals(torch, props, size) -> None:
+    b, m = props.scores.shape
+    if props.boxes.shape != (b, m, 4) or not bool(props.valid.any()):
+        raise AssertionError(f"proposal shapes {tuple(props.boxes.shape)} or none valid")
+    bx, sc = props.boxes[props.valid], props.scores[props.valid]
+    if not (torch.isfinite(bx).all() and (bx >= 0).all() and (bx[:, 0::2] <= size[1]).all() and (bx[:, 1::2] <= size[0]).all()):
+        raise AssertionError("proposals outside the image")
+    if not (torch.isfinite(sc).all() and (props.scores[:, :-1] >= props.scores[:, 1:]).all()):
+        raise AssertionError("proposal scores not finite or not in order")
+
+
+def single_stage_step(torch, model, kind: str):
+    """`_overfit`'s step (JAX tests/test_single_stage_convergence.py): the
+    sum of the loss dict, backward, the global norm clipped at 10, SGD with
+    momentum 0.9; returns step(batch) -> the loss dict."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = torch.optim.SGD(params, lr=SINGLE_STAGE_STEP_LR, momentum=0.9)
+
+    def step(batch):
+        opt.zero_grad(set_to_none=True)
+        losses = model.loss(*batch)
+        sum(losses.values()).backward()
+        torch.nn.utils.clip_grad_norm_(params, 10.0)
+        opt.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    step.opt = opt
+    return step
+
+
+def dcn_rows(torch, ops_dcn, fwd_args, bwd_args, label: str, launches: tuple) -> list:
+    """K7 and K7b held to their plain versions, and timed, at one layer of a
+    path (its largest: the finest level), in the path's dtype and in f32."""
+    rows = []
+    err, _ = k7_err(torch, ops_dcn, fwd_args)
+    f32 = (fwd_args[0].float(), fwd_args[1], fwd_args[2].float(), *fwd_args[3:])
+    err32, _ = k7_err(torch, ops_dcn, f32)
+    out = ops_dcn.deform_conv2d(*fwd_args)
+    b_ms, b_by = dcn_bound(torch, fwd_args[0], fwd_args[1], fwd_args[2], fwd_args[3], out)
+    row = dict(name=f"deform_conv_forward/{label}", route="cuda", source="balancedgroupsoftmax_torch/csrc/deform_conv.cu",
+               replaces="balancedgroupsoftmax_tpu/pallas/deform_conv.py:501", max_abs_err=err,
+               ms=cuda_time_ms(lambda: ops_dcn.deform_conv2d(*fwd_args), 10),
+               plain_ms=cuda_time_ms(lambda: ops_dcn.deform_conv2d_reference(*fwd_args), 2),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, launches=launches[0],
+               shape=f"x {tuple(fwd_args[0].shape)} {fwd_args[0].dtype}, one group, D = 0, dense route; f32 err {err32:.3e}")
+    rows.append(row)
+    args = bwd_args[:9]
+    err, err_abs, grads = k7b_err(torch, ops_dcn, args)
+    err32, _, _ = k7b_err(torch, ops_dcn, (args[0].float(), args[1].float(), args[2], args[3].float(), *args[4:]))
+    b_ms, b_by = dcn_grad_bound(torch, args, grads)
+    rows.append(dict(name=f"deform_conv_backward/{label}", route="cuda",
+                     source="balancedgroupsoftmax_torch/csrc/deform_conv.cu",
+                     replaces="balancedgroupsoftmax_tpu/pallas/deform_conv.py:544", max_abs_err=err_abs,
+                     ms=cuda_time_ms(lambda: ops_dcn.deform_conv2d_backward(*args), 5),
+                     plain_ms=cuda_time_ms(lambda: ops_dcn.deform_conv2d_backward_reference(*args), 1),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None, launches=launches[1],
+                     shape=f"x {tuple(args[1].shape)} {args[1].dtype}, one group, D = 0, dense route; "
+                           f"{err:.3e} of the largest, f32 {err32:.3e}"))
+    return rows
+
+
+def compare_small_single_stage(torch, kind: str, dev=None) -> None:
+    """The CPU parity tests' configuration (`single_stage_model(small=True)`),
+    f32, seeded weights as the full-width phase gives them: a predict (GA-RPN: propose) and one training step's losses
+    and gradients on the card (K6, K5, K1, K7, K7b; TF32 off) against the
+    CPU's plain versions. Detections: labels and validity equal, boxes within
+    1e-3 px, scores within 1e-5 (the CPU tests' tolerances); losses within
+    1e-4 relative; gradients within GRAD_NORM_LIMIT in relative norm, as the
+    other phases' small steps."""
+    dev = dev or torch.device("cuda")
+    size = SSD_SIZE if kind == "ssd" else SMALL_SINGLE_STAGE
+    cpu = single_stage_model(torch, torch.device("cpu"), kind, torch.float32, small=True)
+    card = single_stage_model(torch, torch.device("cpu"), kind, torch.float32, small=True)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    from balancedgroupsoftmax_torch.config import ProposalConfig
+
+    pcfg = ProposalConfig(nms_pre=128, nms_post=64, max_num=64)
+    allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out, grad = {}, {}
+        for name, m, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+            images, shapes, sf = single_stage_inputs(torch, d, kind, size, 2)
+            served = m.propose(images, shapes, pcfg) if kind == "ga_rpn" else m.predict(images, shapes, sf)
+            batch = single_stage_batch(torch, d, kind, size, 2, gts=6, num_classes=2 if kind == "ga_rpn" else 9)
+            losses = m.loss(*batch)
+            sum(losses.values()).backward()
+            out[name] = ([t.cpu() for t in served], {k: v.item() for k, v in losses.items()})
+            grad[name] = {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    (g, gl), (c, cl) = out["card"], out["cpu"]
+    valid = lambda r: r[-1]
+    if not (torch.equal(valid(g), valid(c)) and bool(valid(c).any())):
+        raise AssertionError(f"{kind}: card and CPU validity differ")
+    if kind != "ga_rpn" and not torch.equal(g[2], c[2]):
+        raise AssertionError(f"{kind}: card and CPU labels differ")
+    box_err, score_err = (g[0] - c[0]).abs().max().item(), (g[1] - c[1]).abs().max().item()
+    loss_err = max(abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-6) for k in cl)
+    norm, peak = grad_differences(grad["card"], grad["cpu"])
+    far = max(norm, key=norm.get)
+    log(f"  small f32 {SINGLE_STAGE_LABELS[kind]} card vs CPU: {int(valid(c).sum())} valid, max box diff {box_err:.3e} px, "
+        f"score diff {score_err:.3e}; losses {loss_err:.3e} relative; gradients: relative norm worst {norm[far]:.3e} "
+        f"({far}), largest elementwise {max(peak.values()):.3e} of its tensor's largest")
+    if not (box_err <= 1e-3 and score_err <= 1e-5 and loss_err <= 1e-4 and sorted(gl) == sorted(cl)
+            and norm[far] <= GRAD_NORM_LIMIT):
+        raise AssertionError(f"{kind}: card and CPU disagree")
+
+
+WIDE_SINGLE_STAGE = ("retinanet", "fcos", "fovea", "reppoints")  # the 1231-class detectors
+NEAR_CUT = 1e-4  # a row whose best score is this near its level's cut may trade places under f32 rounding
+
+
+def record_candidates(torch, model, fn) -> tuple:
+    """Run `fn` with `model`'s module recording what each `level_top_k`
+    call returns ((B, K, C) scores, (B, K) row indices, one call a level)
+    and the (B, N, 4) boxes handed to the multiclass NMS."""
+    from balancedgroupsoftmax_torch.models import single_stage
+
+    module = sys.modules[type(model).__module__]
+    own, calls = module.level_top_k, []
+
+    def record(*args, **kw):
+        calls.append(own(*args, **kw))
+        return calls[-1]
+
+    module.level_top_k = record
+    try:
+        seen = capture_calls(("batched_multiclass_nms",), fn, module=single_stage)
+    finally:
+        module.level_top_k = own
+    return [(sc.cpu(), idx.cpu()) for sc, idx in calls], seen["batched_multiclass_nms"][0][0].cpu()
+
+
+def compare_wide_candidates(torch, kind: str, dev=None) -> None:
+    """The CPU tests' small image at the main path's class width (1231
+    classes, nms_pre 64, 300 detections), f32, TF32 off: the candidates the
+    card's level top-k and decode hand the multiclass NMS against the CPU's.
+    In each image and level, a row either side takes must be taken by the
+    other unless its best score lies within NEAR_CUT of the level's cut (a
+    near tie that f32 rounding may reorder); a row both take has scores
+    within 1e-5 and a box within 1e-3 px (the CPU tests' tolerances). The
+    NMS kernels on such candidates are held to their plain versions by the
+    phase's K6 and K5 rows."""
+    dev = dev or torch.device("cuda")
+    wide = dict(num_classes=1231, max_per_img=300)
+    cpu = single_stage_model(torch, torch.device("cpu"), kind, torch.float32, small=True, **wide)
+    card = single_stage_model(torch, torch.device("cpu"), kind, torch.float32, small=True, **wide)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = {}
+        for name, m, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+            images, shapes, sf = single_stage_inputs(torch, d, kind, SMALL_SINGLE_STAGE, 2)
+            with torch.no_grad():
+                got[name] = record_candidates(torch, m, lambda: m.predict(images, shapes, sf))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    (g_levels, g_boxes), (c_levels, c_boxes) = got["card"], got["cpu"]
+    if [i.shape for _, i in g_levels] != [i.shape for _, i in c_levels] or g_boxes.shape != c_boxes.shape:
+        raise AssertionError(f"{kind}: card and CPU candidates differ in shape")
+    both = near = start = 0
+    score_err = box_err = 0.0
+    for (gs, gi), (cs, ci) in zip(g_levels, c_levels):
+        for b in range(ci.shape[0]):
+            g_row = {j: r for r, j in enumerate(gi[b].tolist())}
+            c_row = {j: r for r, j in enumerate(ci[b].tolist())}
+            cut = max(gs[b].amax(-1).min().item(), cs[b].amax(-1).min().item()) + NEAR_CUT
+            for rows, s, other in ((g_row, gs[b], c_row), (c_row, cs[b], g_row)):
+                alone = [j for j in rows if j not in other]
+                if any(s[rows[j]].max().item() > cut for j in alone):
+                    raise AssertionError(f"{kind}: a candidate clear of its level's cut is taken on one side only")
+                near += len(alone)
+            for j, r in g_row.items():
+                if j in c_row:
+                    both += 1
+                    score_err = max(score_err, (gs[b, r] - cs[b, c_row[j]]).abs().max().item())
+                    box_err = max(box_err, (g_boxes[b, start + r] - c_boxes[b, start + c_row[j]]).abs().max().item())
+        start += ci.shape[1]
+    log(f"  wide f32 {SINGLE_STAGE_LABELS[kind]} candidates card vs CPU (1231 classes, {len(c_levels)} levels): "
+        f"{both} taken on both sides, {near} near a cut on one side only; max score diff {score_err:.3e}, "
+        f"box diff {box_err:.3e} px")
+    if not (score_err <= 1e-5 and box_err <= 1e-3 and both > 0):
+        raise AssertionError(f"{kind}: card and CPU candidates disagree at 1231 classes")
+
+
+def run_single_stage_path(torch, ops, dev, kind: str) -> list:
+    """One single-stage detector at its repo default on the card, bf16,
+    seeded weights (`single_stage_model`): a first and TIMED_PREDICTS timed
+    serving calls (`predict`; GA-RPN `propose` at nms_pre 1000) with their
+    launches asserted (K6 and K5 once a predict, RepPoints K7 ten times:
+    two deformable convs x five levels; GA-RPN K1 once and K7 five times;
+    no other kernel), the detections or proposals checked, a profiled call;
+    two `_overfit` SGD steps (a first, then a timed one with its launches:
+    RepPoints K7 and K7b ten times, GA-RPN five, none for the others) whose
+    losses must be finite, which must give every trainable tensor a finite
+    non-zero gradient and move each whose update its f32 values can hold,
+    with the peak memory; then the path's kernel rows and the small f32 card vs
+    CPU comparison. Returns the rows."""
+    label = SINGLE_STAGE_LABELS[kind]
+    t0 = time.perf_counter()
+    model = single_stage_model(torch, dev, kind, torch.bfloat16).eval()
+    log(f"  {label} built on the card in {time.perf_counter() - t0:.1f} s")
+    from balancedgroupsoftmax_torch.config import ProposalConfig
+
+    images, shapes, sf = single_stage_inputs(torch, dev, kind)
+    pcfg = ProposalConfig(**GA_PROPOSALS)
+    call = (lambda: model.propose(images, shapes, pcfg)) if kind == "ga_rpn" else (lambda: model.predict(images, shapes, sf))
+    dcn = {"reppoints": 10, "ga_rpn": 5}.get(kind, 0)
+    each = {"bags_deform_conv_forward": dcn, "bags_deform_conv_backward": 0, "bags_nms_keep_gathered": 0,
+            "bags_roi_align_forward": 0, "bags_nms_keep_tiled": 0}
+    each.update({"bags_nms_keep": 1, "bags_gather_lanes": 0, "bags_nms_keep_coords": 0} if kind == "ga_rpn"
+                else {"bags_nms_keep": 0, "bags_gather_lanes": 1, "bags_nms_keep_coords": 1})
+    out, ms, first_s, launches, peak = timed_calls(torch, call, each, f"{label} calls")
+    size = tuple(images.shape[1:3])
+    if kind == "ga_rpn":
+        check_proposals(torch, out, size)
+        log(f"  proposals: {int(out.valid.sum())} valid of {tuple(out.valid.shape)}")
+    else:
+        check_detections(torch, out, model.cfg.num_classes, size)
+        log(f"  detections: {int(out.valid.sum())} valid, top score {out.scores[0, 0].item():.6f}")
+    log(f"  first call {first_s:.2f} s; then {ms:.3f} ms a batch of {images.shape[0]} at {size}, "
+        f"{images.shape[0] / ms * 1e3:.2f} images/s, peak memory {peak:.2f} GiB ({card_line()})")
+    log(f"  launches over {TIMED_PREDICTS} calls: {launches}")
+    profile_device(torch, f"{label} serving", call)
+
+    rows = []
+    if kind == "retinanet":
+        seen = capture_calls(("gather_lanes", "nms_keep_batched_coords"), call)
+        (rows_t, idx), kw = seen["gather_lanes"]
+        k6_matches(torch, ops["gather"], rows_t, idx, kw["groups_per_plane"], "RetinaNet's candidates")
+        k5 = check_k5(torch, ops["nms"], *seen["nms_keep_batched_coords"][0], path="RetinaNet")
+        k5.update(name="nms_keep_batched_coords/retinanet", launches=launches["bags_nms_keep_coords"])
+        out6 = ops["gather"].gather_lanes(rows_t, idx, kw["groups_per_plane"])
+        p_, r_, n_ = rows_t.shape
+        src = rows_t[:, None].expand(p_, kw["groups_per_plane"], r_, n_)
+        index = idx.long().view(p_, kw["groups_per_plane"], 1, -1).expand(p_, kw["groups_per_plane"], r_, idx.shape[1])
+        b_ms, b_by = bound(out6.numel() * 4 + idx.numel() * 4 + rows_t.numel() * 4, 0)
+        rows += [dict(name="gather_lanes/retinanet", route="cuda", source="balancedgroupsoftmax_torch/csrc/gather.cu",
+                      replaces="balancedgroupsoftmax_tpu/pallas/gather.py:59", max_abs_err=0.0,
+                      ms=cuda_time_ms(lambda: ops["gather"].gather_lanes(rows_t, idx, kw["groups_per_plane"]), 300),
+                      plain_ms=cuda_time_ms(lambda: ops["gather"].gather_lanes_reference(rows_t, idx, kw["groups_per_plane"]), 10),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(lambda: torch.gather(src, 3, index), 300),
+                      launches=launches["bags_gather_lanes"],
+                      shape=f"P={p_} R={r_} N={n_} G={idx.shape[0]} K={idx.shape[1]}: RetinaNet's candidates"), k5]
+    if kind == "ga_rpn":
+        seen = capture_calls(("nms_keep_batched",), call)
+        k1 = check_k1(torch, ops["nms"], *seen["nms_keep_batched"][0], path="GA-RPN propose")
+        k1.update(name="nms_keep/ga-rpn", launches=launches["bags_nms_keep"])
+        rows.append(k1)
+    fwd = record_calls(ops["dcn"], "deform_conv2d", call) if dcn else []
+
+    model.train()
+    batch = single_stage_batch(torch, dev, kind)
+    step = single_stage_step(torch, model, kind)
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = step(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses, step_launches = counted(torch, lambda: step(batch))
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_launches(step_launches, {"bags_deform_conv_forward": dcn, "bags_deform_conv_backward": dcn,
+                                    "bags_nms_keep": 0, "bags_gather_lanes": 0, "bags_nms_keep_coords": 0}, 1,
+                    f"{label} training steps")
+    if not all(torch.isfinite(v).item() for d in (first, losses) for v in d.values()):
+        raise AssertionError(f"{label}: a loss is not finite: {first}, {losses}")
+    moved = {n for n, p in named.items() if not torch.equal(p.detach(), before[n])}
+    trainable = {n for n, p in named.items() if p.requires_grad}
+    no_grad = sorted(n for n in trainable if named[n].grad is None or not named[n].grad.any()
+                     or not torch.isfinite(named[n].grad).all())
+    # a tensor the clipped SGD update leaves below its values' f32 resolution
+    # (FCOS's last level scale, 1.0, under a global norm clipped to 10) stays put
+    fine = lambda n: bool(((SINGLE_STAGE_STEP_LR * step.opt.state[named[n]]["momentum_buffer"]).abs()
+                           <= torch.finfo(torch.float32).eps * named[n].detach().abs()).all())
+    below = sorted(n for n in trainable - moved if fine(n))
+    if no_grad or moved - trainable or trainable - moved - set(below):
+        raise AssertionError(f"{label}: tensors without a gradient {no_grad[:8]}, unmoved "
+                             f"{sorted(trainable - moved - set(below))[:8]}")
+    log(f"  training: first step {first_s:.2f} s, then {step_ms:.3f} ms a step of {batch[0].shape[0]} images "
+        f"(bf16 compute, f32 parameters), peak memory {peak:.2f} GiB ({card_line()}); losses "
+        + ", ".join(f"{k} {v.item():.5f}" for k, v in losses.items())
+        + f"; all {len(trainable)} trainable tensors got a finite non-zero gradient and {len(moved)} moved"
+        + (f" ({below}: an update below their f32 resolution)" if below else ""))
+    profile_device(torch, f"{label} train step", lambda: step(batch))
+    if dcn:
+        bwd = record_calls(ops["dcn"], "deform_conv2d_backward", lambda: step(batch))
+        # the finest level's layer: x (B, H, W, C) forward, grad_out then x backward
+        fwd_args = max((c[0] for c in fwd), key=lambda a: a[0].shape[1] * a[0].shape[2])
+        bwd_args = max((c[0] for c in bwd), key=lambda a: a[1].shape[1] * a[1].shape[2])
+        rows += dcn_rows(torch, ops["dcn"], fwd_args, bwd_args, "reppoints" if kind == "reppoints" else "ga-rpn",
+                         (launches["bags_deform_conv_forward"], step_launches["bags_deform_conv_backward"]))
+    for r in rows:
+        log_row(r)
+    del model, step, batch, before
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    compare_small_single_stage(torch, kind)
+    if kind in WIDE_SINGLE_STAGE:
+        compare_wide_candidates(torch, kind)
+    log(f"  small f32 {label} card vs CPU: wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def log_row(r: dict) -> None:
     lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
     log(f"  {r['name']} ({r['shape']}): max err {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
         f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib}")
+
+
+def run_single_stage_phase(torch, ops_dcn, ops_gather, ops_nms, dev) -> list:
+    """The single-stage family, one model after another (`run_single_stage_path`)."""
+    rows = []
+    ops = {"dcn": ops_dcn, "gather": ops_gather, "nms": ops_nms}
+    for kind in SINGLE_STAGE:
+        t0 = time.perf_counter()
+        rows += run_single_stage_path(torch, ops, dev, kind)
+        log(f"phase {SINGLE_STAGE_LABELS[kind]} serving and training: wall {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -3721,6 +4148,8 @@ def main() -> int:
         rows += variant_rows
         log(f"phase {VARIANT_LABELS[kind]} serving and training: wall {time.perf_counter() - t0:.1f} s")
 
+    rows += run_single_stage_phase(torch, ops_dcn, ops_gather, ops_nms, dev)
+
     with tempfile.TemporaryDirectory() as flow_root:
         t0 = time.perf_counter()
         flow = run_flow(torch, ops_nms, ops_roi, train_ms, flow_root)
@@ -3739,9 +4168,9 @@ def main() -> int:
     # predicts for K1-K3, its selectp=0 training steps for K4 and K2b, the
     # cascade's predicts for K5 and K6, the HTC's for K7, its selectp=0
     # training steps for K7b, one pass of the
-    # R50's stride-1 runs for K8 and K9; the "/mask-rcnn", "/grid" and
-    # "/double-head" rows carry their models' predicts' and selectp=0
-    # steps' counts, the "/ablation-train"
+    # R50's stride-1 runs for K8 and K9; the "/mask-rcnn", "/grid",
+    # "/double-head", "/retinanet", "/ga-rpn" and "/reppoints" rows carry
+    # their models' serving calls' and steps' counts, the "/ablation-train"
     # and "/tnorm-select" rows their ablation rows' counts, the "/tta-*"
     # rows the K1 launches of their flows' timed batches
     symbols = {

@@ -8,6 +8,7 @@ measures.
     python tests/f64_witness.py small   # about 2 min on 8 CPU threads
     python tests/f64_witness.py mask    # about 3 min on 4 CPU threads
     python tests/f64_witness.py variants  # about 2 min on 4 CPU threads
+    python tests/f64_witness.py single_stage  # about 3 min on 1 CPU thread
 
 `tiny`: the HTC of test_torch_htc_train.py (GS heads, D = 4) with its offset
 convs at a scale of 1.0, through JAX in f32 and in f64 (`jax.enable_x64`;
@@ -38,6 +39,15 @@ tiny configuration, the port in f32 and in f64 against JAX in f32, on the
 same weights and inputs: the gradients of the heads that the suite holds in
 f64 (`F64_HELD`), each tensor's largest difference over its largest value,
 the five worst of each pair.
+
+`single_stage`: GA-RPN and SSD at tests/torch_single_stage_suite.py's tiny
+configurations, the port in f32 and in f64 against JAX in f32, on the same
+weights and inputs: what the suite holds in f64 (`f64_heads`, `f64_grads`),
+GA-RPN's RPN logits and deltas after the adaption DCN at each level, and
+SSD's gradients, each tensor's largest difference over its largest value,
+the five worst of each pair (and for SSD, JAX f32 against the port in f64).
+Then, on the whole batch (`f64_run`), JAX in f32 against JAX in f64 and the
+port in f64 against JAX in f64, on what the suite holds in f64.
 """
 
 import copy
@@ -287,5 +297,59 @@ def variants() -> None:
             print(f"  {label}: " + ", ".join(f"{n} {r:.3e}" for n, r in worst))
 
 
+def single_stage() -> None:
+    import torch_single_stage_suite as S
+
+    torch.set_num_threads(1)  # as the suite runs PyTorch
+    for kind in ("guided_anchor", "ssd"):
+        setup, spec = S.setup_of(kind), S.SPECS[kind]
+        batch = setup["batch"] if spec.loss_takes_shapes else setup["batch"][:4]
+        heads, grads = {}, {}
+        for dtype in (torch.float32, torch.float64):
+            model = spec.port_model(spec.port_config(**spec.config), dtype=dtype)
+            model.load_state_dict(S.params_from_flax(setup["variables"]))
+            model.to(dtype)
+            with torch.no_grad():
+                outs = model(batch[0].to(dtype))
+            heads[dtype] = {f"level {lvl} output {i}": o[i].permute(0, 2, 3, 1).double().numpy()
+                            for lvl, o in enumerate(outs) for i in spec.f64_heads}
+            sum(model.loss(*(x.to(dtype) if x.is_floating_point() else x for x in batch)).values()).backward()
+            grads[dtype] = {n: p.grad.double().numpy() for n, p in model.named_parameters()}
+        jax_heads = {f"level {lvl} output {i}": np.asarray(o[i], np.float64)
+                     for lvl, o in enumerate(setup["heads"]) for i in spec.f64_heads}
+        jax_grads = {n: g.double().numpy() for n, g in setup["grads"].items()}
+        rel = lambda got, want: {n: np.abs(got[n] - want[n]).max() / max(np.abs(want[n]).max(), 1e-300) for n in want}
+        pairs = [("port f32 vs JAX f32", torch.float32, "jax"), ("port f32 vs port f64", torch.float32, torch.float64)]
+        if spec.f64_grads:
+            pairs.append(("port f64 vs JAX f32", torch.float64, "jax"))
+        for what, port, jax_side in (("head outputs", heads, jax_heads), ("gradients", grads, jax_grads)):
+            if not jax_side:
+                continue
+            print(f"{kind}: {what}, largest difference over the tensor's largest value")
+            for label, a, b in pairs:
+                got, want = port[a], (jax_side if b == "jax" else port[b])
+                worst = sorted(rel(got, want).items(), key=lambda kv: -kv[1])[:5]
+                print(f"  {label}: " + ", ".join(f"{n} {r:.3e}" for n, r in worst))
+        images = len(setup["batch"][0])  # the whole batch, as JAX's f32 run
+        (jh64, jg64), (ph64, pg64) = S.f64_run(setup, images=images)
+        side = {
+            "head outputs": (
+                {f"level {lvl} output {i}": np.asarray(o[i], np.float64)
+                 for lvl, o in enumerate(setup["heads"]) for i in spec.f64_heads},
+                {f"level {lvl} output {i}": np.asarray(o[i], np.float64) for lvl, o in enumerate(jh64) for i in spec.f64_heads},
+                {f"level {lvl} output {i}": o[i].permute(0, 2, 3, 1).double().numpy()
+                 for lvl, o in enumerate(ph64) for i in spec.f64_heads}),
+            "gradients": ({n: jax_grads[n] for n in jg64}, {n: g.double().numpy() for n, g in jg64.items()},
+                          {n: g.double().numpy() for n, g in pg64.items()}) if spec.f64_grads else ({}, {}, {}),
+        }
+        for what, (j32, j64, p64) in side.items():
+            if not j64:
+                continue
+            print(f"{kind}: {what} held in f64, largest difference over the tensor's largest value")
+            for label, got in (("JAX f32 vs JAX f64", j32), ("port f64 vs JAX f64", p64)):
+                worst = sorted(rel(got, j64).items(), key=lambda kv: -kv[1])[:5]
+                print(f"  {label}: " + ", ".join(f"{n} {r:.3e}" for n, r in worst))
+
+
 if __name__ == "__main__":
-    {"tiny": tiny, "small": small, "mask": mask, "variants": variants}[sys.argv[1]]()
+    {"tiny": tiny, "small": small, "mask": mask, "variants": variants, "single_stage": single_stage}[sys.argv[1]]()

@@ -772,9 +772,10 @@ def test_deform_conv_backward_refuses_what_the_kernel_does_not_take(dev):
         ops_dcn.deform_conv2d_backward(g, x, off, torch.zeros(16, 2, 3, 3, device=dev), None, 1, 1, 8, 4)
     with pytest.raises(ValueError):  # the output's gradient in another dtype than x
         ops_dcn.deform_conv2d_backward(g.bfloat16(), x, off, torch.zeros(16, 4, 3, 3, device=dev), None, 1, 1, 4, 4)
-    with pytest.raises(ValueError):  # one group of 1024 channels: no weight block fits
+    with pytest.raises(ValueError):  # one group of 1024 channels, v2: no weight block fits, and the dense route is v1
         ops_dcn.deform_conv2d_backward(torch.zeros(1, 8, 8, 1024, device=dev), torch.zeros(1, 8, 8, 1024, device=dev),
-                                       off, torch.zeros(1024, 1024, 3, 3, device=dev), None, 1, 1, 1, 4)
+                                       off, torch.zeros(1024, 1024, 3, 3, device=dev), torch.zeros(1, 8, 8, 9, device=dev),
+                                       1, 1, 1, 4)
     assert cuda.DEFORM_CONV_BACKWARD.launches == before
 
 
@@ -1139,3 +1140,67 @@ def test_tta_merges_on_the_card_equal_the_cpu(dev, views):
     assert cuda.NMS_KEEP.launches == before + 1
     for gk, ck in zip(g, merge_aug_detections(boxes, scores, labels, valid, torch.device("cpu"))):
         np.testing.assert_array_equal(gk, ck)
+
+
+# (B, H, W) of the single-stage heads' deformable layers (256 -> 256, one
+# group, 3 x 3, D = 0, v1): RepPoints' stride-8 and stride-128 levels at
+# 800 x 1344, GA-RPN's stride-4 level at a quarter of that, and a ragged one
+SINGLE_STAGE_DCN = [(2, 100, 168), (2, 7, 11), (1, 100, 168), (2, 13, 21)]
+
+
+def single_stage_dcn_case(seed, b, h, w, c=256):
+    """RepPoints-shaped inputs: nine points spread over a few cells (std 2.5),
+    some rows of points far outside the image, minus the 3 x 3 base."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    pts = rng.randn(b, h, w, 18) * 2.5
+    pts[:, : max(1, h // 8)] += 9.0
+    base = np.stack([np.repeat(np.arange(-1, 2), 3), np.tile(np.arange(-1, 2), 3)], -1).reshape(-1)
+    weight = rng.randn(c, c, 3, 3) / np.sqrt(9 * c)
+    return x, (pts - base).astype(np.float32), weight.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SINGLE_STAGE_DCN, ids=lambda t: "x".join(map(str, t)))
+def test_dense_deform_conv_matches_plain(dev, dtype, shape):
+    """K7's dense route (one group of 256 channels, D = 0) against its plain
+    version: f32 within 1e-5 of the largest output, bf16 within one step."""
+    x, off, weight = single_stage_dcn_case(sum(shape), *shape)
+    b, h, w = shape
+    assert ops_dcn.launch_plan(b, h, w, 256, 1, 256, 3, 3, 1, 0) is None and ops_dcn.takes_dense(1, 3, 3, None)
+    _deform_matches_plain(dev, dtype, x, off, weight, None, 1, 1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SINGLE_STAGE_DCN[1:], ids=lambda t: "x".join(map(str, t)))
+def test_dense_deform_conv_backward_matches_plain(dev, dtype, shape):
+    """K7b's dense route against its plain version: dx, the offsets' and the
+    weight's gradients (f32 within 1e-5 of each one's largest value, bf16
+    within one step), one launch."""
+    x, off, weight = single_stage_dcn_case(sum(shape) + 1, *shape)
+    assert ops_dcn.backward_plan(*shape, 256, 1, 256, 3, 3, 1, 0) is None
+    deform_backward_matches_plain(dev, dtype, x, off, weight, None, 1, 1, 0, seed=sum(shape))
+
+
+def test_retinanet_candidates_through_k6_and_k5_match_plain(dev):
+    """The class-agnostic multiclass NMS at RetinaNet's shape (2 images of
+    4693 decoded boxes, 1230 classes capped to 300, 300 candidates a class;
+    boxes with exact duplicates and pairs at the threshold) and at SSD's
+    (8732 boxes, 20 classes, no cap): K6 then K5 on the card, once each,
+    equal to the plain versions on the CPU."""
+    from balancedgroupsoftmax_torch import kernels
+
+    for n, classes in ((4693, 1231), (8732, 21)):
+        boxes, _ = tie_rows(n, 2, n, 0.5, spread=1200)
+        rng = np.random.RandomState(n)
+        scores = rng.rand(2, n, classes).astype(np.float32) ** 4
+        scores[..., 0] = 0.0
+        args = lambda d: (torch.from_numpy(boxes).to(d), torch.from_numpy(scores).to(d),
+                          torch.ones(2, n, dtype=torch.bool, device=d))
+        before = (cuda.GATHER_LANES.launches, cuda.NMS_KEEP_COORDS.launches)
+        got = kernels.batched_multiclass_nms(*args(dev), 0.05, 0.5, 300)
+        assert (cuda.GATHER_LANES.launches, cuda.NMS_KEEP_COORDS.launches) == (before[0] + 1, before[1] + 1)
+        want = kernels.batched_multiclass_nms(*args("cpu"), 0.05, 0.5, 300)
+        assert bool(want[3].any())
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), n

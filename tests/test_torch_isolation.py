@@ -72,3 +72,20 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     keep = nms_keep_batched(torch.zeros(1, 3, 4), torch.ones(1, 3, dtype=torch.bool), 0.5)
     assert keep.tolist() == [[True, False, False]]
     assert [k.launches for k in cuda.KERNELS] == before
+
+
+def test_every_launcher_signature_matches_its_c_declaration_and_fits_the_launch_slots():
+    """`cuda.SIGNATURES` gives each launcher as many arguments as its C
+    declaration in `csrc/` takes, and no more than the slots
+    `csrc/pylaunch.cu` packs (a launcher with more would be refused on the
+    card at every launch)."""
+    import re
+
+    from balancedgroupsoftmax_torch import cuda
+
+    slots = int(re.search(r"kMaxSlots = (\d+);", (PORT / "csrc" / "pylaunch.cu").read_text()).group(1))
+    sources = "".join(p.read_text() for p in sorted((PORT / "csrc").glob("*.cu")))
+    for symbol, kinds in cuda.SIGNATURES.items():
+        declared = re.search(rf"\bint {symbol}\(([^)]*)\)\s*{{", sources)
+        assert declared, symbol
+        assert len(declared.group(1).split(",")) == len(kinds) <= slots, symbol
